@@ -1,0 +1,418 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one card.
+
+    python3 chip_smoke.py            # from the root of a checkout
+
+Builds the hand-written CUDA kernels, holds each against its plain torch
+version on the card at the shapes of the main path, checks card against
+CPU on a small graph, then drives one full-size TIMEST estimate through
+``repro_torch.estimate`` and shows that it went through both kernels.
+Each phase prints one JSON line; the line before the last is the
+``kernels`` record and the last line is ``{"ok": true, "device": ...}``.
+Any mismatch or error exits non-zero without that line.  Without a CUDA
+device, or outside a checkout of the repository, it fails at once.
+
+Full size: a power-law temporal graph at the scale of SNAP's
+wiki-talk-temporal (1,140,149 nodes, 7,833,140 temporal edges, 2,320 days
+in seconds), motif M5-3, delta 3600, k = 2^20, chunk 8192, seed 0.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+FULL_GRAPH = ("powerlaw:n=1140149,m=7833140,alpha=2.1,"
+              "time_span=200448000,seed=0")
+SMALL_GRAPH = "powerlaw:n=150,m=2000,time_span=40000,seed=11"
+# (motif, delta, k, seed) on SMALL_GRAPH with chunk 256, and the JAX
+# reference's result there (repro.core.estimator.estimate under jax's
+# default threefry mode): W, cnt2_sum, valid
+SMALL_CASES = (("M5-3", 3000, 1024, 0, (412857, 20, 446)),
+               ("M4-2", 3000, 512, 3, (640115, 557, 395)))
+FIELDS = ("estimate", "W", "k", "cnt2_sum", "valid", "fail_vmap",
+          "fail_delta", "fail_order", "overflow", "tree_edges")
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
+OPS_PER_S = 67e12             # H100 SXM non-tensor fp32 rate, used for
+                              # the integer compare/select/add work
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def require(cond, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls (CUDA events)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bisect_steps(n):
+    """Trips of a segment bisection over ``n`` elements (tensor):
+    ``ceil(log2(n + 1))``, the loop runs while ``l < h``."""
+    import torch
+    return torch.ceil(torch.log2(n.double() + 1)).long()
+
+
+def find_steps(n):
+    """Trips of ``monotone_find`` over ``n`` positions (tensor):
+    ``ceil(log2(n))``, the loop runs while ``h - l > 1``."""
+    import torch
+    return torch.ceil(torch.log2(n.clamp(min=1).double())).long()
+
+
+def sampler_bytes(dev, wts, schedule, S, x, edges, window) -> int:
+    """Bytes the tree sampler must move on this run's data.
+
+    Draws and outputs once each, plus one 8 B word per gather the kernel
+    makes on each sample's own data: the window bisection over ``q``;
+    the center edge's inverse CDF over its window's edge range; per
+    child, the three bisections of the meet vertex's CSR segment and of
+    its parallel-edge list (full segment lengths), then the inverse CDF
+    over the delta range ``[plo, phi)`` only, each of its steps two
+    prefix words plus, with the Claim 4.8 exclusion, the nested search
+    over ``[qlo, qhi)`` and two more prefix words.
+    """
+    import torch
+    from repro_torch.core.bisect import (bisect_iters, seg_lower_bound,
+                                         seg_upper_bound)
+    K = x.shape[0]
+    t = dev["t"]
+    it = bisect_iters(t.shape[0])
+    delta, wd = wts.delta, wts.wd
+    win = window
+    words = bisect_steps(torch.full_like(x, wts.q)) + 4          # window
+    span = wts.win_hi[win] - wts.win_lo[win]
+    words = words + 2 + 2 * find_steps(span)                     # center
+    for (s, c, meet_end, alpha, beta, use_rev) in schedule:
+        e = edges[:, s]
+        meet = (dev["src"] if meet_end == 0 else dev["dst"])[e].long()
+        te = t[e]
+        ptr, csr_t = ((dev["out_ptr"], dev["out_t"]) if alpha > 0
+                      else (dev["in_ptr"], dev["in_t"]))
+        p0, p1 = ptr[meet], ptr[meet + 1]
+        if beta < 0:
+            tlo, thi = torch.maximum(te - delta, win * wd), te
+        else:
+            tlo, thi = te, torch.minimum(te + delta, (win + 2) * wd - 1)
+        plo = seg_lower_bound(csr_t, p0, p1, tlo, iters=it)
+        phi = seg_upper_bound(csr_t, p0, p1, thi, iters=it)
+        evals = find_steps(phi - plo) + 1      # g at each step and at phi
+        words = words + 5 + 3 * bisect_steps(p1 - p0) + 2 + 2 * evals
+        if wts.use_c2:
+            pid = (dev["rev_pair_id"] if use_rev else dev["pair_id"])[e]
+            pid = pid.long()
+            pid0 = pid.clamp(min=0)
+            q0 = dev["pair_ptr"][pid0]
+            q1 = torch.where(pid >= 0, dev["pair_ptr"][pid0 + 1], q0)
+            qlo = seg_lower_bound(dev["pair_t"], q0, q1, tlo, iters=it)
+            qhi = seg_upper_bound(dev["pair_t"], q0, q1, thi, iters=it)
+            words = (words + 3 + 3 * bisect_steps(q1 - q0) + 2
+                     + evals * (bisect_steps(qhi - qlo) + 2))
+    io = K * (8 + 16 * (S - 1) + 8 * S + 8)
+    return int(words.sum()) * 8 + io
+
+
+def phase_card() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(out, flush=True)
+    emit({"phase": "card", "nvidia_smi": out})
+    return out
+
+
+def phase_build() -> None:
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    built = _build.build()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "built": built, "dir": str(_build.BUILD_DIR.relative_to(ROOT))})
+
+
+def phase_interval_weight(dev, wts, tree) -> dict:
+    """The kernel against its plain version on one real dep-sum."""
+    import torch
+    from repro_torch.core.weights import dep_sum_queries
+    from repro_torch.kernels.interval_weight.ops import interval_weight
+    from repro_torch.kernels.interval_weight.ref import interval_weight_ref
+    d = tree.deps[tree.root][0]
+    qs = dep_sum_queries(dev, d, wts.delta, wts.wd, "own", use_c2=True)
+    csr_t, *q = qs["lam"]
+    args = (csr_t, wts.ps_acc_own[d.child].contiguous(),
+            wts.ps_acc_prev[d.child].contiguous(),
+            *[a.contiguous() for a in q])
+    got = interval_weight(*args)
+    want = interval_weight_ref(*args)
+    torch.cuda.synchronize()
+    require(got.dtype == want.dtype and torch.equal(got, want),
+            "interval_weight kernel differs from its plain version")
+    err = int((got - want).abs().max())
+    ms = cuda_ms(lambda: interval_weight(*args), reps=20)
+    plain_ms = cuda_ms(lambda: interval_weight_ref(*args), reps=3)
+    m, Q = csr_t.shape[0], q[0].shape[0]
+    nbytes = (3 * m + 2 + 6 * Q) * 8
+    it = max(8, m.bit_length() + 1)
+    ops = Q * 3 * it * 4
+    bound = max(nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S) * 1e3
+    rec = dict(name="interval_weight", route="cuda",
+               source="src/repro_torch/kernels/interval_weight/csrc/"
+                      "interval_weight.cu",
+               replaces="src/repro/kernels/interval_weight/kernel.py:75",
+               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+               bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
+                         >= ops / OPS_PER_S else "operations"),
+               library_ms=None)
+    emit({"phase": "interval_weight", "Q": Q, "m": m, "bytes": nbytes,
+          "equal": True, **{k: rec[k] for k in ("ms", "plain_ms",
+                                                 "bound_ms")}})
+    return rec
+
+
+def phase_tree_sampler(dev, wts, tree, chunk: int) -> dict:
+    """The kernel against its plain version on one chunk's real draws."""
+    import torch
+    from repro_torch.core import rng
+    from repro_torch.kernels.tree_sampler.ops import (build_schedule,
+                                                      prepare_draws,
+                                                      tree_sampler)
+    from repro_torch.kernels.tree_sampler.ref import tree_sampler_ref
+    schedule = build_schedule(tree)
+    S = tree.num_edges
+    key = rng.fold_in(rng.PRNGKey(0), 0).cuda()
+    x, uhi, ulo = prepare_draws(tree, wts, key, chunk)
+    args = (schedule, tree.root, S, dev, wts, x, uhi, ulo)
+    e_k, w_k = tree_sampler(*args)
+    e_r, w_r = tree_sampler_ref(*args)
+    torch.cuda.synchronize()
+    require(torch.equal(e_k, e_r) and torch.equal(w_k, w_r),
+            "tree_sampler kernel differs from its plain version")
+    err = max(int((e_k - e_r).abs().max()), int((w_k - w_r).abs().max()))
+    ms = cuda_ms(lambda: tree_sampler(*args), reps=20)
+    plain_ms = cuda_ms(lambda: tree_sampler_ref(*args), reps=2)
+    nbytes = sampler_bytes(dev, wts, schedule, S, x, e_k, w_k)
+    ops = nbytes // 8 * 4
+    bound = max(nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S) * 1e3
+    rec = dict(name="tree_sampler", route="cuda",
+               source="src/repro_torch/kernels/tree_sampler/csrc/"
+                      "tree_sampler.cu",
+               replaces="src/repro/kernels/tree_sampler/kernel.py:244",
+               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+               bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
+                         >= ops / OPS_PER_S else "operations"),
+               library_ms=None)
+    emit({"phase": "tree_sampler", "K": chunk, "S": S, "bytes": nbytes,
+          "equal": True, **{k: rec[k] for k in ("ms", "plain_ms",
+                                                 "bound_ms")}})
+    return rec
+
+
+def phase_small() -> None:
+    """Card against CPU (and the JAX reference's numbers) on a small graph."""
+    from repro_torch import estimate, get_motif
+    from repro_torch.launch.estimate import parse_graph
+    g = parse_graph(SMALL_GRAPH)
+    for name, delta, k, seed, (W, cnt2, valid) in SMALL_CASES:
+        kw = dict(seed=seed, chunk=256)
+        card = estimate(g, get_motif(name), delta, k, device="cuda", **kw)
+        cpu = estimate(g, get_motif(name), delta, k, device="cpu", **kw)
+        diff = [f for f in FIELDS if getattr(card, f) != getattr(cpu, f)]
+        require(not diff, f"{name}: card != CPU in {diff}")
+        got = (card.W, card.cnt2_sum, card.valid)
+        require(got == (W, cnt2, valid),
+                f"{name}: (W, cnt2, valid) = {got} != reference "
+                f"{(W, cnt2, valid)}")
+        emit({"phase": "small", "motif": name, "equal": True,
+              **{f: getattr(card, f) for f in FIELDS}})
+
+
+def phase_full(g, motif_name: str, delta: int, k: int, chunk: int) -> dict:
+    """The main path at full size, launch counters read around it."""
+    import math
+
+    import torch
+    from repro_torch import estimate, get_motif
+    from repro_torch.kernels.interval_weight.ops import interval_weight
+    from repro_torch.kernels.tree_sampler.ops import tree_sampler
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    interval_weight.launches = 0
+    tree_sampler.launches = 0
+    t0 = time.perf_counter()
+    res = estimate(g, get_motif(motif_name), delta, k, seed=0, chunk=chunk,
+                   device="cuda")
+    wall = time.perf_counter() - t0
+    launches = dict(interval_weight=interval_weight.launches,
+                    tree_sampler=tree_sampler.launches)
+    peak = torch.cuda.max_memory_allocated()
+    require(0 < res.W < 2 ** 62, f"W_total {res.W} outside (0, 2^62)")
+    require(math.isfinite(res.estimate) and res.estimate >= 0,
+            f"estimate {res.estimate} not finite and non-negative")
+    require(res.k == -(-k // chunk) * chunk, f"k {res.k} != k_eff")
+    require(0 <= res.valid <= res.k and res.overflow <= res.k,
+            "counts out of range")
+    require(res.fail_vmap + res.fail_delta + res.fail_order + res.valid
+            == res.k, "validation flags do not partition the samples")
+    require(all(v > 0 for v in launches.values()),
+            f"a kernel was not launched on the main path: {launches}")
+    emit({"phase": "full", "motif": motif_name, "delta": delta,
+          "m": g.m, "n": g.n, "estimate": res.estimate, "W": res.W,
+          "W_lt_2^62": True, "k": res.k, "valid": res.valid,
+          "cnt2_sum": res.cnt2_sum, "overflow": res.overflow,
+          "tree_edges": list(res.tree_edges), "wall_s": wall,
+          "tree_select_s": res.tree_select_s,
+          "preprocess_s": res.preprocess_s, "sampling_s": res.sampling_s,
+          "samples_per_s": res.k / res.sampling_s,
+          "peak_mem_bytes": peak, "launches": launches})
+    return launches
+
+
+def phase_breakdown(g, motif_name: str, delta: int, chunk: int,
+                    n_chunks: int = 16) -> None:
+    """Where a sampling chunk's time goes, on the main path's tree.
+
+    Host clock around each stage with a device sync after it (draws,
+    the tree-sampler kernel, the vertex map, validation + DeriveCnt),
+    then one ``torch.profiler`` pass over the same chunks for the
+    device-busy time and the idle share of the wall clock.
+    """
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import choose_tree, get_motif
+    from repro_torch.core import rng
+    from repro_torch.core.sampler import vertex_map
+    from repro_torch.core.validate import make_count_fn
+    from repro_torch.kernels.tree_sampler.ops import (build_schedule,
+                                                      prepare_draws,
+                                                      tree_sampler)
+    dev = g.device_arrays("cuda")
+    tree, wts = choose_tree(g, get_motif(motif_name), delta, dev=dev)
+    schedule = build_schedule(tree)
+    count = make_count_fn(tree, chunk)
+    keys = rng.fold_in(rng.PRNGKey(0), torch.arange(n_chunks)).cuda()
+
+    def stages(j, sync):
+        marks = []
+
+        def mark():
+            if sync:
+                torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+        mark()
+        x, uhi, ulo = prepare_draws(tree, wts, keys[j], chunk)
+        mark()
+        edges, window = tree_sampler(schedule, tree.root, tree.num_edges,
+                                     dev, wts, x, uhi, ulo)
+        mark()
+        samples = dict(edges=edges, window=window,
+                       phi_v=vertex_map(tree, dev, edges))
+        mark()
+        out = count(dev, wts, samples)
+        torch.stack([v.sum() for v in out.values()]).tolist()
+        mark()
+        return [b - a for a, b in zip(marks, marks[1:])]
+
+    stages(0, True)                               # warm
+    per = [stages(j, True) for j in range(n_chunks)]
+    names = ("draws", "tree_sampler", "vertex_map", "validate")
+    ms = {n: 1e3 * sum(p[i] for p in per) / n_chunks
+          for i, n in enumerate(names)}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for j in range(n_chunks):
+            stages(j, False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    avgs = prof.key_averages()
+
+    def dev_us(e):
+        return (getattr(e, "self_device_time_total", None)
+                or getattr(e, "self_cuda_time_total", 0) or 0)
+    # a kernel's time shows under the op that launched it and under the
+    # kernel's own entry: count the device-side entries only
+    kernels = [e for e in avgs
+               if getattr(e, "device_type", None) != DeviceType.CPU]
+    busy = sum(dev_us(e) for e in kernels) / 1e6
+    top = sorted(kernels, key=dev_us, reverse=True)[:5]
+    emit({"phase": "breakdown", "chunks": n_chunks, "chunk": chunk,
+          "host_ms_per_chunk_synced": ms,
+          "profiled_wall_s": wall, "device_busy_s": busy,
+          "device_idle_share": 1 - busy / wall if wall > 0 else None,
+          "kernel_launches": sum(e.count for e in kernels),
+          "top_kernels": [[e.key[:80], e.count, dev_us(e) / 1e3]
+                          for e in top]})
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--graph", default=FULL_GRAPH,
+                    help="full-size graph spec (default: wiki-talk scale)")
+    ap.add_argument("--motif", default="M5-3")
+    ap.add_argument("--delta", type=int, default=3600)
+    ap.add_argument("--k", type=int, default=1 << 20)
+    ap.add_argument("--chunk", type=int, default=8192)
+    args = ap.parse_args()
+
+    import torch
+    require(torch.cuda.is_available(), "no CUDA device")
+    require((ROOT / "src" / "repro_torch" / "__init__.py").exists(),
+            "src/repro_torch not found next to chip_smoke.py")
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import get_motif
+    from repro_torch.core.spanning_tree import candidate_trees
+    from repro_torch.core.weights import preprocess
+    from repro_torch.launch.estimate import parse_graph
+
+    phase_card()
+    phase_build()
+
+    t0 = time.perf_counter()
+    g = parse_graph(args.graph)
+    emit({"phase": "graph", "spec": args.graph, "n": g.n, "m": g.m,
+          "time_span": g.time_span, "seconds": time.perf_counter() - t0})
+
+    # one real candidate tree of the main path, preprocessed at full size
+    tree = candidate_trees(get_motif(args.motif), n_candidates=3,
+                           roots_per_tree=2)[0]
+    dev = g.device_arrays("cuda")
+    wts = preprocess(g, tree, args.delta, dev=dev)
+    recs = [phase_interval_weight(dev, wts, tree),
+            phase_tree_sampler(dev, wts, tree, args.chunk)]
+    del dev, wts
+    torch.cuda.empty_cache()
+
+    phase_small()
+    launches = phase_full(g, args.motif, args.delta, args.k, args.chunk)
+    phase_breakdown(g, args.motif, args.delta, args.chunk)
+    for rec in recs:
+        rec["launches"] = launches[rec["name"]]
+    emit({"kernels": recs})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+
+
+if __name__ == "__main__":
+    main()

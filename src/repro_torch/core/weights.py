@@ -1,0 +1,238 @@
+"""Preprocess sampling weights (paper Alg. 1/2, Claims 4.9/4.10).
+
+Torch counterpart of ``repro.core.weights`` (its docstring holds the
+design notes).  The graph is cut into ``q`` overlapping ``2*wd``
+windows ``[i*wd, (i+2)*wd)``; every edge lies in exactly two of them
+(``own = floor(t/wd)`` and ``prev = own - 1``), so each tree edge ``s``
+keeps two dense weight arrays ``w_own[s]``/``w_prev[s]`` and every
+interval sum inside a window splits at the ``(i+1)*wd`` breakpoint into
+four gathers of exclusive prefix sums held in CSR order.
+
+The inner dep-sum (Claim 4.9) is the interval-weight op
+(``kernels/interval_weight``): the CUDA kernel on the card, its plain
+twin on the CPU.  All weight arithmetic is exact int64.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..kernels.interval_weight.ops import interval_weight
+from .graph import TemporalGraph
+from .spanning_tree import BEFORE, OUT, Dependency, SpanningTree
+
+
+@dataclass
+class Weights:
+    """Per-tree-edge weight arrays + the prefix sums the sampler needs.
+
+    ``ps_acc_*[s]`` is the exclusive prefix over ``w_*[s]`` permuted into
+    the order the *parent* dependency accesses edge ``s`` through: the
+    root uses global (time-sorted) edge order, a child with ``alpha=OUT``
+    the out-CSR order, ``alpha=IN`` the in-CSR order.  ``ps_pair_*[s]`` is
+    the prefix over pair-CSR order (the ``\\ El`` exclusion of Claim 4.8).
+    """
+
+    tree: SpanningTree
+    delta: int
+    wd: int                    # window stride (== delta; C3-off: span + 1)
+    q: int                     # window count
+    use_c2: bool
+    w_own: torch.Tensor        # [S, m] int64
+    w_prev: torch.Tensor       # [S, m] int64
+    ps_acc_own: torch.Tensor   # [S, m+1]
+    ps_acc_prev: torch.Tensor  # [S, m+1]
+    ps_pair_own: torch.Tensor  # [S, m+1]
+    ps_pair_prev: torch.Tensor  # [S, m+1]
+    W_total: torch.Tensor      # 0-d int64
+    ps_win: torch.Tensor       # [q+1] exclusive prefix of window totals
+    win_lo: torch.Tensor       # [q] first edge id with t >= i*wd
+    win_mid: torch.Tensor      # [q] first edge id with t >= (i+1)*wd
+    win_hi: torch.Tensor       # [q] first edge id with t >= (i+2)*wd
+
+    @property
+    def W_win(self) -> torch.Tensor:
+        return self.ps_win[1:] - self.ps_win[:-1]
+
+
+ARRAY_FIELDS = ("w_own", "w_prev", "ps_acc_own", "ps_acc_prev",
+                "ps_pair_own", "ps_pair_prev", "W_total", "ps_win",
+                "win_lo", "win_mid", "win_hi")
+
+
+def weights_from_numpy(tree: SpanningTree, delta: int, wd: int, q: int,
+                       use_c2: bool, arrays: dict, device) -> Weights:
+    """``Weights`` on ``device`` from numpy arrays of the same names
+    (``ARRAY_FIELDS``), e.g. the JAX reference's preprocess output."""
+    return Weights(tree=tree, delta=int(delta), wd=int(wd), q=int(q),
+                   use_c2=bool(use_c2),
+                   **{k: torch.as_tensor(np.asarray(arrays[k]).astype(
+                       np.int64)).to(device) for k in ARRAY_FIELDS})
+
+
+def access_alpha(tree: SpanningTree) -> list[int]:
+    """Direction (OUT/IN/0) through which each tree edge is accessed.
+
+    ``alpha_of[root] = 0`` (accessed via the global time order); every
+    other tree edge is accessed through its single parent-dependency
+    direction.
+    """
+    alpha = [0] * tree.num_edges
+    for s in range(tree.num_edges):
+        for d in tree.deps[s]:
+            alpha[d.child] = d.alpha
+    return alpha
+
+
+def _excl(x: torch.Tensor) -> torch.Tensor:
+    """Exclusive prefix sum with a leading zero: [m] -> [m+1]."""
+    return torch.cat([x.new_zeros(1), torch.cumsum(x, 0)])
+
+
+def num_windows(time_span: int, wd: int) -> int:
+    """q such that windows [i*wd, (i+2)*wd), i in [0, q) cover every match."""
+    return max(1, -(-int(time_span + 1) // int(wd)) - 1)
+
+
+def dep_sum_queries(dev: dict, d: Dependency, delta: int, wd: int,
+                    window: str, use_c2: bool) -> dict:
+    """The interval-weight queries of one dependency's dep-sum, all edges.
+
+    ``window`` is ``"own"`` (window ``i = floor(t/wd)``) or ``"prev"``
+    (``i - 1``).  Returns ``lam = (csr_t, p0, p1, tlo, thi, brk)`` for
+    the Lambda sum over the alpha-CSR segment of the meet vertex and,
+    with ``use_c2``, ``el = (pair_t, q0, q1, tlo, thi, brk)`` for the
+    parallel-edge exclusion (Claim 4.8).  The caller pairs each with the
+    child's prefix sums in the same order.
+    """
+    t = dev["t"]
+    meet = (dev["src"] if d.meet_end == 0 else dev["dst"]).long()
+    if d.alpha == OUT:
+        ptr, csr_t = dev["out_ptr"], dev["out_t"]
+    else:
+        ptr, csr_t = dev["in_ptr"], dev["in_t"]
+    p0 = ptr[meet]
+    p1 = ptr[meet + 1]
+    i = t // wd if window == "own" else t // wd - 1
+    if d.beta == BEFORE:
+        tlo = torch.maximum(t - delta, i * wd)
+        thi = t
+    else:
+        tlo = t
+        thi = torch.minimum(t + delta, (i + 2) * wd - 1)
+    brk = (i + 1) * wd
+    out = dict(lam=(csr_t, p0, p1, tlo, thi, brk))
+    if use_c2:
+        # parallel edges to the *other* endpoint of e (Claim 4.8)
+        if d.alpha == OUT:
+            pid = dev["pair_id"] if d.meet_end == 0 else dev["rev_pair_id"]
+        else:
+            pid = dev["rev_pair_id"] if d.meet_end == 0 else dev["pair_id"]
+        pid = pid.long()
+        pid0 = pid.clamp(min=0)
+        q0 = dev["pair_ptr"][pid0]
+        q1 = torch.where(pid >= 0, dev["pair_ptr"][pid0 + 1], q0)
+        out["el"] = (dev["pair_t"], q0, q1, tlo, thi, brk)
+    return out
+
+
+def make_preprocess_fn(tree: SpanningTree, use_c2: bool = True):
+    """Build ``fn(dev, delta, wd, q) -> weight dict``.
+
+    ``wd`` is the window stride (Constraint 3): ``wd == delta`` normally,
+    ``wd > time_span`` collapses to a single window (C3 disabled).
+    ``use_c2=False`` drops the ``\\ El`` exclusion (Constraint 2
+    disabled).  The arrays live on the device of ``dev``.
+    """
+    S = tree.num_edges
+    order = list(reversed(tree.topo_down))   # children before parents
+    alpha_of = access_alpha(tree)
+    root = tree.root
+
+    def dep_sum(dev, delta, wd, w_csr, w_pair, d, window):
+        qs = dep_sum_queries(dev, d, delta, wd, window, use_c2)
+        pso, psp = w_csr[d.child]
+        csr_t, *lam_q = qs["lam"]
+        lam = interval_weight(csr_t, pso, psp, *lam_q)
+        if not use_c2:
+            return lam
+        ppo, ppp = w_pair[d.child]
+        pair_t, *el_q = qs["el"]
+        return lam - interval_weight(pair_t, ppo, ppp, *el_q)
+
+    def fn(dev, delta, wd, q):
+        delta, wd, q = int(delta), int(wd), int(q)
+        t = dev["t"]
+        m = t.shape[0]
+        fl = t // wd
+        real = torch.arange(m, device=t.device) < dev["m_real"]
+        own_ok = (fl <= q - 1) & real
+        prev_ok = (fl >= 1) & real
+
+        w_own: list = [None] * S
+        w_prev: list = [None] * S
+        w_csr: dict = {}
+        w_pair: dict = {}
+        for s in order:
+            wo = torch.ones(m, dtype=torch.int64, device=t.device)
+            wp = torch.ones(m, dtype=torch.int64, device=t.device)
+            for d in tree.deps[s]:
+                wo = wo * dep_sum(dev, delta, wd, w_csr, w_pair, d, "own")
+                wp = wp * dep_sum(dev, delta, wd, w_csr, w_pair, d, "prev")
+            wo = torch.where(own_ok, wo, 0)
+            wp = torch.where(prev_ok, wp, 0)
+            w_own[s], w_prev[s] = wo, wp
+            # prefix sums in the order this edge is *accessed* through
+            if s != root:
+                perm = (dev["out_edge"] if alpha_of[s] == OUT
+                        else dev["in_edge"]).long()
+                pe = dev["pair_edge"].long()
+                w_csr[s] = (_excl(wo[perm]), _excl(wp[perm]))
+                w_pair[s] = (_excl(wo[pe]), _excl(wp[pe]))
+
+        zeros = torch.zeros(m + 1, dtype=torch.int64, device=t.device)
+        ps_root = (_excl(w_own[root]), _excl(w_prev[root]))
+        acc = [ps_root if s == root else w_csr[s] for s in range(S)]
+        pair = [(zeros, zeros) if s == root else w_pair[s] for s in range(S)]
+        out = dict(
+            w_own=torch.stack(w_own), w_prev=torch.stack(w_prev),
+            ps_acc_own=torch.stack([a[0] for a in acc]),
+            ps_acc_prev=torch.stack([a[1] for a in acc]),
+            ps_pair_own=torch.stack([p[0] for p in pair]),
+            ps_pair_prev=torch.stack([p[1] for p in pair]))
+        out.update(window_totals(t, ps_root[0], ps_root[1], wd, q))
+        out["W_total"] = out["ps_win"][-1]
+        return out
+
+    return fn
+
+
+def window_totals(t, ps_root_own, ps_root_prev, wd: int, q: int) -> dict:
+    """Per-window totals (Claim 4.10 restricted to window i)."""
+    iarr = torch.arange(q, dtype=torch.int64, device=t.device)
+    win_lo = torch.searchsorted(t, iarr * wd, side="left")
+    win_mid = torch.searchsorted(t, (iarr + 1) * wd, side="left")
+    win_hi = torch.searchsorted(t, (iarr + 2) * wd, side="left")
+    W_i = ((ps_root_own[win_mid] - ps_root_own[win_lo])
+           + (ps_root_prev[win_hi] - ps_root_prev[win_mid]))
+    return dict(ps_win=_excl(W_i), win_lo=win_lo, win_mid=win_mid,
+                win_hi=win_hi)
+
+
+def preprocess(g: TemporalGraph, tree: SpanningTree, delta: int,
+               dev: dict | None = None, use_c2: bool = True,
+               use_c3: bool = True, device: str = "cuda") -> Weights:
+    """Alg. 1: weights + prefix structure for the whole graph.
+
+    ``dev`` (from ``g.device_arrays``) is built on ``device`` when not
+    given; otherwise the arrays land where ``dev`` lives.
+    """
+    if dev is None:
+        dev = g.device_arrays(device)
+    wd = int(delta) if use_c3 else int(g.time_span) + 1
+    q = num_windows(g.time_span, wd)
+    out = make_preprocess_fn(tree, use_c2=use_c2)(dev, delta, wd, q)
+    return Weights(tree=tree, delta=int(delta), wd=wd, q=q, use_c2=use_c2,
+                   **out)

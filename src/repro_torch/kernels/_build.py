@@ -1,0 +1,115 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+Each kernel is one ``csrc/<name>.cu`` file with a plain C entry point
+(no PyTorch headers, so a build takes seconds).  At first use it is
+compiled for Hopper (``-gencode arch=compute_90a,code=sm_90a``) into
+``build/repro_torch/<name>.so`` under the repository root, which
+``.gitignore`` lists; a library older than any of its sources is
+rebuilt.  Only the repository's own sources are read.
+
+Calling convention of every entry point: pointers and the stream are
+``c_void_p``, sizes ``c_int64``; the launch runs on the caller's stream
+(``torch.cuda.current_stream()``) and the function returns
+``cudaGetLastError()``, which the wrapper turns into an exception.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_KERNELS = Path(__file__).resolve().parent
+_ROOT = _KERNELS.parents[2]
+BUILD_DIR = _ROOT / "build" / "repro_torch"
+_SHARED = _KERNELS / "csrc"
+
+#: kernel name -> its .cu source
+SOURCES = {
+    "interval_weight": _KERNELS / "interval_weight" / "csrc"
+    / "interval_weight.cu",
+    "tree_sampler": _KERNELS / "tree_sampler" / "csrc" / "tree_sampler.cu",
+}
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+
+def nvcc() -> str:
+    """Path of ``nvcc``: on ``PATH``, else the toolkit's default place."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (run on the CPU with device='cpu')")
+
+
+def _deps(name: str) -> list[Path]:
+    return [SOURCES[name], *sorted(_SHARED.glob("*.cuh"))]
+
+
+def library_path(name: str) -> Path:
+    return BUILD_DIR / f"{name}.so"
+
+
+def _stale(name: str) -> bool:
+    lib = library_path(name)
+    if not lib.exists():
+        return True
+    built = lib.stat().st_mtime
+    return any(p.stat().st_mtime > built for p in _deps(name))
+
+
+def _start(name: str) -> tuple[subprocess.Popen, Path]:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f"{name}.{os.getpid()}.tmp.so"
+    cmd = [nvcc(), *NVCC_FLAGS, "-I", str(_SHARED), "-o", str(tmp),
+           str(SOURCES[name])]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp
+
+
+def build(names=None) -> list[str]:
+    """Compile every stale kernel, all ``nvcc`` processes started at once.
+
+    Returns the names that were compiled; raises with the compiler's
+    output if any build fails.
+    """
+    todo = [n for n in (SOURCES if names is None else names) if _stale(n)]
+    started = {n: _start(n) for n in todo}
+    errors = []
+    for name, (proc, tmp) in started.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc {name} (exit {proc.returncode}):\n{out}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, library_path(name))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return todo
+
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library, built first when missing or stale."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(library_path(name)))
+        _LIBS[name] = lib
+    return lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by an entry point."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError "
+                           f"{rc}")

@@ -1,0 +1,150 @@
+"""Host side of the tree sampler: schedule, draws and the kernel wrapper.
+
+``prepare_draws`` makes all randomness of a sample batch with the same
+key schedule as the JAX reference sampler: ``keys = split(key, S + 2)``;
+``keys[0]`` gives the window/center target ``x = randint(keys[0], K, W)``
+and child ``c`` gets the two raw 64-bit draws that
+``randint(keys[2 + c], ...)`` would split off internally, so the kernel
+can replay the modular reduction against its in-kernel span.
+
+``tree_sampler`` takes the plain torch version (``ref.py``) for CPU
+tensors and launches ``csrc/tree_sampler.cu`` for CUDA tensors; on any
+other device, or on inputs the kernel does not take, it raises.
+``tree_sampler.launches`` counts the kernel launches.
+
+Structural-fields-only contract: this module reads only the fields of
+``core.spanning_tree.tree_signature`` (root, deps, topo_down,
+num_edges), never ``edge_ids`` or non-tree motif edges.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+from ...core import rng
+from ...core.bisect import bisect_iters
+from ...core.spanning_tree import OUT, SpanningTree
+from .ref import tree_sampler_ref
+
+MAX_STEPS = 15
+
+
+def build_schedule(tree: SpanningTree) -> tuple:
+    """The static top-down child schedule, one tuple per dependency in
+    sampling order: ``(parent, child, meet_end, alpha, beta, use_rev)``.
+
+    ``use_rev`` picks ``rev_pair_id`` over ``pair_id`` for the Claim 4.8
+    exclusion list (the parallel edges to the *other* endpoint).
+    """
+    steps = []
+    for s in tree.topo_down:
+        for d in tree.deps[s]:
+            use_rev = d.meet_end != 0 if d.alpha == OUT else d.meet_end == 0
+            steps.append((s, d.child, d.meet_end, d.alpha, d.beta,
+                          int(use_rev)))
+    return tuple(steps)
+
+
+def prepare_draws(tree: SpanningTree, wts, key: torch.Tensor, K: int):
+    """All randomness for K samples, on the device of ``key``.
+
+    Returns ``(x [K], uhi [K, S], ulo [K, S])`` int64; ``uhi``/``ulo``
+    hold uint64 bit patterns and the root's column is zero.
+    """
+    S = tree.num_edges
+    keys = rng.split(key, S + 2)
+    x = rng.randint(keys[0], K, wts.W_total.clamp(min=1))
+    # one threefry pass for every child's (hi, lo) pair
+    draws = rng.bits(rng.split(keys[2:], 2), K)          # [S, 2, K]
+    draws[tree.root] = 0
+    return x, draws[:, 0].T.contiguous(), draws[:, 1].T.contiguous()
+
+
+class _Step(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_int64) for n in
+                ("parent", "child", "meet_end", "alpha", "beta", "use_rev")]
+
+
+_GRAPH = ("t", "src", "dst", "out_ptr", "in_ptr", "out_t", "in_t",
+          "out_edge", "in_edge", "pair_pos_out", "pair_pos_in", "pair_ptr",
+          "pair_t", "pair_id", "rev_pair_id")
+_WEIGHTS = ("ps_win", "win_lo", "win_mid", "win_hi", "ps_acc_own",
+            "ps_acc_prev", "ps_pair_own", "ps_pair_prev")
+_DRAWS = ("x", "uhi", "ulo")
+_OUT = ("edges", "window")
+_SCALARS = ("K", "m", "S", "q", "root", "use_c2", "it", "itq", "delta",
+            "wd", "n_steps")
+_I32 = ("src", "dst", "out_edge", "in_edge", "pair_id", "rev_pair_id")
+
+
+class _SamplerArgs(ctypes.Structure):
+    """Mirror of ``SamplerArgs`` in ``csrc/tree_sampler.cu``."""
+
+    _fields_ = ([(n, ctypes.c_void_p)
+                 for n in _GRAPH + _WEIGHTS + _DRAWS + _OUT]
+                + [(n, ctypes.c_int64) for n in _SCALARS]
+                + [("steps", _Step * MAX_STEPS)])
+
+
+def _check_inputs(schedule, S, dev, wts, x, uhi, ulo):
+    device = x.device
+    m = dev["t"].shape[0]
+    K = x.shape[0]
+    tensors = dict({n: dev[n] for n in _GRAPH},
+                   **{n: getattr(wts, n) for n in _WEIGHTS},
+                   x=x, uhi=uhi, ulo=ulo)
+    for name, v in tensors.items():
+        want = torch.int32 if name in _I32 else torch.int64
+        if v.device != device or v.dtype != want:
+            raise ValueError(f"tree_sampler: {name} must be {want} on "
+                             f"{device}, got {v.dtype} on {v.device}")
+    if uhi.shape != (K, S) or ulo.shape != (K, S):
+        raise ValueError("tree_sampler: uhi/ulo must be [K, S]")
+    if wts.ps_acc_own.shape != (S, m + 1):
+        raise ValueError("tree_sampler: prefixes must be [S, m+1]")
+    if len(schedule) > MAX_STEPS or len(schedule) != S - 1:
+        raise ValueError(f"tree_sampler: a tree of {S} edges needs "
+                         f"{S - 1} <= {MAX_STEPS} schedule steps")
+
+
+def tree_sampler(schedule: tuple, root: int, S: int, dev: dict, wts, x,
+                 uhi, ulo):
+    """Alg. 3 for ``K = len(x)`` samples on precomputed draws; returns
+    ``(edges [K, S], window [K])`` int64 (see the kernel source)."""
+    _check_inputs(schedule, S, dev, wts, x, uhi, ulo)
+    device = x.device
+    if device.type == "cpu":
+        return tree_sampler_ref(schedule, root, S, dev, wts, x, uhi, ulo)
+    if device.type != "cuda":
+        raise ValueError(f"tree_sampler: no kernel for device {device}")
+    K = x.shape[0]
+    m = dev["t"].shape[0]
+    edges = torch.empty((K, S), dtype=torch.int64, device=device)
+    window = torch.empty(K, dtype=torch.int64, device=device)
+    if K == 0:
+        return edges, window
+    keep = dict({n: dev[n].contiguous() for n in _GRAPH},
+                **{n: getattr(wts, n).contiguous() for n in _WEIGHTS},
+                x=x.contiguous(), uhi=uhi.contiguous(),
+                ulo=ulo.contiguous(), edges=edges, window=window)
+    args = _SamplerArgs(
+        **{n: v.data_ptr() for n, v in keep.items()},
+        K=K, m=m, S=S, q=wts.q, root=root,
+        use_c2=int(wts.use_c2), it=bisect_iters(m),
+        itq=bisect_iters(wts.q), delta=wts.delta, wd=wts.wd,
+        n_steps=len(schedule))
+    for i, step in enumerate(schedule):
+        args.steps[i] = _Step(*step)
+    fn = _build.library("tree_sampler").tree_sampler_launch
+    fn.argtypes = [ctypes.POINTER(_SamplerArgs), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        rc = fn(ctypes.byref(args), torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "tree_sampler")
+    tree_sampler.launches += 1
+    return edges, window
+
+
+tree_sampler.launches = 0

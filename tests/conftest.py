@@ -25,3 +25,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 def no_retrace():
     from repro.analysis import no_retrace as _no_retrace
     return _no_retrace
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU with nvcc (the port's CUDA "
+        "kernels); skips without one")

@@ -1,0 +1,185 @@
+"""The port stands alone: no jax, no repro, no silent CPU fallback.
+
+* a fresh interpreter that imports ``repro_torch`` and every submodule
+  has neither ``jax`` nor ``repro`` in ``sys.modules`` (a subprocess,
+  because pytest workers already hold jax);
+* no source file of the port imports either;
+* the entry points default to the card and raise without one;
+* each kernel wrapper takes its plain version only for CPU tensors and
+  raises for any device it has no kernel for — it never catches a
+  failed launch and falls back.
+"""
+from __future__ import annotations
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "src" / "repro_torch"
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
+print(len(names), bad)
+"""
+
+
+def test_import_pulls_neither_jax_nor_repro():
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout.split(maxsplit=1)
+    assert int(out[0]) >= 15            # every module of the slice
+    assert out[1].strip() == "[]"
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(PORT)))
+def test_sources_import_neither_jax_nor_repro(path):
+    for name in _imports(path):
+        root = name.split(".")[0]
+        assert root not in ("jax", "jaxlib", "repro"), (path, name)
+
+
+def _small_graph():
+    from repro_torch import powerlaw_temporal_graph
+    return powerlaw_temporal_graph(n=60, m=400, time_span=5000, seed=1)
+
+
+def test_entry_points_default_to_the_card_and_raise_without_one():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the defaults would run")
+    from repro_torch import choose_tree, estimate, get_motif, preprocess
+    from repro_torch.core.spanning_tree import candidate_trees
+    from repro_torch.launch.estimate import main
+    g = _small_graph()
+    motif = get_motif("M4-2")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        estimate(g, motif, 500, 64, chunk=64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        choose_tree(g, motif, 500)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        preprocess(g, candidate_trees(motif)[0], 500)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        g.device_arrays()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--graph", "powerlaw:n=60,m=400,time_span=5000,seed=1",
+              "--motif", "M4-2", "--delta", "500", "--k", "64",
+              "--chunk", "64"])
+
+
+def test_wrappers_raise_on_devices_without_a_kernel():
+    """``meta`` tensors stand in for a non-CPU request that cannot run."""
+    from repro_torch.kernels.interval_weight.ops import interval_weight
+    from repro_torch.kernels.tree_sampler.ops import (build_schedule,
+                                                      tree_sampler)
+    from repro_torch import get_motif
+    from repro_torch.core.spanning_tree import candidate_trees
+    from repro_torch.core.weights import preprocess
+
+    meta = [torch.empty(n, dtype=torch.int64, device="meta")
+            for n in (10, 11, 11, 4, 4, 4, 4, 4)]
+    before = interval_weight.launches
+    with pytest.raises(ValueError, match="no kernel for device"):
+        interval_weight(*meta)
+    assert interval_weight.launches == before
+
+    g = _small_graph()
+    tree = candidate_trees(get_motif("M4-2"))[0]
+    dev = g.device_arrays("cpu")
+    wts = preprocess(g, tree, 500, dev=dev, device="cpu")
+    to_meta = {k: v.to("meta") for k, v in dev.items()}
+    for f in ("ps_win", "win_lo", "win_mid", "win_hi", "ps_acc_own",
+              "ps_acc_prev", "ps_pair_own", "ps_pair_prev"):
+        setattr(wts, f, getattr(wts, f).to("meta"))
+    S = tree.num_edges
+    x = torch.zeros(8, dtype=torch.int64, device="meta")
+    u = torch.zeros((8, S), dtype=torch.int64, device="meta")
+    before = tree_sampler.launches
+    with pytest.raises(ValueError, match="no kernel for device"):
+        tree_sampler(build_schedule(tree), tree.root, S, to_meta, wts, x,
+                     u, u)
+    assert tree_sampler.launches == before
+
+
+def test_wrappers_reject_mixed_devices_and_dtypes():
+    from repro_torch.kernels.interval_weight.ops import interval_weight
+    cpu = [torch.zeros(n, dtype=torch.int64) for n in (10, 11, 11)]
+    q = [torch.zeros(4, dtype=torch.int64) for _ in range(5)]
+    with pytest.raises(ValueError, match="different devices"):
+        interval_weight(*cpu, *q[:4], q[4].to("meta"))
+    with pytest.raises(ValueError, match="int64"):
+        interval_weight(cpu[0].int(), *cpu[1:], *q)
+    # the CPU path answers with the plain version
+    out = interval_weight(*cpu, *q)
+    assert out.dtype == torch.int64 and out.shape == (4,)
+
+
+def _wrapper(path: Path, name: str) -> ast.FunctionDef:
+    tree = ast.parse(path.read_text())
+    return next(n for n in tree.body
+                if isinstance(n, ast.FunctionDef) and n.name == name)
+
+
+@pytest.mark.parametrize("kernel,ref", [("interval_weight",
+                                         "interval_weight_ref"),
+                                        ("tree_sampler", "tree_sampler_ref")])
+def test_cuda_path_launches_or_raises(kernel, ref):
+    """Statically (no CUDA tensor can be made here): the wrapper has no
+    ``try``, reaches its plain version only under a ``device.type ==
+    "cpu"`` test, and otherwise builds/loads its library, launches,
+    checks the launch's error code and counts it."""
+    fn = _wrapper(PORT / "kernels" / kernel / "ops.py", kernel)
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(fn))
+    ref_calls = [n for n in ast.walk(fn) if isinstance(n, ast.Call)
+                 and isinstance(n.func, ast.Name) and n.func.id == ref]
+    assert len(ref_calls) == 1
+    cpu_ifs = [n for n in ast.walk(fn) if isinstance(n, ast.If)
+               and "== 'cpu'" in ast.unparse(n.test)]
+    assert len(cpu_ifs) == 1
+    assert ref_calls[0] in list(ast.walk(cpu_ifs[0]))
+    src = ast.unparse(fn)
+    assert f"_build.library('{kernel}')" in src
+    assert f"_build.check(rc, '{kernel}')" in src
+    assert f"{kernel}.launches += 1" in src
+
+
+def test_build_reads_only_repo_sources_for_sm90a():
+    from repro_torch.kernels import _build
+    for name, src in _build.SOURCES.items():
+        assert src.is_file() and PORT in src.parents, name
+        text = src.read_text()
+        assert "Replaces the Pallas kernel" in text     # the source note
+        assert "bounds it on the H100" in text
+    assert _build.BUILD_DIR == REPO / "build" / "repro_torch"
+    assert "build/" in (REPO / ".gitignore").read_text().split()
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_graph_device_arrays_cpu_dtypes():
+    g = _small_graph()
+    dev = g.device_arrays("cpu")
+    assert dev["t"].dtype == torch.int64 and dev["src"].dtype == torch.int32
+    assert int(dev["m_real"]) == g.m
+    assert np.array_equal(dev["t"].numpy(), g.t)
