@@ -4,15 +4,23 @@
     python3 chip_smoke.py            # from the root of a checkout
 
 Builds the hand-written CUDA kernels, holds each against its plain torch
-version on the card at the shapes of the main path, checks card against
-CPU on a small graph, then drives one full-size TIMEST estimate through
-``repro_torch.estimate`` and shows that it went through both kernels.
+version on the card at the shapes of its main path, and drives the
+port's two paths:
+
+* TIMEST: card against CPU on a small graph, then one full-size estimate
+  through ``repro_torch.estimate``, shown to go through the
+  interval-weight and tree-sampler kernels;
+* LM serving: card against CPU for the Gemma-2 smoke config, then
+  Gemma-2-27B at full width (random bf16 weights from seed 0): a
+  2 x 8192-token prefill and 16 greedy decode steps, shown to go through
+  the flash-attention kernel in every prefill layer.
+
 Each phase prints one JSON line; the line before the last is the
 ``kernels`` record and the last line is ``{"ok": true, "device": ...}``.
 Any mismatch or error exits non-zero without that line.  Without a CUDA
 device, or outside a checkout of the repository, it fails at once.
 
-Full size: a power-law temporal graph at the scale of SNAP's
+TIMEST full size: a power-law temporal graph at the scale of SNAP's
 wiki-talk-temporal (1,140,149 nodes, 7,833,140 temporal edges, 2,320 days
 in seconds), motif M5-3, delta 3600, k = 2^20, chunk 8192, seed 0.
 """
@@ -39,6 +47,24 @@ FIELDS = ("estimate", "W", "k", "cnt2_sum", "valid", "fail_vmap",
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 OPS_PER_S = 67e12             # H100 SXM non-tensor fp32 rate, used for
                               # the integer compare/select/add work
+BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor cores
+# the LM path: Gemma-2-27B serving 2 prompts of 8192 tokens
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_DECODE, LM_CHECK_AT = (
+    "gemma2-27b", 2, 8192, 16, 8)
+# kernel against its plain version, bf16 at the path's shapes: per element
+# |err| <= FA_ATOL + FA_RTOL |want| (about two bf16 ulps at any size; the
+# outputs there have an rms of ~0.05, so an atol of 2e-2 would be as large
+# as what it compares), and over the whole output relative L2 <= FA_REL_L2
+# (about one bf16 rounding of the output); the faults the phase reads must
+# move the output by at least FA_FAULT_MIN
+FA_ATOL, FA_RTOL, FA_REL_L2, FA_FAULT_MIN = 4e-3, 2e-2, 2e-3, 2e-2
+# prefill(prompt + first 8 generated tokens) against decode step 8, in
+# relative L2 of the logits: two bf16 evaluation orders through 46
+# layers (the flash kernel keeps p in f32, decode rounds p to bf16 as the
+# reference does; the products are batched differently), so they agree
+# to about bf16's relative precision times the depth's growth, not bit
+# for bit
+LM_CHECK_TOL = 5e-2
 
 
 def emit(obj) -> None:
@@ -129,6 +155,47 @@ def sampler_bytes(dev, wts, schedule, S, x, edges, window) -> int:
                      + evals * (bisect_steps(qhi - qlo) + 2))
     io = K * (8 + 16 * (S - 1) + 8 * S + 8)
     return int(words.sum()) * 8 + io
+
+
+def device_profile(fn, kinds=None, top: int = 5) -> dict:
+    """Wall clock of ``fn()`` under ``torch.profiler`` (ending in a
+    device sync), the device-busy time summed over the device-side
+    kernel entries, the idle share, and the top kernels by device time.
+    ``kinds`` maps a label to a predicate on the kernel name; the busy
+    time is also split by the first label whose predicate holds."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def dev_us(e):
+        return (getattr(e, "self_device_time_total", None)
+                or getattr(e, "self_cuda_time_total", 0) or 0)
+    # a kernel's time shows under the op that launched it and under the
+    # kernel's own entry: count the device-side entries only
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) != DeviceType.CPU]
+    busy = sum(dev_us(e) for e in kernels) / 1e6
+    out = {"profiled_wall_s": wall, "device_busy_s": busy,
+           "device_idle_share": 1 - busy / wall if wall > 0 else None,
+           "kernel_launches": sum(e.count for e in kernels),
+           "top_kernels": [[e.key[:80], e.count, dev_us(e) / 1e3]
+                           for e in sorted(kernels, key=dev_us,
+                                           reverse=True)[:top]]}
+    if kinds:
+        split = dict.fromkeys([*kinds, "other"], 0.0)
+        for e in kernels:
+            kind = next((k for k, pred in kinds.items() if pred(e.key)),
+                        "other")
+            split[kind] += dev_us(e) / 1e6
+        out["device_s_by_kind"] = split
+    return out
 
 
 def phase_card() -> str:
@@ -296,8 +363,6 @@ def phase_breakdown(g, motif_name: str, delta: int, chunk: int,
     device-busy time and the idle share of the wall clock.
     """
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch import choose_tree, get_motif
     from repro_torch.core import rng
     from repro_torch.core.sampler import vertex_map
@@ -337,32 +402,276 @@ def phase_breakdown(g, motif_name: str, delta: int, chunk: int,
     names = ("draws", "tree_sampler", "vertex_map", "validate")
     ms = {n: 1e3 * sum(p[i] for p in per) / n_chunks
           for i, n in enumerate(names)}
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for j in range(n_chunks):
-            stages(j, False)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    avgs = prof.key_averages()
-
-    def dev_us(e):
-        return (getattr(e, "self_device_time_total", None)
-                or getattr(e, "self_cuda_time_total", 0) or 0)
-    # a kernel's time shows under the op that launched it and under the
-    # kernel's own entry: count the device-side entries only
-    kernels = [e for e in avgs
-               if getattr(e, "device_type", None) != DeviceType.CPU]
-    busy = sum(dev_us(e) for e in kernels) / 1e6
-    top = sorted(kernels, key=dev_us, reverse=True)[:5]
+    prof = device_profile(lambda: [stages(j, False)
+                                   for j in range(n_chunks)])
     emit({"phase": "breakdown", "chunks": n_chunks, "chunk": chunk,
-          "host_ms_per_chunk_synced": ms,
-          "profiled_wall_s": wall, "device_busy_s": busy,
-          "device_idle_share": 1 - busy / wall if wall > 0 else None,
-          "kernel_launches": sum(e.count for e in kernels),
-          "top_kernels": [[e.key[:80], e.count, dev_us(e) / 1e3]
-                          for e in top]})
+          "host_ms_per_chunk_synced": ms, **prof})
+
+
+def attended_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask lets through: the work of one head."""
+    import torch
+    qpos = torch.arange(Sq, dtype=torch.int64)
+    hi = torch.minimum(qpos + 1, torch.tensor(Skv)) if causal else (
+        torch.full_like(qpos, Skv))
+    lo = (qpos - window + 1).clamp(min=0) if window > 0 else (
+        torch.zeros_like(qpos))
+    return int((hi - lo).clamp(min=0).sum())
+
+
+def rel_l2(got, want) -> float:
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm())
+
+
+def phase_flash_attention() -> dict:
+    """The kernel against its plain version at the prefill's shapes
+    (Gemma-2-27B, 2 x 8192, bf16): one local and one global layer, one
+    global layer with q x 8 so that the scores reach the softcap, and the
+    kernel beside ``scaled_dot_product_attention`` without softcap.
+
+    Each case also reads how far a known fault would move the output,
+    computed with the plain version, and fails unless that is ten times
+    the limit: the check must be able to see it at these shapes."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    cfg = get_config(LM_ARCH)
+    B, S, Hq, Hkv, D = (LM_BATCH, LM_PROMPT, cfg.n_heads, cfg.n_kv_heads,
+                        cfg.hd)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.float32).to(torch.bfloat16)
+               for shape in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel())      # q, k, v in, o out
+    cap, win = cfg.attn_softcap, cfg.sliding_window
+    # (kind, window, q scale, the fault it must see: its kwargs for the
+    # plain version); only the q scale 1 cases are the path's and timed
+    cases = (("local", win, 1, ("oldest 64-key tile of the window lost",
+                                dict(window=win - 64))),
+             ("global", 0, 1, None),
+             ("global, q x 8", 0, 8, ("softcap ignored",
+                                      dict(attn_softcap=0.0))))
+    checked, timed = [], []
+    for kind, window, scale, fault in cases:
+        qs = q * scale                                # exact in bf16
+        kw = dict(causal=True, window=window, attn_softcap=cap)
+        got = flash_attention(qs, k, v, **kw)
+        want = flash_attention_ref(qs, k, v, **kw)
+        torch.cuda.synchronize()
+        rec = dict(kind=kind, window=window, softcap=cap, q_scale=scale,
+                   max_abs_err=float((got.float() - want.float()).abs()
+                                     .max()),
+                   rel_l2=rel_l2(got, want),
+                   want_rms=float(want.float().pow(2).mean().sqrt()))
+        require(bool(torch.isfinite(got).all()), f"{kind}: non-finite")
+        require(torch.allclose(got.float(), want.float(), atol=FA_ATOL,
+                               rtol=FA_RTOL)
+                and rec["rel_l2"] <= FA_REL_L2,
+                f"flash_attention {kind}: max |err| {rec['max_abs_err']} "
+                f"(atol {FA_ATOL}, rtol {FA_RTOL}), relative L2 "
+                f"{rec['rel_l2']} (limit {FA_REL_L2})")
+        del got
+        if fault is not None:
+            name, change = fault
+            rec["fault"] = name
+            rec["fault_rel_l2"] = rel_l2(
+                flash_attention_ref(qs, k, v, **{**kw, **change}), want)
+            require(rec["fault_rel_l2"] >= FA_FAULT_MIN,
+                    f"flash_attention {kind}: the check cannot see "
+                    f"'{name}' (relative L2 {rec['fault_rel_l2']})")
+        del want
+        if scale == 1:
+            pairs = attended_pairs(S, S, True, window)
+            flops = 4 * D * pairs * B * Hq
+            rec.update(
+                pairs=pairs, flops=flops, bytes=nbytes,
+                ms=cuda_ms(lambda: flash_attention(q, k, v, **kw), reps=3),
+                plain_ms=cuda_ms(lambda: flash_attention_ref(q, k, v, **kw),
+                                 reps=1),
+                bound_ms=max(flops / BF16_FLOPS_PER_S,
+                             nbytes / HBM_BYTES_PER_S) * 1e3)
+            timed.append(rec)
+        checked.append(rec)
+        emit({"phase": "flash_attention", **rec})
+    # the yardstick: one PyTorch call on the global layer without softcap
+    kw = dict(causal=True, window=0, attn_softcap=0.0)
+    ms_nocap = cuda_ms(lambda: flash_attention(q, k, v, **kw), reps=3)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    try:
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                       enable_gqa=True)
+        lib_kw = dict(enable_gqa=True)
+    except TypeError:                  # a torch without enable_gqa
+        kt, vt = (x.repeat_interleave(Hq // Hkv, dim=1) for x in (kt, vt))
+        lib_kw = {}
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, **lib_kw), reps=5)
+    library_case = "global layer, causal, softcap 0"
+    emit({"phase": "flash_attention", "kind": library_case,
+          "ms": ms_nocap, "sdpa_ms": lib_ms, "sdpa_gqa": bool(lib_kw)})
+    n = len(timed)
+    return dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/flash_attention/csrc/"
+               "flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:94",
+        max_abs_err=max(c["max_abs_err"] for c in checked),
+        # per launch, over the prefill's even mix of local and global
+        ms=sum(c["ms"] for c in timed) / n,
+        plain_ms=sum(c["plain_ms"] for c in timed) / n,
+        bound_ms=sum(c["bound_ms"] for c in timed) / n,
+        bound_by=("operations" if sum(c["flops"] for c in timed)
+                  / BF16_FLOPS_PER_S >= n * nbytes / HBM_BYTES_PER_S
+                  else "bytes"),
+        # SDPA has no softcap or window: it is paired with the kernel's
+        # time on the same work, not with the path's mean above
+        library_ms=lib_ms, library_case=library_case,
+        ms_library_case=ms_nocap)
+
+
+def phase_lm_small() -> None:
+    """Card against CPU for the Gemma-2 smoke config on the same numpy
+    weights: prefill (S = 20 > window 8, cache 24), then 3 decode steps,
+    in f32 without TF32 (tolerance 1e-4: summation order only) and in
+    bf16 (5e-2, the bf16 tolerance of tests/test_models_smoke.py)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.convert import lm_from_numpy, numpy_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config(LM_ARCH)
+    params = numpy_params(cfg, seed=0)
+    tokens = torch.as_tensor(
+        np.random.default_rng(0).integers(0, cfg.vocab, (2, 23)))
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 5e-2)):
+        runs = []
+        for device in ("cpu", "cuda"):
+            model = lm_from_numpy(cfg, params, device=device)
+            tok = tokens.to(device)
+            logits, cache = model.prefill(tok[:, :20], 24,
+                                          compute_dtype=dtype)
+            out = [logits]
+            for s in range(20, 23):
+                logits, cache = model.decode_step(cache, tok[:, s:s + 1],
+                                                  compute_dtype=dtype)
+                out.append(logits)
+            runs.append([x.float().cpu() for x in out]
+                        + [cache["k"].float().cpu(),
+                           cache["v"].float().cpu()])
+        err = max(float((a - b).abs().max()) for a, b in zip(*runs))
+        ok = all(torch.allclose(a, b, atol=tol, rtol=tol)
+                 for a, b in zip(*runs))
+        require(ok, f"lm_small {dtype}: card != CPU (max |err| {err})")
+        emit({"phase": "lm_small", "arch": cfg.name, "dtype": str(dtype),
+              "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+              "tol": tol, "max_abs_err": err, "equal_within_tol": True})
+
+
+def phase_lm_full() -> dict:
+    """Gemma-2-27B at full width: prefill 2 x 8192 tokens, 16 greedy
+    decode steps, launch counts read around that run; then the prompt
+    plus the first 8 generated tokens prefilled again (S = 8200, ragged)
+    against decode step 8's logits."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.interval_weight.ops import interval_weight
+    from repro_torch.kernels.tree_sampler.ops import tree_sampler
+    from repro_torch.models.convert import init_lm
+    cfg = get_config(LM_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_lm(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    prompt = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT))).cuda()
+    counters = (flash_attention, interval_weight, tree_sampler)
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(prompt, LM_PROMPT + LM_DECODE)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = flash_attention.launches
+    require(tuple(logits.shape) == (LM_BATCH, 1, cfg.vocab),
+            f"prefill logits shape {tuple(logits.shape)}")
+    require(bool(torch.isfinite(logits).all()), "prefill logits not finite")
+    generated, step_logits = [], []
+    t0 = time.perf_counter()
+    for _ in range(LM_DECODE):
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        generated.append(tok)
+        logits, cache = model.decode_step(cache, tok)
+        step_logits.append(logits)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    require(prefill_launches == cfg.n_layers,
+            f"{prefill_launches} flash launches in prefill, not "
+            f"{cfg.n_layers}")
+    require(launches["flash_attention"] == cfg.n_layers,
+            f"flash launches in decode: {launches}")
+    require(launches["interval_weight"] == launches["tree_sampler"] == 0,
+            f"TIMEST kernels launched on the LM path: {launches}")
+    require(all(bool(torch.isfinite(x).all()) for x in step_logits),
+            "decode logits not finite")
+    require(cache["kv_len"] == LM_PROMPT + LM_DECODE, "kv_len")
+    peak = torch.cuda.max_memory_allocated()
+    del cache
+    torch.cuda.empty_cache()
+    # prefill(prompt + generated[:8]) predicts from the same positions as
+    # decode step 8 (which consumed generated[7] at position 8199); it is
+    # profiled, and so are 2 decode steps after it
+    ext = torch.cat([prompt] + generated[:LM_CHECK_AT], dim=1)
+    want = step_logits[LM_CHECK_AT - 1][:, -1].float()
+    kinds = {"flash_attention": lambda k: "flash_attention_kernel" in k,
+             "gemm": lambda k: any(w in k.lower() for w in
+                                   ("gemm", "cutlass", "xmma", "nvjet",
+                                    "cublas"))}
+    out = {}
+    prof = device_profile(lambda: out.update(zip(
+        ("logits", "cache"), model.prefill(ext, ext.shape[1] + 2))),
+        kinds)
+    emit({"phase": "lm_breakdown", "run": f"prefill S={ext.shape[1]}",
+          **prof})
+    got = out.pop("logits")[:, -1].float()
+    tok = got.argmax(-1, keepdim=True)
+
+    def two_steps():
+        cache = out["cache"]
+        for _ in range(2):
+            _, cache = model.decode_step(cache, tok)
+    prof = device_profile(two_steps, kinds)
+    emit({"phase": "lm_breakdown", "run": "2 decode steps",
+          "ms_per_step": 1e3 * prof["profiled_wall_s"] / 2, **prof})
+    del out
+    rel = float((got - want).norm() / want.norm())
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    require(rel <= LM_CHECK_TOL,
+            f"prefill(S={ext.shape[1]}) vs decode step {LM_CHECK_AT}: "
+            f"relative L2 {rel} > {LM_CHECK_TOL}")
+    emit({"phase": "lm_full", "arch": cfg.name, "batch": LM_BATCH,
+          "prompt": LM_PROMPT, "decode_steps": LM_DECODE,
+          "params": sum(p.numel() for p in model.parameters()),
+          "weight_bytes": weight_bytes, "init_s": init_s,
+          "prefill_s": prefill_s,
+          "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / prefill_s,
+          "decode_ms_per_step": 1e3 * decode_s / LM_DECODE,
+          "decode_tokens_per_s": LM_BATCH * LM_DECODE / decode_s,
+          "decode_bound_ms": 1e3 * weight_bytes / HBM_BYTES_PER_S,
+          "peak_mem_bytes": peak, "launches": launches,
+          "prefill_flash_launches": prefill_launches,
+          "check_S": int(ext.shape[1]), "check_rel_l2": rel,
+          "check_tol": LM_CHECK_TOL, "check_argmax_agree": agree})
+    return launches
 
 
 def main() -> None:
@@ -408,6 +717,14 @@ def main() -> None:
     phase_breakdown(g, args.motif, args.delta, args.chunk)
     for rec in recs:
         rec["launches"] = launches[rec["name"]]
+    del g
+    torch.cuda.empty_cache()
+
+    fa = phase_flash_attention()
+    torch.cuda.empty_cache()
+    phase_lm_small()
+    fa["launches"] = phase_lm_full()["flash_attention"]
+    recs.append(fa)
     emit({"kernels": recs})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

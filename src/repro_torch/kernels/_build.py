@@ -30,6 +30,8 @@ SOURCES = {
     "interval_weight": _KERNELS / "interval_weight" / "csrc"
     / "interval_weight.cu",
     "tree_sampler": _KERNELS / "tree_sampler" / "csrc" / "tree_sampler.cu",
+    "flash_attention": _KERNELS / "flash_attention" / "csrc"
+    / "flash_attention.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

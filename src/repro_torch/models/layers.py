@@ -1,0 +1,94 @@
+"""Shared NN building blocks of the LM path: norms, RoPE, MLP, inits.
+
+The port of ``repro.models.layers`` (the JAX package, which stays the
+reference) for the dense-LM serving path.  Same conventions: compute
+dtype bf16 with f32 norms and rotary maths, weights in ``[in, out]``
+orientation so ``x @ w`` matches, every init deterministic from an
+explicit ``torch.Generator``.  ``torch.Generator`` and ``jax.random``
+give different numbers from one seed, so the tests hand both packages
+the same numpy arrays instead.
+
+Not ported yet (other families, training): ``layer_norm``, ``gelu`` /
+``geglu``, ``softmax_xent``.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def cast_for_compute(params: dict, dtype=torch.bfloat16) -> dict:
+    """Cast the float tensors of a flat dict to the compute dtype.
+
+    A tensor already in ``dtype`` comes back as itself, so a model held
+    in bf16 computes in bf16 without a copy.
+    """
+    return {k: (v.to(dtype) if torch.is_floating_point(v) else v)
+            for k, v in params.items()}
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
+             zero_centered: bool = True) -> torch.Tensor:
+    """RMSNorm in f32, output in ``x.dtype``; zero-centred weight
+    (``w + 1``, Gemma's storage) unless ``zero_centered=False``."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    w = scale.float()
+    if zero_centered:
+        w = w + 1.0
+    return (y * w).to(x.dtype)
+
+
+def rope_frequencies(head_dim: int, theta: float = 10_000.0,
+                     device=None) -> torch.Tensor:
+    """Inverse frequencies ``[head_dim // 2]`` (f32)."""
+    exponents = (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                              device=device) / head_dim)
+    return 1.0 / (theta ** exponents)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10_000.0) -> torch.Tensor:
+    """Split-half rotary embedding (Llama / NeoX), computed in f32.
+
+    x: ``[..., S, H, D]``; positions: broadcastable to ``[..., S]``.
+    """
+    d = x.shape[-1]
+    inv = rope_frequencies(d, theta, device=x.device)           # [D/2]
+    ang = positions[..., None].to(torch.float32) * inv          # [.., S, D/2]
+    ang = ang[..., None, :]                                     # [.., S, 1, D/2]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """Gemma-2 soft-capping: ``cap * tanh(x / cap)``."""
+    return cap * torch.tanh(x / cap)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    """SwiGLU MLP: ``down(silu(x @ gate) * (x @ up))``."""
+    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def dense_init(shape, generator: torch.Generator, in_axis: int = 0,
+               dtype=torch.float32, device=None) -> torch.Tensor:
+    """Truncated-normal fan-in init: ``N(0, 1)`` cut at +-3, times
+    ``fan_in ** -0.5``; drawn in f32 on ``device``, then cast."""
+    w = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -3.0, 3.0, generator=generator)
+    w *= shape[in_axis] ** -0.5
+    return w.to(dtype)
+
+
+def embed_init(shape, generator: torch.Generator, dtype=torch.float32,
+               device=None) -> torch.Tensor:
+    """``N(0, 0.02^2)`` embedding init; drawn in f32, then cast."""
+    w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    w *= 0.02
+    return w.to(dtype)

@@ -1,0 +1,292 @@
+"""Decoder-only dense LM: GQA, local/global alternation, KV cache.
+
+The port of ``repro.models.transformer`` for serving: ``forward``,
+``prefill`` and ``decode_step`` compute what the reference's entry
+points of the same names compute, on the card (the attention of every
+prefill and forward layer goes through the hand-written flash-attention
+kernel) or, for CPU tensors, with the kernel's plain version.
+
+Where the reference scans over a stacked ``[L]`` axis, the port holds
+one ``Block`` per layer and loops in Python; the weights keep the
+reference's ``[in, out]`` orientation, so ``x @ w`` is the same product.
+Numbers that have to match the reference exactly:
+
+* layer ``i`` attends through ``layer_windows(cfg)[i]``: with
+  ``alt_local_global`` even layers are local (the sliding window) and
+  odd layers global, as the reference's two-layer scan body;
+* scalars are rounded to the compute dtype before they multiply, as
+  JAX's weak typing does: the embedding scale ``sqrt(d_model)`` (68.0 in
+  bf16 for Gemma-2-27B) and the query pre-scale
+  ``query_scale * sqrt(head_dim)`` (0.94140625 in bf16);
+* the final softcap runs on f32 logits, prefill returns the logits of
+  the last position only, and its cache is zero past the prompt.
+
+Not ported yet: MoE layers (``models/moe.py``), the sequence-parallel
+residual sharding (``residual_spec``) and training (``train_loss``).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+
+from .attention import attention_decode, attention_flash, attention_naive
+from .layers import apply_rope, cast_for_compute, rms_norm, softcap, swiglu
+
+
+@dataclass(frozen=True)
+class LMConfig:
+    """A copy of ``repro.models.transformer.LMConfig`` (same fields and
+    defaults, so a config file reads the same in both packages)."""
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0                   # 0 -> d_model // n_heads
+    # MoE (n_experts == 0 -> dense)
+    n_experts: int = 0
+    n_experts_padded: int = 0
+    top_k: int = 0
+    d_expert: int = 0
+    n_shared_experts: int = 0
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+    # gemma2-style features
+    sliding_window: int = 0             # >0 enables local attention
+    alt_local_global: bool = False      # alternate local/global layers
+    attn_softcap: float = 0.0
+    final_softcap: float = 0.0
+    query_scale: float = 0.0            # 0 -> 1/sqrt(head_dim)
+    scale_embed: bool = False           # x *= sqrt(d_model) after embed
+    post_norms: bool = False            # extra post-attn/post-mlp norms
+    tie_embeddings: bool = False
+    rope_theta: float = 10_000.0
+    # execution
+    attn_impl: str = "flash"            # flash | naive | pallas
+    remat: bool = True
+    residual_spec: tuple | None = None
+    family: str = "lm"
+
+    def __post_init__(self):
+        assert self.n_heads % self.n_kv_heads == 0
+        if self.alt_local_global:
+            assert self.n_layers % 2 == 0
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
+
+def layer_windows(cfg: LMConfig) -> tuple[int, ...]:
+    """The attention window of every layer (0 = global)."""
+    if cfg.alt_local_global and cfg.sliding_window > 0:
+        slots = (cfg.sliding_window, 0)        # local, then global
+    elif cfg.sliding_window > 0:
+        slots = (cfg.sliding_window,)
+    else:
+        slots = (0,)
+    return tuple(slots[i % len(slots)] for i in range(cfg.n_layers))
+
+
+def layer_shapes(cfg: LMConfig) -> dict[str, tuple[int, ...]]:
+    """Name -> shape of one layer's weights (the reference's names)."""
+    d, hd, Hq, Hkv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    shapes = dict(attn_norm=(d,), wq=(d, Hq * hd), wk=(d, Hkv * hd),
+                  wv=(d, Hkv * hd), wo=(Hq * hd, d), mlp_norm=(d,))
+    if cfg.post_norms:
+        shapes.update(post_attn_norm=(d,), post_mlp_norm=(d,))
+    shapes.update(w_gate=(d, cfg.d_ff), w_up=(d, cfg.d_ff),
+                  w_down=(cfg.d_ff, d))
+    return shapes
+
+
+def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
+    """``value`` rounded to ``like``'s dtype (JAX's weak-typed scalar),
+    filled on ``like``'s device: no host-to-device copy, which would make
+    the host wait for the card."""
+    return torch.full((), value, dtype=like.dtype, device=like.device)
+
+
+class Block(nn.Module):
+    """One layer's weights, named as in the reference's ``layers`` dict."""
+
+    def __init__(self, weights: dict[str, torch.Tensor]):
+        super().__init__()
+        for name, w in weights.items():
+            self.register_parameter(name, nn.Parameter(w,
+                                                       requires_grad=False))
+
+    def weights(self, dtype) -> dict[str, torch.Tensor]:
+        return cast_for_compute(dict(self.named_parameters()), dtype)
+
+
+class TransformerLM(nn.Module):
+    """A dense decoder LM; build it with ``convert.lm_from_numpy`` or
+    ``convert.init_lm``."""
+
+    def __init__(self, cfg: LMConfig, embed: torch.Tensor,
+                 final_norm: torch.Tensor, layers: list[dict],
+                 unembed: torch.Tensor | None = None):
+        super().__init__()
+        if cfg.is_moe:
+            raise NotImplementedError(
+                f"{cfg.name}: MoE layers are not ported yet (ROADMAP §1)")
+        if cfg.residual_spec is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: residual sharding is not ported yet "
+                "(ROADMAP §1)")
+        if len(layers) != cfg.n_layers:
+            raise ValueError(f"{cfg.name}: {len(layers)} layers given, "
+                             f"config has {cfg.n_layers}")
+        if (unembed is None) != cfg.tie_embeddings:
+            raise ValueError(f"{cfg.name}: tie_embeddings="
+                             f"{cfg.tie_embeddings} but unembed "
+                             f"{'missing' if unembed is None else 'given'}")
+        self.cfg = cfg
+        self.embed = nn.Parameter(embed, requires_grad=False)
+        self.final_norm = nn.Parameter(final_norm, requires_grad=False)
+        self.unembed = (None if unembed is None
+                        else nn.Parameter(unembed, requires_grad=False))
+        self.layers = nn.ModuleList(Block(w) for w in layers)
+        self.windows = layer_windows(cfg)
+
+    # -- pieces ------------------------------------------------------------
+    def _embed(self, tokens, dtype):
+        x = self.embed[tokens].to(dtype)
+        if self.cfg.scale_embed:
+            x = x * _scalar(self.cfg.d_model ** 0.5, x)
+        return x
+
+    def _qkv(self, x, p, positions):
+        cfg = self.cfg
+        B, S, _ = x.shape
+        hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+        h = rms_norm(x, p["attn_norm"])
+        q = (h @ p["wq"]).reshape(B, S, Hq, hd)
+        kk = (h @ p["wk"]).reshape(B, S, Hkv, hd)
+        vv = (h @ p["wv"]).reshape(B, S, Hkv, hd)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        kk = apply_rope(kk, positions, cfg.rope_theta)
+        if cfg.query_scale:              # fold the custom scale into q
+            q = q * _scalar(cfg.query_scale * hd ** 0.5, q)
+        return q, kk, vv
+
+    def _attn_out(self, x, o, p):
+        B, S = x.shape[:2]
+        o = o.reshape(B, S, -1) @ p["wo"]
+        if self.cfg.post_norms:
+            o = rms_norm(o, p["post_attn_norm"])
+        return x + o
+
+    def _mlp(self, x, p):
+        o = swiglu(rms_norm(x, p["mlp_norm"]), p["w_gate"], p["w_up"],
+                   p["w_down"])
+        if self.cfg.post_norms:
+            o = rms_norm(o, p["post_mlp_norm"])
+        return x + o
+
+    def _layer(self, x, p, window, positions):
+        """One prefill/forward layer; returns the new x and its k, v."""
+        q, kk, vv = self._qkv(x, p, positions)
+        if self.cfg.attn_impl == "flash":
+            o = attention_flash(q, kk, vv, causal=True, window=window,
+                                attn_softcap=self.cfg.attn_softcap)
+        else:
+            o = attention_naive(q, kk, vv, causal=True, window=window,
+                                attn_softcap=self.cfg.attn_softcap,
+                                q_positions=positions,
+                                kv_positions=positions)
+        x = self._attn_out(x, o, p)
+        return self._mlp(x, p), kk, vv
+
+    def _logits(self, x, dtype):
+        x = rms_norm(x, self.final_norm.to(dtype))
+        w = (self.embed.to(dtype).T if self.unembed is None
+             else self.unembed.to(dtype))
+        logits = x @ w
+        if self.cfg.final_softcap:
+            logits = softcap(logits.float(), self.cfg.final_softcap)
+        return logits
+
+    # -- entry points --------------------------------------------------------
+    @torch.no_grad()
+    def forward(self, tokens: torch.Tensor, compute_dtype=torch.bfloat16):
+        """tokens ``[B, S]`` -> (logits ``[B, S, V]``, aux loss 0.0)."""
+        S = tokens.shape[1]
+        x = self._embed(tokens, compute_dtype)
+        positions = torch.arange(S, device=x.device)
+        for blk, w in zip(self.layers, self.windows):
+            x, _, _ = self._layer(x, blk.weights(compute_dtype), w,
+                                  positions)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return self._logits(x, compute_dtype), aux
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, cache_len: int,
+                compute_dtype=torch.bfloat16):
+        """Run the prompt; return (last-position logits ``[B, 1, V]``,
+        cache).
+
+        Cache layout (the reference's): ``k``/``v`` ``[L, B, cache_len,
+        Hkv, hd]`` in the compute dtype, zero past the prompt, and
+        ``kv_len`` = S positions written (an int).
+        """
+        cfg = self.cfg
+        B, S = tokens.shape
+        if cache_len < S:
+            raise ValueError(f"cache_len {cache_len} < prompt length {S}")
+        x = self._embed(tokens, compute_dtype)
+        positions = torch.arange(S, device=x.device)
+        shape = (cfg.n_layers, B, cache_len, cfg.n_kv_heads, cfg.hd)
+        k_cache = torch.zeros(shape, dtype=compute_dtype, device=x.device)
+        v_cache = torch.zeros(shape, dtype=compute_dtype, device=x.device)
+        for i, (blk, w) in enumerate(zip(self.layers, self.windows)):
+            x, kk, vv = self._layer(x, blk.weights(compute_dtype), w,
+                                    positions)
+            k_cache[i, :, :S] = kk
+            v_cache[i, :, :S] = vv
+        logits = self._logits(x[:, -1:], compute_dtype)
+        return logits, dict(k=k_cache, v=v_cache, kv_len=S)
+
+    @torch.no_grad()
+    def decode_step(self, cache: dict, tokens: torch.Tensor,
+                    compute_dtype=torch.bfloat16):
+        """One decode step: tokens ``[B, 1]`` at position ``kv_len``.
+
+        Writes the new keys and values into slot ``kv_len`` of
+        ``cache["k"]`` / ``cache["v"]`` **in place** (the reference
+        returns updated copies) and returns (logits ``[B, 1, V]``, a
+        cache dict over the same tensors with ``kv_len + 1``).  Each layer
+        attends only to the slots its mask can see,
+        ``[max(0, kv_len + 1 - window), kv_len]``: the other slots get
+        weight ``exp(-2^30 - m) = 0`` in the reference.
+        """
+        cfg = self.cfg
+        k_cache, v_cache = cache["k"], cache["v"]
+        pos = int(cache["kv_len"])
+        if pos >= k_cache.shape[2]:
+            raise ValueError(f"cache full: kv_len {pos} == cache_len")
+        x = self._embed(tokens, compute_dtype)
+        positions = torch.full((1,), pos, dtype=torch.int32,
+                               device=x.device)
+        for i, (blk, w) in enumerate(zip(self.layers, self.windows)):
+            p = blk.weights(compute_dtype)
+            q, kk, vv = self._qkv(x, p, positions)
+            k_cache[i, :, pos] = kk[:, 0]
+            v_cache[i, :, pos] = vv[:, 0]
+            lo = max(0, pos + 1 - w) if w > 0 else 0
+            o = attention_decode(q, k_cache[i, :, lo:pos + 1],
+                                 v_cache[i, :, lo:pos + 1],
+                                 kv_len=pos + 1 - lo, window=w,
+                                 attn_softcap=cfg.attn_softcap)
+            x = self._mlp(self._attn_out(x, o, p), p)
+        logits = self._logits(x, compute_dtype)
+        return logits, dict(k=k_cache, v=v_cache, kv_len=pos + 1)
