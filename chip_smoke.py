@@ -13,7 +13,18 @@ port's two paths:
 * LM serving: card against CPU for the Gemma-2 smoke config, then
   Gemma-2-27B at full width (random bf16 weights from seed 0): a
   2 x 8192-token prefill and 16 greedy decode steps, shown to go through
-  the flash-attention kernel in every prefill layer.
+  the flash-attention kernel in every prefill layer;
+* MoE LM serving: card against CPU for both MoE smoke configs, then
+  Qwen1.5-MoE-A2.7B at full width and depth (random bf16 weights from
+  seed 0, the config's capacity factor 1.25): a 2 x 8192-token prefill and
+  16 greedy decode steps, shown to go through the grouped-GEMM kernel in
+  every expert product and the flash kernel in every prefill layer; then
+  the same architecture in f32 with no capacity drops, prefill against
+  decode;
+* recsys serving: card against CPU for the DCN-v2 smoke config, then
+  DCN-v2 at full width (the Criteo-1TB table profile, 62,988,288 rows of
+  16 in bf16): the serve_p99, serve_bulk and retrieval_cand traffic of
+  ``configs/shapes.py``, shown to go through the EmbeddingBag kernel.
 
 Each phase prints one JSON line; the line before the last is the
 ``kernels`` record and the last line is ``{"ok": true, "device": ...}``.
@@ -34,6 +45,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 FULL_GRAPH = ("powerlaw:n=1140149,m=7833140,alpha=2.1,"
               "time_span=200448000,seed=0")
 SMALL_GRAPH = "powerlaw:n=150,m=2000,time_span=40000,seed=11"
@@ -48,6 +60,7 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 OPS_PER_S = 67e12             # H100 SXM non-tensor fp32 rate, used for
                               # the integer compare/select/add work
 BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor cores
+F32_FLOPS_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
 # the LM path: Gemma-2-27B serving 2 prompts of 8192 tokens
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_DECODE, LM_CHECK_AT = (
     "gemma2-27b", 2, 8192, 16, 8)
@@ -65,6 +78,22 @@ FA_ATOL, FA_RTOL, FA_REL_L2, FA_FAULT_MIN = 4e-3, 2e-2, 2e-3, 2e-2
 # to about bf16's relative precision times the depth's growth, not bit
 # for bit
 LM_CHECK_TOL = 5e-2
+# the MoE path: Qwen1.5-MoE-A2.7B serving 2 prompts of 8192 tokens; its
+# check runs the same architecture in f32 with capacity factor
+# n_experts / top_k (no drops) on 2 prompts of 1024 tokens
+MOE_ARCH, MOE_CHECK_PROMPT, MOE_CHECK_AT = "qwen2-moe-a2.7b", 1024, 8
+# prefill(prompt + 8 generated) against decode step 8 in f32: summation
+# order only (the dense f32 smoke configs agree to ~4e-6 on the CPU)
+MOE_CHECK_TOL = 1e-3
+# kernel against its plain version: per element |err| <= atol_rel *
+# rms(want) + rtol * |want| (the absolute part read from the output's own
+# scale), relative L2 <= rel_l2_max; each fault the phase reads must move
+# the output by at least 10 x rel_l2_max.  bf16: both accumulate in f32
+# and round once, so they differ by at most an ulp (2^-8 relative) where
+# the f32 sums round to either side; f32: summation order only.
+KERNEL_TOL = {"bfloat16": dict(rtol=1e-2, atol_rel=2e-3, rel_l2_max=2e-3),
+              "float32": dict(rtol=1e-4, atol_rel=5e-5, rel_l2_max=1e-5)}
+FAULT_FACTOR = 10
 
 
 def emit(obj) -> None:
@@ -196,6 +225,35 @@ def device_profile(fn, kinds=None, top: int = 5) -> dict:
             split[kind] += dev_us(e) / 1e6
         out["device_s_by_kind"] = split
     return out
+
+
+def check_close(what: str, got, want, dtype: str) -> dict:
+    """Hold a kernel's output against its plain version (``KERNEL_TOL``);
+    return the readings."""
+    import torch
+    tol = KERNEL_TOL[dtype]
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    rms = float(want.pow(2).mean().sqrt())
+    rec = dict(max_abs_err=float(err.max()), rel_l2=rel_l2(got, want),
+               want_rms=rms, **tol)
+    require(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+    ok = bool((err <= tol["atol_rel"] * rms + tol["rtol"] * want.abs())
+              .all())
+    require(ok and rec["rel_l2"] <= tol["rel_l2_max"],
+            f"{what}: max |err| {rec['max_abs_err']}, relative L2 "
+            f"{rec['rel_l2']} (limits {tol}, output rms {rms})")
+    return rec
+
+
+def check_fault(what: str, name: str, faulty, want, dtype: str) -> float:
+    """How far a known fault moves the output (computed with the plain
+    version); fails unless the check above could see it."""
+    moved = rel_l2(faulty, want)
+    limit = FAULT_FACTOR * KERNEL_TOL[dtype]["rel_l2_max"]
+    require(moved >= limit, f"{what}: the check cannot see '{name}' "
+            f"(relative L2 {moved} < {limit})")
+    return moved
 
 
 def phase_card() -> str:
@@ -428,7 +486,8 @@ def phase_flash_attention() -> dict:
     """The kernel against its plain version at the prefill's shapes
     (Gemma-2-27B, 2 x 8192, bf16): one local and one global layer, one
     global layer with q x 8 so that the scores reach the softcap, and the
-    kernel beside ``scaled_dot_product_attention`` without softcap.
+    kernel beside ``scaled_dot_product_attention`` without softcap; then
+    the MoE prefill's shapes (``flash_moe_case``).
 
     Each case also reads how far a known fault would move the output,
     computed with the plain version, and fails unless that is ten times
@@ -496,6 +555,7 @@ def phase_flash_attention() -> dict:
             timed.append(rec)
         checked.append(rec)
         emit({"phase": "flash_attention", **rec})
+    moe = flash_moe_case()
     # the yardstick: one PyTorch call on the global layer without softcap
     kw = dict(causal=True, window=0, attn_softcap=0.0)
     ms_nocap = cuda_ms(lambda: flash_attention(q, k, v, **kw), reps=3)
@@ -529,7 +589,74 @@ def phase_flash_attention() -> dict:
         # SDPA has no softcap or window: it is paired with the kernel's
         # time on the same work, not with the path's mean above
         library_ms=lib_ms, library_case=library_case,
-        ms_library_case=ms_nocap)
+        ms_library_case=ms_nocap,
+        **{f"moe_{k}": moe[k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "library_ms", "max_abs_err",
+                                         "rel_l2")})
+
+
+def diagonal_tile_lost(visible):
+    """``visible`` with each query's own 64-key tile masked out (past the
+    first tile, whose rows would see no key): the fault of a causal
+    kernel that stops one tile early."""
+    def faulty(qpos, kpos, causal, window):
+        same = ((qpos[:, None] // 64 == kpos[None, :] // 64)
+                & (qpos[:, None] >= 64))
+        return visible(qpos, kpos, causal, window) & ~same
+    return faulty
+
+
+def flash_moe_case() -> dict:
+    """The kernel against its plain version at the MoE prefill's shapes
+    (Qwen1.5-MoE-A2.7B, 2 x 8192, bf16): MHA (one query head per kv
+    head), causal, no window, no softcap; limits read from the output's
+    scale (``check_close``), and the fault of a lost diagonal 64-key
+    tile read with the plain version.  Timed beside
+    ``scaled_dot_product_attention``, which computes this same function."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ref
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    cfg = get_config(MOE_ARCH)
+    B, S, H, D = LM_BATCH, LM_PROMPT, cfg.n_heads, cfg.hd
+    require(cfg.n_kv_heads == H, f"{MOE_ARCH} is not MHA")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v = (torch.randn((B, S, H, D), generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    kw = dict(causal=True, window=0, attn_softcap=0.0)
+    what = "flash_attention MoE prefill"
+    got = flash_attention(q, k, v, **kw)
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    rec = check_close(what, got, want, "bfloat16")
+    del got
+    own = ref.visible
+    ref.visible = diagonal_tile_lost(own)
+    try:
+        faulty = ref.flash_attention_ref(q, k, v, **kw)
+    finally:
+        ref.visible = own
+    rec["fault"] = "each query's diagonal 64-key tile lost"
+    rec["fault_rel_l2"] = check_fault(what, rec["fault"], faulty, want,
+                                      "bfloat16")
+    del faulty, want
+    pairs = attended_pairs(S, S, True, 0)
+    flops = 4 * D * pairs * B * H
+    nbytes = 2 * 4 * q.numel()                        # q, k, v in, o out
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    rec.update(
+        B=B, S=S, Hq=H, Hkv=H, D=D, window=0, softcap=0.0, pairs=pairs,
+        flops=flops, bytes=nbytes,
+        ms=cuda_ms(lambda: flash_attention(q, k, v, **kw), reps=3),
+        plain_ms=cuda_ms(lambda: ref.flash_attention_ref(q, k, v, **kw),
+                         reps=1),
+        bound_ms=max(flops / BF16_FLOPS_PER_S,
+                     nbytes / HBM_BYTES_PER_S) * 1e3,
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), reps=5))
+    emit({"phase": "flash_attention", "kind": "MoE prefill (Qwen1.5-MoE, "
+          "MHA, causal, no window, no softcap)", **rec})
+    return rec
 
 
 def phase_lm_small() -> None:
@@ -674,6 +801,527 @@ def phase_lm_full() -> dict:
     return launches
 
 
+def phase_segment_matmul() -> dict:
+    """The grouped-GEMM kernel against its plain version at the MoE path's
+    shapes (Qwen1.5-MoE-A2.7B, 64 padded experts): the prefill's gate/up
+    (C = 1368 rows per expert, K = 2048, N = 1408) and down (K = 1408,
+    N = 2048) products in bf16, a decode step's (C = 8) in bf16, and the
+    f32 check run's gate/up (C = 2072), beside ``torch.bmm`` on the same
+    layout.  Two faults are read with the plain version: a block that
+    uses the next group's weights, and a segment whose ragged last rows
+    are dropped."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.segment_matmul.ops import segment_matmul
+    from repro_torch.kernels.segment_matmul.ref import segment_matmul_ref
+    from repro_torch.models.moe import capacity
+    cfg = get_config(MOE_ARCH)
+    E, d, ffe = cfg.e_pad, cfg.d_model, cfg.d_expert
+    c_prefill = capacity(cfg, LM_BATCH * LM_PROMPT)
+    c_check = capacity(replace_capacity(cfg),
+                       LM_BATCH * (MOE_CHECK_PROMPT + MOE_CHECK_AT))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    # (case, C, K, N, dtype)
+    cases = (("prefill gate/up", c_prefill, d, ffe, torch.bfloat16),
+             ("prefill down", c_prefill, ffe, d, torch.bfloat16),
+             ("decode gate/up", capacity(cfg, LM_BATCH), d, ffe,
+              torch.bfloat16),
+             ("f32 check gate/up", c_check, d, ffe, torch.float32))
+    groups = torch.arange(E, dtype=torch.int32, device="cuda")
+    recs = []
+    for case, C, K, N, dtype in cases:
+        dt = str(dtype).split(".")[1]
+        x = torch.randn((E * C, K), generator=gen, device="cuda").to(dtype)
+        w = (torch.randn((E, K, N), generator=gen, device="cuda")
+             * K ** -0.5).to(dtype)
+        got = segment_matmul(x, w, groups)
+        want = segment_matmul_ref(x, w, groups)
+        torch.cuda.synchronize()
+        rec = dict(case=case, dtype=dt, E=E, C=C, K=K, N=N,
+                   **check_close(f"segment_matmul {case}", got, want, dt))
+        del got
+        shifted = (groups + 1) % E
+        rec["fault_next_group"] = check_fault(
+            f"segment_matmul {case}", "a block uses the next group's weights",
+            segment_matmul_ref(x, w, torch.cat([shifted[:1], groups[1:]])),
+            want, dt)
+        tail = C % 128 or min(C, 128)
+        dropped = want.clone()
+        dropped[E * C - tail:] = 0
+        rec["fault_ragged_tail"] = check_fault(
+            f"segment_matmul {case}", "a segment's ragged last rows dropped",
+            dropped, want, dt)
+        del dropped, want
+        flops = 2 * E * C * K * N
+        nbytes = (E * C * K + E * K * N + E * C * N) * x.element_size()
+        ops_s = flops / (BF16_FLOPS_PER_S if dtype == torch.bfloat16
+                         else F32_FLOPS_PER_S)
+        reps = 50 if C <= 64 else 10
+        rec.update(
+            flops=flops, bytes=nbytes,
+            ms=cuda_ms(lambda: segment_matmul(x, w, groups), reps=reps),
+            plain_ms=cuda_ms(lambda: segment_matmul_ref(x, w, groups),
+                             reps=3),
+            library_ms=cuda_ms(lambda: torch.bmm(x.view(E, C, K), w),
+                               reps=reps),
+            bound_ms=max(ops_s, nbytes / HBM_BYTES_PER_S) * 1e3,
+            bound_by=("operations" if ops_s >= nbytes / HBM_BYTES_PER_S
+                      else "bytes"))
+        del x, w
+        recs.append(rec)
+        emit({"phase": "segment_matmul", **rec})
+    head, dec = recs[0], recs[2]
+    return dict(
+        name="segment_matmul", route="cuda",
+        source="src/repro_torch/kernels/segment_matmul/csrc/"
+               "segment_matmul.cu",
+        replaces="src/repro/kernels/segment_matmul/kernel.py:46",
+        max_abs_err=max(r["max_abs_err"] for r in recs),
+        # the prefill's gate/up launch; the decode launch beside it
+        case=head["case"], ms=head["ms"], plain_ms=head["plain_ms"],
+        bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+        library_ms=head["library_ms"],
+        decode_ms=dec["ms"], decode_bound_ms=dec["bound_ms"],
+        decode_library_ms=dec["library_ms"])
+
+
+def phase_embedding_bag() -> dict:
+    """The EmbeddingBag kernel against its plain version: DCN-v2's
+    serve_bulk lookup (the full 62,988,288 x 16 bf16 table, 262,144 x 26
+    bags of one id, int64 ids as the path makes them) bit for bit, beside
+    ``F.embedding_bag``; then multi-hot bags (8 slots, f32 weights, 30%
+    ``-1`` pads, d 16 and 128) to ``KERNEL_TOL``, reading two faults with
+    the plain version: weights ignored, pads not masked."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import RECSYS_SHAPES
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    from repro_torch.models.recsys import table_offsets
+    cfg = get_config("dcn-v2")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    table = (torch.randn((cfg.v_total, cfg.embed_dim), generator=gen,
+                         device="cuda").mul_(0.01).to(torch.bfloat16))
+    B = RECSYS_SHAPES["serve_bulk"]["batch"]
+    ids = recsys_ids(cfg, B, np.random.default_rng(0))
+    gid = (ids + table_offsets(cfg, "cuda")).reshape(-1, 1)  # [B * F, 1]
+    got = embedding_bag(table, gid)
+    want = embedding_bag_ref(table, gid)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want),
+            "embedding_bag serve_bulk: kernel != plain version bit for bit")
+    del got, want
+    n = gid.shape[0]
+    nbytes = n * 8 + 2 * n * cfg.embed_dim * table.element_size()
+    ones = torch.ones((n, 1), dtype=table.dtype, device="cuda")
+    try:                  # the yardstick: one PyTorch call, same function
+        F.embedding_bag(gid, table, mode="sum", per_sample_weights=ones)
+        lib_kw = dict(per_sample_weights=ones)
+    except RuntimeError:  # a torch without bf16 per-sample weights
+        lib_kw = {}
+    rec = dict(name="embedding_bag", route="cuda",
+               source="src/repro_torch/kernels/embedding_bag/csrc/"
+                      "embedding_bag.cu",
+               replaces="src/repro/kernels/embedding_bag/kernel.py:38",
+               case="serve_bulk, 262,144 x 26 bags of one id, d 16, bf16",
+               bags=n, bytes=nbytes,
+               ms=cuda_ms(lambda: embedding_bag(table, gid), reps=20),
+               plain_ms=cuda_ms(lambda: embedding_bag_ref(table, gid),
+                                reps=3),
+               library_ms=cuda_ms(lambda: F.embedding_bag(
+                   gid, table, mode="sum", **lib_kw), reps=20),
+               library_weighted=bool(lib_kw),
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+               max_abs_err=0.0)
+    emit({"phase": "embedding_bag", "equal": True,
+          **{k: v for k, v in rec.items()
+             if k not in ("name", "route", "source", "replaces")}})
+    del ones
+    for d in (16, 128):
+        V, Bm, bag = 1_000_000, 65_536, 8
+        tab = torch.randn((V, d), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        idx = torch.randint(0, V, (Bm, bag), generator=gen, device="cuda")
+        idx[torch.rand((Bm, bag), generator=gen, device="cuda") < 0.3] = -1
+        w = torch.randn((Bm, bag), generator=gen, device="cuda")
+        got = embedding_bag(tab, idx, w)
+        want = embedding_bag_ref(tab, idx, w)
+        torch.cuda.synchronize()
+        what = f"embedding_bag multi-hot d {d}"
+        r = check_close(what, got, want, "bfloat16")
+        r["fault_weights_ignored"] = check_fault(
+            what, "weights ignored", embedding_bag_ref(tab, idx), want,
+            "bfloat16")
+        r["fault_pads_unmasked"] = check_fault(
+            what, "pads not masked",
+            embedding_bag_ref(tab, idx.clamp(min=0), w), want, "bfloat16")
+        rec["max_abs_err"] = max(rec["max_abs_err"], r["max_abs_err"])
+        emit({"phase": "embedding_bag", "case": f"bag {bag}, 30% pads, "
+              f"f32 weights, d {d}, bf16", "V": V, "B": Bm, **r})
+        del tab, idx, w, got, want
+    del table, gid
+    return rec
+
+
+def replace_capacity(cfg):
+    """``cfg`` with capacity factor n_experts / top_k: C > T, no drops."""
+    import dataclasses
+    return dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                               / cfg.top_k)
+
+
+def phase_moe_small() -> None:
+    """Card against CPU for both MoE smoke configs on the same numpy
+    weights: prefill (S = 20, cache 24), then 3 decode steps, in f32
+    without TF32 (1e-4) and bf16 (5e-2, with the CPU's routes pinned);
+    see ``repro_torch.testing``."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.testing import compare, moe_lm_runs
+    for arch in ("qwen2-moe-a2.7b", "granite-moe-3b-a800m"):
+        cfg = get_smoke_config(arch)
+        want = dict(flash_attention=cfg.n_layers,
+                    segment_matmul=12 * cfg.n_layers, embedding_bag=0)
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 5e-2)):
+            runs, launches, flips = moe_lm_runs(arch, dtype, seed=0)
+            require(launches[1] == want,
+                    f"moe_small {arch}: card launches {launches[1]}")
+            err = compare(runs, tol)
+            emit({"phase": "moe_small", "arch": cfg.name, "dtype": str(dtype),
+                  "tol": tol, "max_abs_err": err, "route_flips": flips,
+                  "launches": launches[1], "equal_within_tol": True})
+
+
+def reset_counters(*fns) -> None:
+    for fn in fns:
+        fn.launches = 0
+
+
+class CountDrops:
+    """Inside the ``with``, sum on the device the MoE assignments that
+    capacity dropped (read ``dropped`` once, after it) and count the
+    ``T * k`` assignments, by wrapping ``moe.dispatch_tables``."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.own = moe, moe.dispatch_tables
+        self.dropped, self.assignments = 0, 0
+        moe.dispatch_tables = self.dispatch_tables
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.dispatch_tables = self.own
+
+    def dispatch_tables(self, cfg, experts, C):
+        slot_token, slot_gatepos = self.own(cfg, experts, C)
+        self.dropped = self.dropped + (experts.numel()
+                                       - (slot_token >= 0).sum())
+        self.assignments += experts.numel()
+        return slot_token, slot_gatepos
+
+
+def phase_moe_full() -> dict:
+    """Qwen1.5-MoE-A2.7B at full width and depth: prefill 2 x 8192
+    tokens, 16 greedy decode steps, launch counts and capacity drops
+    read around that run; then one prefill and 2 decode steps profiled."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.interval_weight.ops import interval_weight
+    from repro_torch.kernels.segment_matmul.ops import segment_matmul
+    from repro_torch.kernels.tree_sampler.ops import tree_sampler
+    from repro_torch.models.convert import init_lm
+    cfg = get_config(MOE_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_lm(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    prompt = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT))).cuda()
+    counters = (segment_matmul, flash_attention, embedding_bag,
+                interval_weight, tree_sampler)
+    reset_counters(*counters)
+    t0 = time.perf_counter()
+    with CountDrops() as drops:
+        logits, cache = model.prefill(prompt, LM_PROMPT + LM_DECODE)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = {fn.__name__: fn.launches for fn in counters}
+    dropped, assigned = int(drops.dropped), drops.assignments
+    require(tuple(logits.shape) == (LM_BATCH, 1, cfg.vocab),
+            f"prefill logits shape {tuple(logits.shape)}")
+    require(bool(torch.isfinite(logits).all()), "prefill logits not finite")
+    t0 = time.perf_counter()
+    for _ in range(LM_DECODE):
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        logits, cache = model.decode_step(cache, tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    require(bool(torch.isfinite(logits).all()), "decode logits not finite")
+    require(cache["kv_len"] == LM_PROMPT + LM_DECODE, "kv_len")
+    per_layer = 3 * cfg.n_layers
+    require(prefill_launches["segment_matmul"] == per_layer
+            and prefill_launches["flash_attention"] == cfg.n_layers,
+            f"prefill launches {prefill_launches}")
+    require(launches["segment_matmul"] == per_layer * (1 + LM_DECODE)
+            and launches["flash_attention"] == cfg.n_layers,
+            f"decode launches {launches}")
+    require(launches["interval_weight"] == launches["tree_sampler"]
+            == launches["embedding_bag"] == 0,
+            f"other paths' kernels launched on the MoE path: {launches}")
+    peak = torch.cuda.max_memory_allocated()
+    del cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    kinds = {"segment_matmul": lambda k: "sm_bf16_kernel" in k,
+             "flash_attention": lambda k: "flash_attention_kernel" in k,
+             "gemm": lambda k: any(w in k.lower() for w in
+                                   ("gemm", "cutlass", "xmma", "nvjet",
+                                    "cublas"))}
+    out = {}
+    prof = device_profile(lambda: out.update(zip(
+        ("logits", "cache"), model.prefill(prompt, LM_PROMPT + 2))), kinds)
+    emit({"phase": "moe_breakdown", "run": f"prefill S={LM_PROMPT}", **prof})
+    tok = out.pop("logits")[:, -1].argmax(-1, keepdim=True)
+
+    def two_steps():
+        cache = out["cache"]
+        for _ in range(2):
+            _, cache = model.decode_step(cache, tok)
+    prof = device_profile(two_steps, kinds)
+    emit({"phase": "moe_breakdown", "run": "2 decode steps",
+          "ms_per_step": 1e3 * prof["profiled_wall_s"] / 2, **prof})
+    out.clear()
+    rec = {"phase": "moe_full", "arch": cfg.name, "batch": LM_BATCH,
+           "prompt": LM_PROMPT, "decode_steps": LM_DECODE,
+           "capacity_factor": cfg.capacity_factor,
+           "params": sum(p.numel() for p in model.parameters()),
+           "weight_bytes": weight_bytes, "init_s": init_s,
+           "prefill_s": prefill_s,
+           "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / prefill_s,
+           "decode_ms_per_step": 1e3 * decode_s / LM_DECODE,
+           "decode_tokens_per_s": LM_BATCH * LM_DECODE / decode_s,
+           "decode_bound_ms": 1e3 * weight_bytes / HBM_BYTES_PER_S,
+           "peak_mem_bytes": peak, "prefill_launches": prefill_launches,
+           "launches": launches,
+           "segment_matmul_per_decode_step":
+               (launches["segment_matmul"]
+                - prefill_launches["segment_matmul"]) / LM_DECODE,
+           "prefill_assignments": assigned,
+           "prefill_dropped": dropped,
+           "prefill_drop_share": dropped / assigned}
+    emit(rec)
+    del model, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_moe_check() -> None:
+    """The same architecture in f32 (weights from seed 0) with capacity
+    factor n_experts / top_k, so no token is ever dropped: a 2 x 1024
+    prompt, 8 greedy decode steps, then prefill(prompt + 8 generated)
+    against decode step 8, through both f32 kernels (segment_matmul,
+    flash)."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.segment_matmul.ops import segment_matmul
+    from repro_torch.models.convert import init_lm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = replace_capacity(get_config(MOE_ARCH))
+    torch.cuda.reset_peak_memory_stats()
+    model = init_lm(cfg, seed=0, device="cuda", dtype=torch.float32)
+    prompt = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (LM_BATCH, MOE_CHECK_PROMPT))).cuda()
+    reset_counters(segment_matmul, flash_attention)
+    S = MOE_CHECK_PROMPT + MOE_CHECK_AT
+    with CountDrops() as drops:
+        logits, cache = model.prefill(prompt, S,
+                                      compute_dtype=torch.float32)
+        generated = []
+        for _ in range(MOE_CHECK_AT):
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            generated.append(tok)
+            logits, cache = model.decode_step(cache, tok,
+                                              compute_dtype=torch.float32)
+        want = logits[:, -1]
+        del cache
+        ext = torch.cat([prompt] + generated, dim=1)
+        got, _ = model.prefill(ext, S + 1, compute_dtype=torch.float32)
+    got = got[:, -1]
+    dropped, assigned = int(drops.dropped), drops.assignments
+    rel = rel_l2(got, want)
+    require(bool(torch.isfinite(got).all() and torch.isfinite(want).all()),
+            "moe_check: logits not finite")
+    require(dropped == 0, f"moe_check: {dropped} assignments dropped")
+    require(segment_matmul.launches == 3 * cfg.n_layers * (2 + MOE_CHECK_AT)
+            and flash_attention.launches == 2 * cfg.n_layers,
+            "moe_check launches: segment_matmul "
+            f"{segment_matmul.launches}, flash {flash_attention.launches}")
+    require(rel <= MOE_CHECK_TOL,
+            f"moe_check: prefill(S={S}) vs decode step {MOE_CHECK_AT}: "
+            f"relative L2 {rel} > {MOE_CHECK_TOL}")
+    emit({"phase": "moe_check", "arch": cfg.name, "dtype": "float32",
+          "capacity_factor": cfg.capacity_factor, "prompt": MOE_CHECK_PROMPT,
+          "check_S": S, "check_rel_l2": rel, "check_tol": MOE_CHECK_TOL,
+          "argmax_agree": float((got.argmax(-1) == want.argmax(-1))
+                                .float().mean()),
+          "assignments": assigned, "dropped": dropped,
+          "segment_matmul_launches": segment_matmul.launches,
+          "flash_launches": flash_attention.launches,
+          "peak_mem_bytes": torch.cuda.max_memory_allocated()})
+    del model, got, want, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def tree_to(tree, device):
+    """A nested dict / list of tensors, copied to ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def recsys_ids(cfg, B: int, r) -> "torch.Tensor":
+    """One id per feature, uniform in ``[0, table_size)``, on the card."""
+    import numpy as np
+    import torch
+    sizes = np.asarray(cfg.table_sizes)
+    ids = (r.random((B, len(sizes))) * sizes).astype(np.int64)
+    return torch.as_tensor(ids).cuda()
+
+
+def phase_recsys_small() -> None:
+    """Card against CPU for the DCN-v2 smoke config on the same numpy
+    weights: forward (one-hot, with pads, and multi-hot) and retrieval,
+    in f32 without TF32 (1e-5) and bf16 (5e-2); see
+    ``repro_torch.testing``."""
+    import torch
+    from repro_torch.testing import compare, recsys_runs
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 5e-2)):
+        runs, launches = recsys_runs(dtype, seed=0)
+        require(launches[1]["embedding_bag"] == 3,
+                f"recsys_small: card launches {launches[1]}, not 3 "
+                "embedding_bag")
+        err = compare(runs, tol)
+        emit({"phase": "recsys_small", "arch": "dcn-v2-smoke",
+              "dtype": str(dtype), "tol": tol, "max_abs_err": err,
+              "equal_within_tol": True})
+
+
+def phase_recsys_full() -> int:
+    """DCN-v2 at full width (random bf16 weights from seed 0): the
+    serve_p99 and serve_bulk forwards and the retrieval_cand scoring of
+    ``RECSYS_SHAPES``, ids uniform per feature (numpy seed 0), launch
+    counts read around the timed calls, then one call of each profiled;
+    the first 512 rows of serve_bulk held against the CPU on the same
+    weights."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import RECSYS_SHAPES
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.segment_matmul.ops import segment_matmul
+    from repro_torch.models import recsys
+    from repro_torch.models.convert import init_recsys
+    cfg = get_config("dcn-v2")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_recsys(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    r = np.random.default_rng(0)
+
+    def batch(B):
+        return dict(dense=torch.as_tensor(r.standard_normal(
+            (B, cfg.n_dense)), dtype=torch.float32).cuda(),
+            sparse=recsys_ids(cfg, B, r))
+    shapes = RECSYS_SHAPES
+    calls = {
+        "serve_p99": (batch(shapes["serve_p99"]["batch"]), recsys.forward,
+                      shapes["serve_p99"]["batch"]),
+        "serve_bulk": (batch(shapes["serve_bulk"]["batch"]), recsys.forward,
+                       shapes["serve_bulk"]["batch"])}
+    q = batch(1)
+    n_cand = shapes["retrieval_cand"]["n_candidates"]
+    q["cand_ids"] = torch.as_tensor(
+        r.integers(0, cfg.table_sizes[0], n_cand)).cuda()
+    calls["retrieval_cand"] = (q, recsys.serve_retrieval, n_cand)
+    counters = (embedding_bag, segment_matmul, flash_attention)
+    kinds = {"embedding_bag": lambda k: "embedding_bag_kernel" in k,
+             "gemm": lambda k: any(w in k.lower() for w in
+                                   ("gemm", "cutlass", "xmma", "nvjet",
+                                    "cublas"))}
+    results, total = {}, 0
+    for name, (b, fn, rows) in calls.items():
+        for _ in range(2):                               # warm-up
+            out = fn(cfg, params, b)
+        torch.cuda.synchronize()
+        reps = 10
+        reset_counters(*counters)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn(cfg, params, b)
+            torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / reps
+        launches = {f.__name__: f.launches for f in counters}
+        require(launches["embedding_bag"] == reps
+                and launches["segment_matmul"] == launches["flash_attention"]
+                == 0, f"recsys {name}: launches {launches}")
+        require(tuple(out.shape) == (rows,) and bool(torch.isfinite(out)
+                                                     .all()),
+                f"recsys {name}: output {tuple(out.shape)} not finite")
+        total += launches["embedding_bag"]
+        results[name] = out
+        emit({"phase": "recsys_full", "call": name, "rows": rows,
+              "ms_per_call": ms, "rows_per_s": rows / ms * 1e3,
+              "launches": launches})
+        prof = device_profile(lambda: fn(cfg, params, b), kinds)
+        emit({"phase": "recsys_breakdown", "call": name, **prof})
+    # the first 512 rows of serve_bulk on the CPU, same weights
+    b = calls["serve_bulk"][0]
+    cpu_params = tree_to(params, "cpu")
+    want = recsys.forward(cfg, cpu_params, {k: v[:512].cpu()
+                                            for k, v in b.items()})
+    got = results["serve_bulk"][:512].cpu()
+    err = float((got.float() - want.float()).abs().max())
+    require(torch.allclose(got.float(), want.float(), atol=5e-2, rtol=5e-2),
+            f"recsys_full: serve_bulk rows 0-511 card != CPU (max |err| "
+            f"{err})")
+    emit({"phase": "recsys_full", "arch": cfg.name,
+          "table_rows": cfg.v_total, "table_bytes":
+              params["table"].numel() * params["table"].element_size(),
+          "params": cfg.param_count(), "init_s": init_s,
+          "cpu_check_rows": 512, "cpu_check_max_abs_err": err,
+          "cpu_check_tol": 5e-2, "embedding_bag_launches": total,
+          "peak_mem_bytes": torch.cuda.max_memory_allocated()})
+    del params, cpu_params, calls, results, q
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--graph", default=FULL_GRAPH,
@@ -683,6 +1331,8 @@ def main() -> None:
     ap.add_argument("--k", type=int, default=1 << 20)
     ap.add_argument("--chunk", type=int, default=8192)
     args = ap.parse_args()
+
+    import gc
 
     import torch
     require(torch.cuda.is_available(), "no CUDA device")
@@ -722,9 +1372,24 @@ def main() -> None:
 
     fa = phase_flash_attention()
     torch.cuda.empty_cache()
+    sm = phase_segment_matmul()
+    eb = phase_embedding_bag()
+    torch.cuda.empty_cache()
     phase_lm_small()
     fa["launches"] = phase_lm_full()["flash_attention"]
-    recs.append(fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_moe_small()
+    moe = phase_moe_full()
+    fa["launches_moe_prefill"] = moe["prefill_launches"]["flash_attention"]
+    sm["launches"] = moe["launches"]["segment_matmul"]
+    phase_moe_check()
+    phase_recsys_small()
+    eb["launches"] = phase_recsys_full()
+    recs += [fa, sm, eb]
+    require(all(r["launches"] > 0 for r in recs),
+            "a kernel was launched no time on its path")
+    emit({"phase": "total", "seconds": time.perf_counter() - T_START})
     emit({"kernels": recs})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

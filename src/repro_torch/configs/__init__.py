@@ -1,10 +1,11 @@
 """Architecture registry of the port: ``get_config(arch)`` /
 ``get_smoke_config(arch)``.
 
-The three dense LMs are copies of ``repro/configs/<arch>.py`` (the JAX
-files import ``repro.models.transformer``, which imports jax), with the
-same ``config()`` / ``smoke_config()`` values.  The MoE ids are known
-but not ported yet; the other families (GNN, recsys) are not LMs.
+The config files are copies of ``repro/configs/<arch>.py`` (the JAX
+files import ``repro.models``, which imports jax), with the same
+``config()`` / ``smoke_config()`` values: the dense and MoE LMs and
+DCN-v2.  ``shapes.py`` is a copy of the reference's input-shape sets.
+The GNN family is not ported yet (ROADMAP §1).
 """
 from __future__ import annotations
 
@@ -14,17 +15,15 @@ _MODULES = {
     "granite-8b": "granite_8b",
     "gemma2-27b": "gemma2_27b",
     "deepseek-7b": "deepseek_7b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+    "dcn-v2": "dcn_v2",
 }
-_NOT_PORTED = ("qwen2-moe-a2.7b", "granite-moe-3b-a800m")
 
 ARCH_IDS = tuple(_MODULES)
 
 
 def _mod(arch: str):
-    if arch in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{arch}: MoE LMs are not ported yet (ROADMAP §1, "
-            "models/moe.py)")
     try:
         name = _MODULES[arch]
     except KeyError as e:

@@ -32,6 +32,10 @@ SOURCES = {
     "tree_sampler": _KERNELS / "tree_sampler" / "csrc" / "tree_sampler.cu",
     "flash_attention": _KERNELS / "flash_attention" / "csrc"
     / "flash_attention.cu",
+    "segment_matmul": _KERNELS / "segment_matmul" / "csrc"
+    / "segment_matmul.cu",
+    "embedding_bag": _KERNELS / "embedding_bag" / "csrc"
+    / "embedding_bag.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

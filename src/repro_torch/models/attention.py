@@ -18,8 +18,9 @@ Shapes: q ``[B, Sq, Hq, D]``, k/v ``[B, Skv, Hkv, D]``; Hq % Hkv == 0.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-from ..kernels.flash_attention.ops import flash_attention
+from ..kernels.flash_attention.ops import HEAD_DIMS, flash_attention
 from ..kernels.flash_attention.ref import NEG_INF, visible
 
 
@@ -48,9 +49,22 @@ def attention_naive(q, k, v, *, causal=True, window=0, attn_softcap=0.0,
 
 def attention_flash(q, k, v, *, causal=True, window=0, attn_softcap=0.0):
     """Online-softmax attention with implicit positions ``0..S-1``: the
-    CUDA kernel on the card (see ``kernels/flash_attention/ops.py``)."""
+    CUDA kernel on the card (see ``kernels/flash_attention/ops.py``).
+
+    A head dim the kernel has no build for (12 in a smoke config) is
+    zero-padded to the next one it has, Dp; q is first multiplied by
+    ``(Dp / D) ** 0.5``, so the kernel's ``Dp ** -0.5`` scales the scores
+    by ``D ** -0.5`` (the zero columns add exact zeros to every product).
+    """
+    D = q.shape[-1]
+    Dp = next((h for h in HEAD_DIMS if h >= D), D)
+    if Dp == D:
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               attn_softcap=attn_softcap)
+    q = q * (Dp / D) ** 0.5
+    q, k, v = (F.pad(x, (0, Dp - D)) for x in (q, k, v))
     return flash_attention(q, k, v, causal=causal, window=window,
-                           attn_softcap=attn_softcap)
+                           attn_softcap=attn_softcap)[..., :D]
 
 
 def attention_decode(q, k_cache, v_cache, *, kv_len, window=0,

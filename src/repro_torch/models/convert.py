@@ -1,15 +1,24 @@
-"""Building the port's LM from weights (no JAX counterpart).
+"""Building the port's models from weights (no JAX counterpart).
 
 * ``lm_from_numpy`` takes the reference's ``init_params`` pytree as
-  numpy arrays (per-layer arrays stacked on a leading ``[L]`` axis) and
-  builds a ``TransformerLM`` that computes what the reference computes
-  with those weights; the tests and ``chip_smoke.py`` feed both packages
-  the same arrays this way.
-* ``numpy_params`` makes such a pytree from a numpy seed, for runs that
-  have no JAX (the card tests and ``chip_smoke.py``).
-* ``init_lm`` makes random weights at full width directly on the card,
-  one tensor at a time in the target dtype: a full-width f32 copy of
-  Gemma-2-27B would be 109 GB.
+  numpy arrays (per-layer arrays stacked on a leading ``[L]`` axis; dense
+  or MoE layers) and builds a ``TransformerLM`` that computes what the
+  reference computes with those weights; the tests and ``chip_smoke.py``
+  feed both packages the same arrays this way.  ``recsys_from_numpy``
+  does the same for DCN-v2's pytree.
+* ``numpy_params`` / ``numpy_recsys_params`` make such pytrees from a
+  numpy seed, for runs that have no JAX (the card tests and
+  ``chip_smoke.py``).
+* ``init_lm`` / ``init_recsys`` make random weights at full width
+  directly on the card, one tensor at a time in the target dtype: a
+  full-width f32 copy of Gemma-2-27B would be 109 GB.
+
+Every dense weight is drawn with its fan-in on axis 0, as the
+reference's ``dense_init`` (default ``in_axis=0``) draws it.  For the MoE
+expert weights ``[E_pad, d, d_expert]`` (``init_moe_params``) that axis
+is the expert axis, so their scale is ``E_pad ** -0.5``, not ``d **
+-0.5``; the port reproduces that, since it is what the reference
+computes.
 """
 from __future__ import annotations
 
@@ -17,6 +26,7 @@ import numpy as np
 import torch
 
 from .layers import dense_init, embed_init
+from .recsys import RecsysConfig
 from .transformer import LMConfig, TransformerLM, layer_shapes
 
 
@@ -36,7 +46,8 @@ def lm_from_numpy(cfg: LMConfig, params: dict, device="cuda",
 def numpy_params(cfg: LMConfig, seed: int) -> dict:
     """A reference-layout pytree of f32 numpy arrays from ``seed``.
 
-    Dense weights are ``N(0, 1)`` clipped to +-3 over ``sqrt(fan_in)``,
+    Dense weights are ``N(0, 1)`` clipped to +-3 over ``sqrt(fan_in)``
+    (fan-in on axis 0, as in the module docstring),
     the embedding ``N(0, 0.02^2)``, and the norms (zero at the
     reference's init) ``N(0, 0.1^2)``, so a comparison also sees every
     norm weight.
@@ -63,9 +74,10 @@ def numpy_params(cfg: LMConfig, seed: int) -> dict:
 def init_lm(cfg: LMConfig, seed: int, device="cuda",
             dtype=torch.bfloat16) -> TransformerLM:
     """Random weights as the reference's ``init_params`` draws them
-    (truncated-normal fan-in dense, ``N(0, 0.02^2)`` embedding, zero
-    norms), from a ``torch.Generator`` on ``device``, each tensor drawn
-    in f32 and cast to ``dtype`` before the next is made."""
+    (truncated-normal fan-in dense, fan-in on axis 0 as in the module
+    docstring, ``N(0, 0.02^2)`` embedding, zero norms), from a
+    ``torch.Generator`` on ``device``, each tensor drawn in f32 and cast
+    to ``dtype`` before the next is made."""
     device = torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -81,3 +93,69 @@ def init_lm(cfg: LMConfig, seed: int, device="cuda",
                else dense_init((d, cfg.vocab), gen, **kw))
     return TransformerLM(cfg, embed, torch.zeros((d,), **kw), layers,
                          unembed)
+
+
+def recsys_from_numpy(cfg: RecsysConfig, params: dict, device="cuda",
+                      dtype=torch.float32) -> dict:
+    """The reference's DCN-v2 pytree (numpy) -> the port's (torch tensors
+    on ``device`` in ``dtype``; keep ``dtype`` the compute dtype)."""
+    def t(a):
+        return torch.as_tensor(np.array(a)).to(device=device, dtype=dtype)
+
+    def wb(p):
+        return dict(W=t(p["W"]), b=t(p["b"]))
+    return dict(table=t(params["table"]),
+                cross=[wb(p) for p in params["cross"]],
+                mlp=[wb(p) for p in params["mlp"]], head=wb(params["head"]),
+                retrieval_proj=t(params["retrieval_proj"]))
+
+
+def _recsys_shapes(cfg: RecsysConfig):
+    """(cross, mlp) layer shapes, head and projection shapes."""
+    D = cfg.d_interact
+    dims = (D,) + cfg.mlp
+    return ([(D, D)] * cfg.n_cross_layers, list(zip(dims[:-1], dims[1:])),
+            (cfg.mlp[-1], 1), (cfg.mlp[-1], cfg.embed_dim))
+
+
+def numpy_recsys_params(cfg: RecsysConfig, seed: int) -> dict:
+    """A reference-layout DCN-v2 pytree of f32 numpy arrays from ``seed``:
+    the table ``N(0, 0.01^2)``, dense weights ``N(0, 1)`` clipped to +-3
+    over ``sqrt(fan_in)``, and biases (zero at the reference's init)
+    ``N(0, 0.1^2)``, so a comparison also sees every bias."""
+    r = np.random.default_rng(seed)
+    cross, mlp, head, proj = _recsys_shapes(cfg)
+
+    def wb(shape):
+        W = np.clip(r.standard_normal(shape), -3, 3) * shape[0] ** -0.5
+        return dict(W=W.astype(np.float32),
+                    b=r.normal(0.0, 0.1, shape[1]).astype(np.float32))
+    table = r.normal(0.0, 0.01, (cfg.v_total, cfg.embed_dim))
+    return dict(table=table.astype(np.float32),
+                cross=[wb(s) for s in cross], mlp=[wb(s) for s in mlp],
+                head=wb(head),
+                retrieval_proj=(np.clip(r.standard_normal(proj), -3, 3)
+                                * proj[0] ** -0.5).astype(np.float32))
+
+
+def init_recsys(cfg: RecsysConfig, seed: int, device="cuda",
+                dtype=torch.bfloat16) -> dict:
+    """Random DCN-v2 weights as the reference's ``init_params`` draws them
+    (table ``N(0, 0.01^2)``, truncated-normal fan-in dense weights, zero
+    biases), from a ``torch.Generator`` on ``device``, each tensor drawn
+    in f32 and cast to ``dtype`` before the next is made."""
+    device = torch.device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    kw = dict(dtype=dtype, device=device)
+    cross, mlp, head, proj = _recsys_shapes(cfg)
+    table = torch.randn((cfg.v_total, cfg.embed_dim), generator=gen,
+                        dtype=torch.float32, device=device)
+    table = table.mul_(0.01).to(dtype)
+
+    def wb(shape):
+        return dict(W=dense_init(shape, gen, **kw),
+                    b=torch.zeros(shape[1], **kw))
+    return dict(table=table, cross=[wb(s) for s in cross],
+                mlp=[wb(s) for s in mlp], head=wb(head),
+                retrieval_proj=dense_init(proj, gen, **kw))

@@ -17,14 +17,18 @@ import torch
 import torch.nn.functional as F
 
 
-def cast_for_compute(params: dict, dtype=torch.bfloat16) -> dict:
-    """Cast the float tensors of a flat dict to the compute dtype.
+def cast_for_compute(params, dtype=torch.bfloat16):
+    """Cast the float tensors of a parameter tree (nested dicts and lists
+    of tensors) to the compute dtype.
 
     A tensor already in ``dtype`` comes back as itself, so a model held
     in bf16 computes in bf16 without a copy.
     """
-    return {k: (v.to(dtype) if torch.is_floating_point(v) else v)
-            for k, v in params.items()}
+    if isinstance(params, dict):
+        return {k: cast_for_compute(v, dtype) for k, v in params.items()}
+    if isinstance(params, list):
+        return [cast_for_compute(v, dtype) for v in params]
+    return params.to(dtype) if torch.is_floating_point(params) else params
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,

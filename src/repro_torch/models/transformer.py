@@ -1,4 +1,4 @@
-"""Decoder-only dense LM: GQA, local/global alternation, KV cache.
+"""Decoder-only LM: dense + MoE, GQA, local/global alternation, KV cache.
 
 The port of ``repro.models.transformer`` for serving: ``forward``,
 ``prefill`` and ``decode_step`` compute what the reference's entry
@@ -21,8 +21,13 @@ Numbers that have to match the reference exactly:
 * the final softcap runs on f32 logits, prefill returns the logits of
   the last position only, and its cache is zero past the prompt.
 
-Not ported yet: MoE layers (``models/moe.py``), the sequence-parallel
-residual sharding (``residual_spec``) and training (``train_loss``).
+MoE configs (``n_experts > 0``) replace the dense MLP of every layer by
+``moe.moe_mlp``, whose expert products go through the grouped-GEMM
+kernel; ``forward`` returns the aux loss summed over layers, as the
+reference does, and ``prefill`` / ``decode_step`` drop it.
+
+Not ported yet: the sequence-parallel residual sharding
+(``residual_spec``) and training (``train_loss``).
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ from torch import nn
 
 from .attention import attention_decode, attention_flash, attention_naive
 from .layers import apply_rope, cast_for_compute, rms_norm, softcap, swiglu
+from .moe import moe_mlp
 
 
 @dataclass(frozen=True)
@@ -84,6 +90,10 @@ class LMConfig:
     def is_moe(self) -> bool:
         return self.n_experts > 0
 
+    @property
+    def e_pad(self) -> int:
+        return max(self.n_experts_padded, self.n_experts)
+
 
 def layer_windows(cfg: LMConfig) -> tuple[int, ...]:
     """The attention window of every layer (0 = global)."""
@@ -103,8 +113,17 @@ def layer_shapes(cfg: LMConfig) -> dict[str, tuple[int, ...]]:
                   wv=(d, Hkv * hd), wo=(Hq * hd, d), mlp_norm=(d,))
     if cfg.post_norms:
         shapes.update(post_attn_norm=(d,), post_mlp_norm=(d,))
-    shapes.update(w_gate=(d, cfg.d_ff), w_up=(d, cfg.d_ff),
-                  w_down=(cfg.d_ff, d))
+    if cfg.is_moe:
+        E, ffe = cfg.e_pad, cfg.d_expert
+        shapes.update(router=(d, cfg.n_experts), moe_gate=(E, d, ffe),
+                      moe_up=(E, d, ffe), moe_down=(E, ffe, d))
+        if cfg.n_shared_experts > 0:
+            ffs = ffe * cfg.n_shared_experts
+            shapes.update(shared_gate=(d, ffs), shared_up=(d, ffs),
+                          shared_down=(ffs, d))
+    else:
+        shapes.update(w_gate=(d, cfg.d_ff), w_up=(d, cfg.d_ff),
+                      w_down=(cfg.d_ff, d))
     return shapes
 
 
@@ -129,16 +148,13 @@ class Block(nn.Module):
 
 
 class TransformerLM(nn.Module):
-    """A dense decoder LM; build it with ``convert.lm_from_numpy`` or
-    ``convert.init_lm``."""
+    """A decoder LM (dense or MoE); build it with ``convert.lm_from_numpy``
+    or ``convert.init_lm``."""
 
     def __init__(self, cfg: LMConfig, embed: torch.Tensor,
                  final_norm: torch.Tensor, layers: list[dict],
                  unembed: torch.Tensor | None = None):
         super().__init__()
-        if cfg.is_moe:
-            raise NotImplementedError(
-                f"{cfg.name}: MoE layers are not ported yet (ROADMAP §1)")
         if cfg.residual_spec is not None:
             raise NotImplementedError(
                 f"{cfg.name}: residual sharding is not ported yet "
@@ -187,14 +203,20 @@ class TransformerLM(nn.Module):
         return x + o
 
     def _mlp(self, x, p):
-        o = swiglu(rms_norm(x, p["mlp_norm"]), p["w_gate"], p["w_up"],
-                   p["w_down"])
+        """The MLP half of a layer; returns the new x and the aux loss
+        (a Python 0.0 for dense layers)."""
+        h = rms_norm(x, p["mlp_norm"])
+        if self.cfg.is_moe:
+            o, aux = moe_mlp(self.cfg, h, p)
+        else:
+            o, aux = swiglu(h, p["w_gate"], p["w_up"], p["w_down"]), 0.0
         if self.cfg.post_norms:
             o = rms_norm(o, p["post_mlp_norm"])
-        return x + o
+        return x + o, aux
 
     def _layer(self, x, p, window, positions):
-        """One prefill/forward layer; returns the new x and its k, v."""
+        """One prefill/forward layer; returns the new x, its k, v and the
+        layer's aux loss."""
         q, kk, vv = self._qkv(x, p, positions)
         if self.cfg.attn_impl == "flash":
             o = attention_flash(q, kk, vv, causal=True, window=window,
@@ -204,8 +226,8 @@ class TransformerLM(nn.Module):
                                 attn_softcap=self.cfg.attn_softcap,
                                 q_positions=positions,
                                 kv_positions=positions)
-        x = self._attn_out(x, o, p)
-        return self._mlp(x, p), kk, vv
+        x, aux = self._mlp(self._attn_out(x, o, p), p)
+        return x, kk, vv, aux
 
     def _logits(self, x, dtype):
         x = rms_norm(x, self.final_norm.to(dtype))
@@ -219,14 +241,16 @@ class TransformerLM(nn.Module):
     # -- entry points --------------------------------------------------------
     @torch.no_grad()
     def forward(self, tokens: torch.Tensor, compute_dtype=torch.bfloat16):
-        """tokens ``[B, S]`` -> (logits ``[B, S, V]``, aux loss 0.0)."""
+        """tokens ``[B, S]`` -> (logits ``[B, S, V]``, aux loss: the sum
+        over layers, f32, 0 for a dense LM)."""
         S = tokens.shape[1]
         x = self._embed(tokens, compute_dtype)
         positions = torch.arange(S, device=x.device)
-        for blk, w in zip(self.layers, self.windows):
-            x, _, _ = self._layer(x, blk.weights(compute_dtype), w,
-                                  positions)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for blk, w in zip(self.layers, self.windows):
+            x, _, _, a = self._layer(x, blk.weights(compute_dtype), w,
+                                     positions)
+            aux = aux + a
         return self._logits(x, compute_dtype), aux
 
     @torch.no_grad()
@@ -249,8 +273,8 @@ class TransformerLM(nn.Module):
         k_cache = torch.zeros(shape, dtype=compute_dtype, device=x.device)
         v_cache = torch.zeros(shape, dtype=compute_dtype, device=x.device)
         for i, (blk, w) in enumerate(zip(self.layers, self.windows)):
-            x, kk, vv = self._layer(x, blk.weights(compute_dtype), w,
-                                    positions)
+            x, kk, vv, _ = self._layer(x, blk.weights(compute_dtype), w,
+                                       positions)
             k_cache[i, :, :S] = kk
             v_cache[i, :, :S] = vv
         logits = self._logits(x[:, -1:], compute_dtype)
@@ -287,6 +311,6 @@ class TransformerLM(nn.Module):
                                  v_cache[i, :, lo:pos + 1],
                                  kv_len=pos + 1 - lo, window=w,
                                  attn_softcap=cfg.attn_softcap)
-            x = self._mlp(self._attn_out(x, o, p), p)
+            x, _ = self._mlp(self._attn_out(x, o, p), p)
         logits = self._logits(x, compute_dtype)
         return logits, dict(k=k_cache, v=v_cache, kv_len=pos + 1)

@@ -1,0 +1,161 @@
+"""Card against CPU on the smoke configs, on the same numpy weights.
+
+Shared by the ``cuda``-marked tests (``tests/test_torch_cuda.py``) and
+``chip_smoke.py``.  Each run goes once through the plain versions of
+the kernels (CPU tensors) and once through the CUDA kernels, f32
+without TF32; ``compare`` holds the two runs' outputs within one
+tolerance.
+
+bf16 rounds differently on the two devices, and a one-ulp difference
+flips a top-k choice at a near tie; then a whole expert differs for that
+token.  ``PinnedRoutes`` therefore hands the CPU run's routes to the
+card run and asserts that wherever the card's own top-k differs the
+router saw a near tie (``ROUTE_TIE``).
+"""
+from __future__ import annotations
+
+import collections
+
+import numpy as np
+import torch
+
+from .configs import get_smoke_config
+from .kernels.embedding_bag.ops import embedding_bag
+from .kernels.flash_attention.ops import flash_attention
+from .kernels.segment_matmul.ops import segment_matmul
+from .models import moe, recsys
+from .models.convert import (lm_from_numpy, numpy_params,
+                             numpy_recsys_params, recsys_from_numpy)
+
+# a route of the card run may differ from the CPU run's only where the
+# k-th and (k+1)-th router probabilities are this close (bf16 near ties)
+ROUTE_TIE = 5e-3
+
+
+class PinnedRoutes:
+    """Route every MoE layer of the card run as the CPU run routed it
+    (while ``enabled``): the CPU run records its (gates, experts) per
+    ``route`` call and the card run takes them in the same order.
+    ``flips`` counts the tokens whose own top-k differed."""
+
+    def __init__(self, enabled: bool = True):
+        self.own = moe.route
+        self.queue = collections.deque()
+        self.enabled, self.flips = enabled, 0
+
+    def __enter__(self):
+        moe.route = self.route
+        return self
+
+    def __exit__(self, *exc):
+        moe.route = self.own
+
+    def route(self, cfg, h2, w):
+        gates, experts, aux = self.own(cfg, h2, w)
+        if not self.enabled:
+            return gates, experts, aux
+        if h2.device.type == "cpu":
+            self.queue.append((gates, experts))
+            return gates, experts, aux
+        g, e = (t.to(h2.device) for t in self.queue.popleft())
+        flip = (experts.sort(-1).values != e.sort(-1).values).any(-1)
+        if bool(flip.any()):
+            probs = torch.softmax(h2.float() @ w.float(), -1)[flip]
+            top = torch.topk(probs, cfg.top_k + 1, -1).values
+            gap = top[:, -2] - top[:, -1]
+            assert bool((gap < ROUTE_TIE).all()), (
+                f"card routes differ from the CPU's without a near tie "
+                f"(gaps {gap.tolist()})")
+            self.flips += int(flip.sum())
+        return g, e, aux
+
+
+def _launches():
+    return {fn.__name__: fn.launches
+            for fn in (flash_attention, segment_matmul, embedding_bag)}
+
+
+def _since(before):
+    return {k: v - before[k] for k, v in _launches().items()}
+
+
+def moe_lm_runs(arch: str, dtype, seed: int, device="cuda"):
+    """Prefill 20 tokens (cache 24), then 3 decode steps, on the CPU and
+    on ``device``; in bf16 with the CPU's routes pinned.  Returns, for the
+    CPU run and the card run, the outputs (the 4 logits and the k cache,
+    as f32 on the CPU) and the kernel launches; then the route flips."""
+    cfg = get_smoke_config(arch)
+    params = numpy_params(cfg, seed=seed)
+    tokens = torch.as_tensor(
+        np.random.default_rng(seed).integers(0, cfg.vocab, (2, 23)))
+    runs, launches = [], []
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with PinnedRoutes(enabled=dtype == torch.bfloat16) as pin:
+            for dev in ("cpu", device):
+                model = lm_from_numpy(cfg, params, device=dev)
+                tok = tokens.to(dev)
+                before = _launches()
+                logits, cache = model.prefill(tok[:, :20], 24,
+                                              compute_dtype=dtype)
+                out = [logits]
+                for s in range(20, 23):
+                    logits, cache = model.decode_step(
+                        cache, tok[:, s:s + 1], compute_dtype=dtype)
+                    out.append(logits)
+                launches.append(_since(before))
+                runs.append([x.float().cpu()
+                             for x in (*out, cache["k"])])
+            assert not pin.queue, "the card run took fewer routes"
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return runs, launches, pin.flips
+
+
+def recsys_runs(dtype, seed: int, device="cuda"):
+    """DCN-v2 smoke config: forward on a one-hot batch with ``-1`` pads
+    and on a multi-hot batch (bag 4), then retrieval over 500
+    candidates, on the CPU and on ``device``.  Returns, for the CPU run
+    and the card run, the outputs (f32 on the CPU) and the kernel
+    launches."""
+    cfg = get_smoke_config("dcn-v2")
+    params = numpy_recsys_params(cfg, seed=seed)
+    r = np.random.default_rng(seed)
+    sizes = np.array(cfg.table_sizes)
+    batches = [dict(dense=r.standard_normal((64, cfg.n_dense)),
+                    sparse=r.integers(-1, sizes, (64, cfg.n_sparse))),
+               dict(dense=r.standard_normal((64, cfg.n_dense)),
+                    sparse=r.integers(-1, sizes[:, None],
+                                      (64, cfg.n_sparse, 4)))]
+    cand = r.integers(0, cfg.table_sizes[0], 500)
+    runs, launches = [], []
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for dev in ("cpu", device):
+            p = recsys_from_numpy(cfg, params, device=dev, dtype=dtype)
+            before = _launches()
+            out = [recsys.forward(cfg, p, {k: torch.as_tensor(v).to(dev)
+                                           for k, v in b.items()},
+                                  compute_dtype=dtype) for b in batches]
+            b = batches[0]
+            out.append(recsys.serve_retrieval(cfg, p, dict(
+                dense=torch.as_tensor(b["dense"][:1]).to(dev),
+                sparse=torch.as_tensor(b["sparse"][:1]).to(dev),
+                cand_ids=torch.as_tensor(cand).to(dev)),
+                compute_dtype=dtype))
+            launches.append(_since(before))
+            runs.append([x.float().cpu() for x in out])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return runs, launches
+
+
+def compare(runs, tol: float) -> float:
+    """Assert each output of the card run (``runs[1]``) within ``atol =
+    rtol = tol`` of the CPU run's; return the largest difference."""
+    cpu, card = runs
+    for got, want in zip(card, cpu, strict=True):
+        torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+    return max(float((a - b).abs().max()) for a, b in zip(card, cpu))

@@ -146,3 +146,128 @@ def test_card_lm_equals_cpu(cuda_device, arch, dtype, tol):
         runs.append([x.cpu() for x in out] + [cache["k"].cpu()])
     for card, cpu in zip(runs[1], runs[0]):
         torch.testing.assert_close(card, cpu, atol=tol, rtol=tol)
+
+
+# -- the MoE and recsys serving paths --------------------------------------
+SM_CUDA_CASES = [
+    # (group sizes, K, N, bm): the kernel tests' cases (padded by
+    # pad_segments, empty groups), bm 24 with ragged K / N, and the MoE
+    # decode layout (64 experts of C = 8 rows)
+    ((128, 256, 128), 64, 128, 128),
+    ((0, 512, 128, 0), 32, 256, 128),
+    ((100, 30, 250), 48, 128, 128),
+    ((64,), 128, 384, 64),
+    ((30, 0, 50, 7), 40, 72, 24),
+    ((8,) * 64, 256, 176, 8),
+    ((200, 137), 130, 100, 136),
+]
+
+
+@pytest.mark.parametrize("case", SM_CUDA_CASES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+def test_segment_matmul_kernel_equals_plain_version(cuda_device, case,
+                                                    dtype, tol):
+    import numpy as np
+    from repro_torch.kernels.segment_matmul.ops import (pad_segments,
+                                                        segment_matmul)
+    from repro_torch.kernels.segment_matmul.ref import segment_matmul_ref
+    sizes, K, N, bm = case
+    r = np.random.default_rng(K + N)
+    x = r.standard_normal((sum(sizes), K)).astype(np.float32)
+    xp, groups, _ = pad_segments(x, np.array(sizes), bm=bm)
+    xp = torch.as_tensor(xp).to(cuda_device, dtype)
+    w = torch.as_tensor(r.standard_normal((len(sizes), K, N)),
+                        dtype=torch.float32).to(cuda_device, dtype)
+    n = segment_matmul.launches
+    got = segment_matmul(xp, w, groups)               # host ids: checked
+    got_dev = segment_matmul(xp, w, torch.as_tensor(groups).to(cuda_device))
+    torch.cuda.synchronize()
+    assert segment_matmul.launches == n + 2
+    assert torch.equal(got, got_dev)
+    want = segment_matmul_ref(xp, w, torch.as_tensor(groups))
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+
+
+def test_segment_matmul_kernel_marks_bad_group_ids(cuda_device):
+    from repro_torch.kernels.segment_matmul.ops import segment_matmul
+    x = torch.ones(16, 32, device=cuda_device)
+    w = torch.ones(2, 32, 8, device=cuda_device)
+    y = segment_matmul(x, w, torch.tensor([1, 5], dtype=torch.int32,
+                                          device=cuda_device))
+    assert bool((y[:8] == 32).all()) and bool(torch.isnan(y[8:]).all())
+
+
+EB_CUDA_CASES = [
+    # (V, d, B, bag, with_weights, pad_fraction): the kernel tests' cases,
+    # DCN-v2's row width, a width with no 16-byte loads, a wide row
+    (64, 16, 8, 1, False, 0.0),
+    (256, 32, 16, 4, True, 0.3),
+    (1024, 128, 4, 8, True, 0.5),
+    (32, 8, 32, 2, False, 0.2),
+    (5000, 16, 3000, 1, False, 0.1),
+    (100, 13, 50, 5, True, 0.3),
+    (300, 520, 20, 3, True, 0.0),
+]
+
+
+@pytest.mark.parametrize("case", EB_CUDA_CASES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+def test_embedding_bag_kernel_equals_plain_version(cuda_device, case, dtype,
+                                                   tol, idx_dtype):
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    V, d, B, bag, with_w, pad = case
+    g = torch.Generator(device=cuda_device).manual_seed(V + d)
+    table = torch.randn((V, d), generator=g, device=cuda_device).to(dtype)
+    idx = torch.randint(0, V + 3, (B, bag), generator=g, device=cuda_device)
+    idx[torch.rand((B, bag), generator=g, device=cuda_device) < pad] = -1
+    idx = idx.to(idx_dtype)
+    w = (torch.randn((B, bag), generator=g, device=cuda_device)
+         if with_w else None)
+    n = embedding_bag.launches
+    got = embedding_bag(table, idx, w)
+    torch.cuda.synchronize()
+    assert embedding_bag.launches == n + 1
+    want = embedding_bag_ref(table, idx, w)
+    if bag == 1:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "granite-moe-3b-a800m"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 5e-2)])
+def test_card_moe_lm_equals_cpu(cuda_device, arch, dtype, tol):
+    """Prefill and 3 decode steps, card against CPU on the same numpy
+    weights; f32 without TF32.  In bf16 the CPU run's routes are handed
+    to the card run (a near tie may route differently on the two devices;
+    see tests/test_torch_moe_lm.py), and where the card's own top-k
+    differs the helper asserts a near tie."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.testing import compare, moe_lm_runs
+    cfg = get_smoke_config(arch)
+    runs, launches, _ = moe_lm_runs(arch, dtype, seed=3, device=cuda_device)
+    assert launches[0] == dict(flash_attention=0, segment_matmul=0,
+                               embedding_bag=0)
+    assert launches[1] == dict(flash_attention=cfg.n_layers,
+                               segment_matmul=3 * 4 * cfg.n_layers,
+                               embedding_bag=0)
+    compare(runs, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 5e-2)])
+def test_card_recsys_equals_cpu(cuda_device, dtype, tol):
+    """DCN-v2 smoke config: forward (one-hot and multi-hot) and
+    retrieval, card against CPU; f32 without TF32."""
+    from repro_torch.testing import compare, recsys_runs
+    runs, launches = recsys_runs(dtype, seed=5, device=cuda_device)
+    assert launches[0] == dict(flash_attention=0, segment_matmul=0,
+                               embedding_bag=0)
+    assert launches[1] == dict(flash_attention=0, segment_matmul=0,
+                               embedding_bag=3)
+    compare(runs, tol)

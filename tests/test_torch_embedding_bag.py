@@ -1,0 +1,97 @@
+"""The port's EmbeddingBag (the plain version its wrapper runs on CPU
+tensors) against the JAX package: the Pallas kernel (with its wrapper's
+slot rules) in interpret mode and its jnp oracle, on the kernel tests'
+cases (weights, ``-1`` pads); bit-equal for bags of one slot without
+weights, the DCN-v2 path; and the wrapper's refusals.
+
+Tolerances are those of ``tests/test_kernels.py``: f32 1e-5, bf16 3e-2
+(the Pallas kernel rounds its running sum after every slot, the port
+once per bag).
+"""
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.embedding_bag.ops import embedding_bag as pallas_eb
+from repro.kernels.embedding_bag.ref import embedding_bag_ref
+from repro_torch.kernels.embedding_bag.ops import embedding_bag
+from test_kernels import EB_CASES
+
+DTYPES = {"float32": (torch.float32, jnp.float32, 1e-5),
+          "bfloat16": (torch.bfloat16, jnp.bfloat16, 3e-2)}
+
+
+def _inputs(case, dtype, seed):
+    V, d, B, bag, with_w, pad_frac = case
+    r = np.random.default_rng(seed)
+    table = r.standard_normal((V, d)).astype(np.float32)
+    idx = r.integers(0, V, size=(B, bag))
+    idx[r.random((B, bag)) < pad_frac] = -1
+    w = r.standard_normal((B, bag)).astype(np.float32) if with_w else None
+    tdt, jdt, _ = DTYPES[dtype]
+    return ((torch.as_tensor(table).to(tdt), torch.as_tensor(idx),
+             None if w is None else torch.as_tensor(w)),
+            (jnp.asarray(table, jdt), jnp.asarray(idx, jnp.int32),
+             None if w is None else jnp.asarray(w)))
+
+
+@pytest.mark.parametrize("case", EB_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_port_matches_pallas_kernel_and_oracle(case, dtype):
+    (tt, ti, tw), (jt, ji, jw) = _inputs(case, dtype, EB_CASES.index(case))
+    before = embedding_bag.launches
+    got = embedding_bag(tt, ti, tw)
+    assert embedding_bag.launches == before           # CPU: plain version
+    assert got.dtype == tt.dtype and got.shape == (ti.shape[0], tt.shape[1])
+    tol = DTYPES[dtype][2]
+    for want in (pallas_eb(jt, ji, jw, interpret=True),
+                 embedding_bag_ref(jt, ji, jw)):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+def test_bags_of_one_are_bit_equal(dtype, idx_dtype):
+    """DCN-v2's lookup: one id per bag, no weights, some pads."""
+    (tt, ti, _), (jt, ji, _) = _inputs((300, 16, 24, 1, False, 0.2), dtype,
+                                       7)
+    got = embedding_bag(tt, ti.to(idx_dtype)).float().numpy()
+    for want in (pallas_eb(jt, ji, interpret=True),
+                 embedding_bag_ref(jt, ji)):
+        assert np.array_equal(got, np.asarray(want, np.float32))
+
+
+def test_out_of_range_ids_read_the_last_row_as_the_reference_gather():
+    table = torch.arange(12, dtype=torch.float32).reshape(4, 3)
+    idx = torch.tensor([[7, -1], [2, 3]])
+    got = embedding_bag(table, idx)
+    want = embedding_bag_ref(jnp.asarray(table.numpy()),
+                             jnp.asarray(idx.numpy()))
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    assert got[0].tolist() == [9.0, 10.0, 11.0]
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(table=torch.zeros(5, 4, dtype=torch.float16)), "float32 or"),
+    (dict(idx=torch.zeros(3, 2)), "int32 or int64"),
+    (dict(idx=torch.zeros(6, dtype=torch.int64)), r"\[B, bag\]"),
+    (dict(w=torch.zeros(3, 1)), "weights must be"),
+    (dict(table=torch.zeros(0, 4)), "empty table"),
+    (dict(w=torch.zeros(3, 2, device="meta")), "different devices"),
+    (dict(table=torch.zeros(5, 4, device="meta"),
+          idx=torch.zeros(3, 2, dtype=torch.int64, device="meta")),
+     "no kernel for device"),
+])
+def test_wrapper_refuses(bad, match):
+    args = dict(table=torch.zeros(5, 4),
+                idx=torch.zeros(3, 2, dtype=torch.int64), w=None)
+    args.update(bad)
+    before = embedding_bag.launches
+    with pytest.raises(ValueError, match=match):
+        embedding_bag(args["table"], args["idx"], args["w"])
+    assert embedding_bag.launches == before

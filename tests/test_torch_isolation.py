@@ -42,7 +42,7 @@ def test_import_pulls_neither_jax_nor_repro():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout.split(maxsplit=1)
-    assert int(out[0]) >= 35            # every module of both slices
+    assert int(out[0]) >= 48            # every module of the three slices
     assert out[1].strip() == "[]"
 
 
@@ -65,6 +65,16 @@ def test_sources_import_neither_jax_nor_repro(path):
 def _small_graph():
     from repro_torch import powerlaw_temporal_graph
     return powerlaw_temporal_graph(n=60, m=400, time_span=5000, seed=1)
+
+
+def test_model_entry_points_default_to_the_card():
+    """``init_lm``, ``lm_from_numpy``, ``init_recsys`` and
+    ``recsys_from_numpy`` build on the card unless asked for the CPU."""
+    import inspect
+    from repro_torch.models import convert
+    for fn in (convert.init_lm, convert.lm_from_numpy, convert.init_recsys,
+               convert.recsys_from_numpy):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
 def test_entry_points_default_to_the_card_and_raise_without_one():
@@ -146,7 +156,11 @@ def _wrapper(path: Path, name: str) -> ast.FunctionDef:
                                          "interval_weight_ref"),
                                         ("tree_sampler", "tree_sampler_ref"),
                                         ("flash_attention",
-                                         "flash_attention_ref")])
+                                         "flash_attention_ref"),
+                                        ("segment_matmul",
+                                         "segment_matmul_ref"),
+                                        ("embedding_bag",
+                                         "embedding_bag_ref")])
 def test_cuda_path_launches_or_raises(kernel, ref):
     """Statically (no CUDA tensor can be made here): the wrapper has no
     ``try``, reaches its plain version only under a ``device.type ==
