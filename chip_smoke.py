@@ -13,14 +13,14 @@ port's two paths:
 * LM serving: card against CPU for the Gemma-2 smoke config, then
   Gemma-2-27B at full width (random bf16 weights from seed 0): a
   2 x 8192-token prefill and 16 greedy decode steps, shown to go through
-  the flash-attention kernel in every prefill layer;
+  the sm90 flash-attention kernel (wgmma + TMA) in every prefill layer;
 * MoE LM serving: card against CPU for both MoE smoke configs, then
   Qwen1.5-MoE-A2.7B at full width and depth (random bf16 weights from
   seed 0, the config's capacity factor 1.25): a 2 x 8192-token prefill and
   16 greedy decode steps, shown to go through the grouped-GEMM kernel in
-  every expert product and the flash kernel in every prefill layer; then
-  the same architecture in f32 with no capacity drops, prefill against
-  decode;
+  every expert product and the sm90 flash kernel in every prefill layer;
+  then the same architecture in f32 with no capacity drops, prefill
+  against decode, through the CUDA-core flash kernel (f32);
 * recsys serving: card against CPU for the DCN-v2 smoke config, then
   DCN-v2 at full width (the Criteo-1TB table profile, 62,988,288 rows of
   16 in bf16): the serve_p99, serve_bulk and retrieval_cand traffic of
@@ -61,6 +61,9 @@ OPS_PER_S = 67e12             # H100 SXM non-tensor fp32 rate, used for
                               # the integer compare/select/add work
 BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor cores
 F32_FLOPS_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
+# H100 SXM special-function units (ex2, rcp): 16 results a clock on each
+# of 132 SMs, at the 1.83 GHz where 989 TFLOP/s holds
+SFU_OPS_PER_S = 132 * 16 * 1.83e9
 # the LM path: Gemma-2-27B serving 2 prompts of 8192 tokens
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_DECODE, LM_CHECK_AT = (
     "gemma2-27b", 2, 8192, 16, 8)
@@ -69,12 +72,15 @@ LM_ARCH, LM_BATCH, LM_PROMPT, LM_DECODE, LM_CHECK_AT = (
 # outputs there have an rms of ~0.05, so an atol of 2e-2 would be as large
 # as what it compares), and over the whole output relative L2 <= FA_REL_L2
 # (about one bf16 rounding of the output); the faults the phase reads must
-# move the output by at least FA_FAULT_MIN
+# move the output by at least FA_FAULT_MIN.  The sm90 kernel and its plain
+# version both round p to bf16, and where a p sits at a rounding boundary
+# their f32 sum orders may round it either way: each element also gets
+# repro_torch.testing.p_rounding_allowance (~0 where the softmax is flat)
 FA_ATOL, FA_RTOL, FA_REL_L2, FA_FAULT_MIN = 4e-3, 2e-2, 2e-3, 2e-2
 # prefill(prompt + first 8 generated tokens) against decode step 8, in
 # relative L2 of the logits: two bf16 evaluation orders through 46
-# layers (the flash kernel keeps p in f32, decode rounds p to bf16 as the
-# reference does; the products are batched differently), so they agree
+# layers (both round p to bf16 as the reference does, at different
+# running maxima; the products are batched differently), so they agree
 # to about bf16's relative precision times the depth's growth, not bit
 # for bit
 LM_CHECK_TOL = 5e-2
@@ -227,19 +233,24 @@ def device_profile(fn, kinds=None, top: int = 5) -> dict:
     return out
 
 
-def check_close(what: str, got, want, dtype: str) -> dict:
-    """Hold a kernel's output against its plain version (``KERNEL_TOL``);
-    return the readings."""
+def check_close(what: str, got, want, dtype: str, allow=0.0) -> dict:
+    """Hold a kernel's output against its plain version (``KERNEL_TOL``,
+    plus ``allow`` per element where the two may round p to either bf16
+    neighbour: ``repro_torch.testing.p_rounding_allowance``); return the
+    readings."""
     import torch
     tol = KERNEL_TOL[dtype]
     got, want = got.float(), want.float()
     err = (got - want).abs()
     rms = float(want.pow(2).mean().sqrt())
+    limit = tol["atol_rel"] * rms + tol["rtol"] * want.abs()
     rec = dict(max_abs_err=float(err.max()), rel_l2=rel_l2(got, want),
                want_rms=rms, **tol)
+    if not isinstance(allow, float):
+        rec.update(p_flip_allowance_max=float(allow.max()),
+                   over_limit_without_allowance=int((err > limit).sum()))
     require(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
-    ok = bool((err <= tol["atol_rel"] * rms + tol["rtol"] * want.abs())
-              .all())
+    ok = bool((err <= limit + allow).all())
     require(ok and rec["rel_l2"] <= tol["rel_l2_max"],
             f"{what}: max |err| {rec['max_abs_err']}, relative L2 "
             f"{rec['rel_l2']} (limits {tol}, output rms {rms})")
@@ -482,21 +493,61 @@ def rel_l2(got, want) -> float:
     return float((got - want).norm() / want.norm())
 
 
-def phase_flash_attention() -> dict:
-    """The kernel against its plain version at the prefill's shapes
-    (Gemma-2-27B, 2 x 8192, bf16): one local and one global layer, one
-    global layer with q x 8 so that the scores reach the softcap, and the
-    kernel beside ``scaled_dot_product_attention`` without softcap; then
-    the MoE prefill's shapes (``flash_moe_case``).
+def sfu_bound_ms(pairs: int, softcap: float) -> float:
+    """The special-function floor of the sm90 flash kernel: one ex2 per
+    attended pair for the softmax, plus one ex2 and one rcp for the
+    softcap's tanh, at 16 a clock per SM."""
+    return pairs * (3 if softcap else 1) / SFU_OPS_PER_S * 1e3
+
+
+def sdpa_ms(q, k, v) -> tuple[float, bool]:
+    """The yardstick: ``scaled_dot_product_attention`` on the same causal
+    GQA work (no softcap, no window), in its ``[B, H, S, D]`` layout;
+    returns its time and whether it took the GQA heads as they are."""
+    import torch.nn.functional as F
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    G = q.shape[2] // k.shape[2]
+    kw = {}
+    if G > 1:
+        try:
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                           enable_gqa=True)
+            kw = dict(enable_gqa=True)
+        except TypeError:              # a torch without enable_gqa
+            kt, vt = (x.repeat_interleave(G, dim=1) for x in (kt, vt))
+    ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, **kw), reps=5)
+    return ms, G == 1 or bool(kw)
+
+
+def unrounded_readings(got, want, base) -> dict:
+    """How far the kernel's output sits from the default plain version
+    (p kept in f32), and how far the fault "p not rounded" moves the
+    plain version: printed, not gated (about one bf16 rounding of p)."""
+    return dict(rel_l2_to_unrounded=rel_l2(got, base),
+                fault_p_not_rounded_rel_l2=rel_l2(base, want))
+
+
+def phase_flash_attention() -> tuple[dict, dict]:
+    """The sm90 kernel against its plain version on its own trajectory
+    (``round_p=True``: p rounded to bf16 before P.V) at the prefill's
+    shapes (Gemma-2-27B, 2 x 8192, bf16): one local and one global layer,
+    one global layer with q x 8 so that the scores reach the softcap, and
+    the kernel beside ``scaled_dot_product_attention`` without softcap;
+    then the MoE prefill's shapes (``flash_moe_case``) and the CUDA-core
+    kernel at the f32 check's shapes (``flash_simt_case``).
 
     Each case also reads how far a known fault would move the output,
     computed with the plain version, and fails unless that is ten times
-    the limit: the check must be able to see it at these shapes."""
+    the limit: the check must be able to see it at these shapes.  The
+    CUDA-core kernel (the earlier design) is timed on the same work
+    through ``_flash_attention_simt``."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ops import (
+        _flash_attention_simt, flash_attention)
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.testing import p_rounding_allowance
     cfg = get_config(LM_ARCH)
     B, S, Hq, Hkv, D = (LM_BATCH, LM_PROMPT, cfg.n_heads, cfg.n_kv_heads,
                         cfg.hd)
@@ -517,27 +568,37 @@ def phase_flash_attention() -> dict:
     for kind, window, scale, fault in cases:
         qs = q * scale                                # exact in bf16
         kw = dict(causal=True, window=window, attn_softcap=cap)
+        n90 = flash_attention.launches_sm90
         got = flash_attention(qs, k, v, **kw)
-        want = flash_attention_ref(qs, k, v, **kw)
+        want = flash_attention_ref(qs, k, v, round_p=True, **kw)
         torch.cuda.synchronize()
+        require(flash_attention.launches_sm90 == n90 + 1,
+                f"flash_attention {kind}: not through the sm90 kernel")
+        err = (got.float() - want.float()).abs()
+        limit = FA_ATOL + FA_RTOL * want.float().abs()
+        allow = p_rounding_allowance(qs, k, v, **kw)
         rec = dict(kind=kind, window=window, softcap=cap, q_scale=scale,
-                   max_abs_err=float((got.float() - want.float()).abs()
-                                     .max()),
-                   rel_l2=rel_l2(got, want),
-                   want_rms=float(want.float().pow(2).mean().sqrt()))
+                   max_abs_err=float(err.max()), rel_l2=rel_l2(got, want),
+                   want_rms=float(want.float().pow(2).mean().sqrt()),
+                   p_flip_allowance_max=float(allow.max()),
+                   over_limit_without_allowance=int((err > limit).sum()))
         require(bool(torch.isfinite(got).all()), f"{kind}: non-finite")
-        require(torch.allclose(got.float(), want.float(), atol=FA_ATOL,
-                               rtol=FA_RTOL)
+        require(bool((err <= limit + allow).all())
                 and rec["rel_l2"] <= FA_REL_L2,
                 f"flash_attention {kind}: max |err| {rec['max_abs_err']} "
-                f"(atol {FA_ATOL}, rtol {FA_RTOL}), relative L2 "
-                f"{rec['rel_l2']} (limit {FA_REL_L2})")
-        del got
+                f"(atol {FA_ATOL}, rtol {FA_RTOL}, plus the p-rounding "
+                f"allowance), relative L2 {rec['rel_l2']} (limit "
+                f"{FA_REL_L2})")
+        del err, limit, allow
+        base = flash_attention_ref(qs, k, v, **kw)
+        rec.update(unrounded_readings(got, want, base))
+        del got, base
         if fault is not None:
             name, change = fault
             rec["fault"] = name
             rec["fault_rel_l2"] = rel_l2(
-                flash_attention_ref(qs, k, v, **{**kw, **change}), want)
+                flash_attention_ref(qs, k, v, round_p=True,
+                                    **{**kw, **change}), want)
             require(rec["fault_rel_l2"] >= FA_FAULT_MIN,
                     f"flash_attention {kind}: the check cannot see "
                     f"'{name}' (relative L2 {rec['fault_rel_l2']})")
@@ -547,38 +608,39 @@ def phase_flash_attention() -> dict:
             flops = 4 * D * pairs * B * Hq
             rec.update(
                 pairs=pairs, flops=flops, bytes=nbytes,
-                ms=cuda_ms(lambda: flash_attention(q, k, v, **kw), reps=3),
-                plain_ms=cuda_ms(lambda: flash_attention_ref(q, k, v, **kw),
-                                 reps=1),
+                ms=cuda_ms(lambda: flash_attention(q, k, v, **kw), reps=10),
+                simt_ms=cuda_ms(lambda: _flash_attention_simt(q, k, v, **kw),
+                                reps=3),
+                plain_ms=cuda_ms(lambda: flash_attention_ref(
+                    q, k, v, round_p=True, **kw), reps=1),
                 bound_ms=max(flops / BF16_FLOPS_PER_S,
-                             nbytes / HBM_BYTES_PER_S) * 1e3)
+                             nbytes / HBM_BYTES_PER_S) * 1e3,
+                sfu_bound_ms=sfu_bound_ms(pairs * B * Hq, cap))
             timed.append(rec)
         checked.append(rec)
-        emit({"phase": "flash_attention", **rec})
+        emit({"phase": "flash_attention", "kernel": "flash_attention_sm90",
+              **rec})
     moe = flash_moe_case()
     # the yardstick: one PyTorch call on the global layer without softcap
     kw = dict(causal=True, window=0, attn_softcap=0.0)
-    ms_nocap = cuda_ms(lambda: flash_attention(q, k, v, **kw), reps=3)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    try:
-        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                       enable_gqa=True)
-        lib_kw = dict(enable_gqa=True)
-    except TypeError:                  # a torch without enable_gqa
-        kt, vt = (x.repeat_interleave(Hq // Hkv, dim=1) for x in (kt, vt))
-        lib_kw = {}
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, **lib_kw), reps=5)
+    pairs = attended_pairs(S, S, True, 0) * B * Hq
+    ms_nocap = cuda_ms(lambda: flash_attention(q, k, v, **kw), reps=10)
+    simt_nocap = cuda_ms(lambda: _flash_attention_simt(q, k, v, **kw),
+                         reps=3)
+    lib_ms, lib_gqa = sdpa_ms(q, k, v)
     library_case = "global layer, causal, softcap 0"
     emit({"phase": "flash_attention", "kind": library_case,
-          "ms": ms_nocap, "sdpa_ms": lib_ms, "sdpa_gqa": bool(lib_kw)})
+          "ms": ms_nocap, "simt_ms": simt_nocap, "sdpa_ms": lib_ms,
+          "sdpa_gqa": lib_gqa, "sfu_bound_ms": sfu_bound_ms(pairs, 0.0)})
+    del q, k, v
+    simt = flash_simt_case()
     n = len(timed)
-    return dict(
-        name="flash_attention", route="cuda",
+    sm90 = dict(
+        name="flash_attention_sm90", route="cuda",
         source="src/repro_torch/kernels/flash_attention/csrc/"
-               "flash_attention.cu",
+               "flash_attention_sm90.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:94",
-        max_abs_err=max(c["max_abs_err"] for c in checked),
+        max_abs_err=max(c["max_abs_err"] for c in checked + [moe]),
         # per launch, over the prefill's even mix of local and global
         ms=sum(c["ms"] for c in timed) / n,
         plain_ms=sum(c["plain_ms"] for c in timed) / n,
@@ -589,10 +651,13 @@ def phase_flash_attention() -> dict:
         # SDPA has no softcap or window: it is paired with the kernel's
         # time on the same work, not with the path's mean above
         library_ms=lib_ms, library_case=library_case,
-        ms_library_case=ms_nocap,
-        **{f"moe_{k}": moe[k] for k in ("ms", "plain_ms", "bound_ms",
-                                         "library_ms", "max_abs_err",
-                                         "rel_l2")})
+        ms_library_case=ms_nocap, simt_ms_library_case=simt_nocap,
+        sfu_bound_ms=sum(c["sfu_bound_ms"] for c in timed) / n,
+        simt_ms=sum(c["simt_ms"] for c in timed) / n,
+        **{f"moe_{key}": moe[key] for key in (
+            "ms", "simt_ms", "plain_ms", "bound_ms", "sfu_bound_ms",
+            "library_ms", "max_abs_err", "rel_l2")})
+    return sm90, simt
 
 
 def diagonal_tile_lost(visible):
@@ -606,18 +671,31 @@ def diagonal_tile_lost(visible):
     return faulty
 
 
-def flash_moe_case() -> dict:
-    """The kernel against its plain version at the MoE prefill's shapes
-    (Qwen1.5-MoE-A2.7B, 2 x 8192, bf16): MHA (one query head per kv
-    head), causal, no window, no softcap; limits read from the output's
-    scale (``check_close``), and the fault of a lost diagonal 64-key
-    tile read with the plain version.  Timed beside
-    ``scaled_dot_product_attention``, which computes this same function."""
-    import torch
-    import torch.nn.functional as F
-    from repro_torch.configs import get_config
+def diagonal_fault(q, k, v, kw, **ref_kw):
+    """The plain version with each query's diagonal 64-key tile lost."""
     from repro_torch.kernels.flash_attention import ref
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    own = ref.visible
+    ref.visible = diagonal_tile_lost(own)
+    try:
+        return ref.flash_attention_ref(q, k, v, **kw, **ref_kw)
+    finally:
+        ref.visible = own
+
+
+def flash_moe_case() -> dict:
+    """The sm90 kernel against its plain version (``round_p=True``) at
+    the MoE prefill's shapes (Qwen1.5-MoE-A2.7B, 2 x 8192, bf16): MHA (one
+    query head per kv head), causal, no window, no softcap; limits read
+    from the output's scale (``check_close``), and the fault of a lost
+    diagonal 64-key tile read with the plain version.  Timed beside the
+    CUDA-core kernel and ``scaled_dot_product_attention``, which computes
+    this same function (p kept in f32)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import (
+        _flash_attention_simt, flash_attention)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.testing import p_rounding_allowance
     cfg = get_config(MOE_ARCH)
     B, S, H, D = LM_BATCH, LM_PROMPT, cfg.n_heads, cfg.hd
     require(cfg.n_kv_heads == H, f"{MOE_ARCH} is not MHA")
@@ -626,37 +704,97 @@ def flash_moe_case() -> dict:
                .to(torch.bfloat16) for _ in range(3))
     kw = dict(causal=True, window=0, attn_softcap=0.0)
     what = "flash_attention MoE prefill"
+    n90 = flash_attention.launches_sm90
     got = flash_attention(q, k, v, **kw)
-    want = ref.flash_attention_ref(q, k, v, **kw)
-    rec = check_close(what, got, want, "bfloat16")
-    del got
-    own = ref.visible
-    ref.visible = diagonal_tile_lost(own)
-    try:
-        faulty = ref.flash_attention_ref(q, k, v, **kw)
-    finally:
-        ref.visible = own
+    want = flash_attention_ref(q, k, v, round_p=True, **kw)
+    require(flash_attention.launches_sm90 == n90 + 1,
+            f"{what}: not through the sm90 kernel")
+    rec = check_close(what, got, want, "bfloat16",
+                      allow=p_rounding_allowance(q, k, v, **kw))
+    base = flash_attention_ref(q, k, v, **kw)
+    rec.update(unrounded_readings(got, want, base))
+    del got, base
     rec["fault"] = "each query's diagonal 64-key tile lost"
-    rec["fault_rel_l2"] = check_fault(what, rec["fault"], faulty, want,
-                                      "bfloat16")
-    del faulty, want
+    rec["fault_rel_l2"] = check_fault(
+        what, rec["fault"], diagonal_fault(q, k, v, kw, round_p=True), want,
+        "bfloat16")
+    del want
     pairs = attended_pairs(S, S, True, 0)
     flops = 4 * D * pairs * B * H
     nbytes = 2 * 4 * q.numel()                        # q, k, v in, o out
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib_ms, _ = sdpa_ms(q, k, v)
     rec.update(
         B=B, S=S, Hq=H, Hkv=H, D=D, window=0, softcap=0.0, pairs=pairs,
         flops=flops, bytes=nbytes,
-        ms=cuda_ms(lambda: flash_attention(q, k, v, **kw), reps=3),
-        plain_ms=cuda_ms(lambda: ref.flash_attention_ref(q, k, v, **kw),
-                         reps=1),
+        ms=cuda_ms(lambda: flash_attention(q, k, v, **kw), reps=10),
+        simt_ms=cuda_ms(lambda: _flash_attention_simt(q, k, v, **kw),
+                        reps=3),
+        plain_ms=cuda_ms(lambda: flash_attention_ref(q, k, v, round_p=True,
+                                                     **kw), reps=1),
         bound_ms=max(flops / BF16_FLOPS_PER_S,
                      nbytes / HBM_BYTES_PER_S) * 1e3,
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True), reps=5))
-    emit({"phase": "flash_attention", "kind": "MoE prefill (Qwen1.5-MoE, "
-          "MHA, causal, no window, no softcap)", **rec})
+        sfu_bound_ms=sfu_bound_ms(pairs * B * H, 0.0), library_ms=lib_ms)
+    emit({"phase": "flash_attention", "kernel": "flash_attention_sm90",
+          "kind": "MoE prefill (Qwen1.5-MoE, MHA, causal, no window, "
+          "no softcap)", **rec})
     return rec
+
+
+def flash_simt_case() -> dict:
+    """The CUDA-core kernel where the path runs it: the f32 check of the
+    MoE architecture (``phase_moe_check``: 2 x 1032 tokens, 16/16 heads
+    of 128, causal, no window, no softcap, f32).  Against its plain
+    version under ``KERNEL_TOL["float32"]``, with the lost-diagonal-tile
+    fault; timed beside ``scaled_dot_product_attention`` in f32."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    cfg = get_config(MOE_ARCH)
+    B, S, H, D = LM_BATCH, MOE_CHECK_PROMPT + MOE_CHECK_AT, cfg.n_heads, \
+        cfg.hd
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v = (torch.randn((B, S, H, D), generator=gen, device="cuda")
+               for _ in range(3))
+    kw = dict(causal=True, window=0, attn_softcap=0.0)
+    what = "flash_attention f32 check"
+    n = flash_attention.launches_simt
+    got = flash_attention(q, k, v, **kw)
+    want = flash_attention_ref(q, k, v, **kw)
+    require(flash_attention.launches_simt == n + 1,
+            f"{what}: not through the CUDA-core kernel")
+    rec = check_close(what, got, want, "float32")
+    del got
+    rec["fault"] = "each query's diagonal 64-key tile lost"
+    rec["fault_rel_l2"] = check_fault(what, rec["fault"],
+                                      diagonal_fault(q, k, v, kw), want,
+                                      "float32")
+    del want
+    pairs = attended_pairs(S, S, True, 0)
+    flops = 4 * D * pairs * B * H
+    nbytes = 4 * 4 * q.numel()                        # q, k, v in, o out
+    ops_s = flops / F32_FLOPS_PER_S
+    lib_ms, _ = sdpa_ms(q, k, v)
+    rec.update(
+        B=B, S=S, Hq=H, Hkv=H, D=D, dtype="float32", pairs=pairs,
+        flops=flops, bytes=nbytes,
+        ms=cuda_ms(lambda: flash_attention(q, k, v, **kw), reps=10),
+        plain_ms=cuda_ms(lambda: flash_attention_ref(q, k, v, **kw),
+                         reps=3),
+        bound_ms=max(ops_s, nbytes / HBM_BYTES_PER_S) * 1e3,
+        bound_by=("operations" if ops_s >= nbytes / HBM_BYTES_PER_S
+                  else "bytes"), library_ms=lib_ms)
+    emit({"phase": "flash_attention", "kernel": "flash_attention",
+          "kind": "MoE f32 check (Qwen1.5-MoE, MHA, causal, f32)", **rec})
+    return dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/flash_attention/csrc/"
+               "flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:94",
+        case="f32 check, 2 x 1032, 16/16 heads of 128",
+        **{key: rec[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by",
+                                     "library_ms")})
 
 
 def phase_lm_small() -> None:
@@ -721,13 +859,13 @@ def phase_lm_full() -> dict:
     prompt = torch.as_tensor(np.random.default_rng(0).integers(
         0, cfg.vocab, (LM_BATCH, LM_PROMPT))).cuda()
     counters = (flash_attention, interval_weight, tree_sampler)
-    for fn in counters:
-        fn.launches = 0
+    reset_counters(*counters)
     t0 = time.perf_counter()
     logits, cache = model.prefill(prompt, LM_PROMPT + LM_DECODE)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     prefill_launches = flash_attention.launches
+    prefill_by_kernel = flash_launches()
     require(tuple(logits.shape) == (LM_BATCH, 1, cfg.vocab),
             f"prefill logits shape {tuple(logits.shape)}")
     require(bool(torch.isfinite(logits).all()), "prefill logits not finite")
@@ -741,9 +879,10 @@ def phase_lm_full() -> dict:
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in counters}
-    require(prefill_launches == cfg.n_layers,
-            f"{prefill_launches} flash launches in prefill, not "
-            f"{cfg.n_layers}")
+    require(prefill_launches == cfg.n_layers
+            and prefill_by_kernel == dict(sm90=cfg.n_layers, simt=0),
+            f"flash launches in prefill {prefill_by_kernel}, not "
+            f"{cfg.n_layers} of the sm90 kernel")
     require(launches["flash_attention"] == cfg.n_layers,
             f"flash launches in decode: {launches}")
     require(launches["interval_weight"] == launches["tree_sampler"] == 0,
@@ -759,7 +898,7 @@ def phase_lm_full() -> dict:
     # profiled, and so are 2 decode steps after it
     ext = torch.cat([prompt] + generated[:LM_CHECK_AT], dim=1)
     want = step_logits[LM_CHECK_AT - 1][:, -1].float()
-    kinds = {"flash_attention": lambda k: "flash_attention_kernel" in k,
+    kinds = {"flash_attention": lambda k: "flash_attention" in k,
              "gemm": lambda k: any(w in k.lower() for w in
                                    ("gemm", "cutlass", "xmma", "nvjet",
                                     "cublas"))}
@@ -796,9 +935,10 @@ def phase_lm_full() -> dict:
           "decode_bound_ms": 1e3 * weight_bytes / HBM_BYTES_PER_S,
           "peak_mem_bytes": peak, "launches": launches,
           "prefill_flash_launches": prefill_launches,
+          "prefill_flash_launches_by_kernel": prefill_by_kernel,
           "check_S": int(ext.shape[1]), "check_rel_l2": rel,
           "check_tol": LM_CHECK_TOL, "check_argmax_agree": agree})
-    return launches
+    return prefill_by_kernel
 
 
 def phase_segment_matmul() -> dict:
@@ -995,8 +1135,18 @@ def phase_moe_small() -> None:
 
 
 def reset_counters(*fns) -> None:
+    from repro_torch.kernels.flash_attention.ops import flash_attention
     for fn in fns:
         fn.launches = 0
+        if fn is flash_attention:
+            fn.launches_sm90 = fn.launches_simt = 0
+
+
+def flash_launches() -> dict:
+    """Launches of each flash kernel since the counters were reset."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    return dict(sm90=flash_attention.launches_sm90,
+                simt=flash_attention.launches_simt)
 
 
 class CountDrops:
@@ -1057,6 +1207,7 @@ def phase_moe_full() -> dict:
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     prefill_launches = {fn.__name__: fn.launches for fn in counters}
+    prefill_by_kernel = flash_launches()
     dropped, assigned = int(drops.dropped), drops.assignments
     require(tuple(logits.shape) == (LM_BATCH, 1, cfg.vocab),
             f"prefill logits shape {tuple(logits.shape)}")
@@ -1072,8 +1223,10 @@ def phase_moe_full() -> dict:
     require(cache["kv_len"] == LM_PROMPT + LM_DECODE, "kv_len")
     per_layer = 3 * cfg.n_layers
     require(prefill_launches["segment_matmul"] == per_layer
-            and prefill_launches["flash_attention"] == cfg.n_layers,
-            f"prefill launches {prefill_launches}")
+            and prefill_launches["flash_attention"] == cfg.n_layers
+            and prefill_by_kernel == dict(sm90=cfg.n_layers, simt=0),
+            f"prefill launches {prefill_launches}, flash by kernel "
+            f"{prefill_by_kernel}")
     require(launches["segment_matmul"] == per_layer * (1 + LM_DECODE)
             and launches["flash_attention"] == cfg.n_layers,
             f"decode launches {launches}")
@@ -1085,7 +1238,7 @@ def phase_moe_full() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     kinds = {"segment_matmul": lambda k: "sm_bf16_kernel" in k,
-             "flash_attention": lambda k: "flash_attention_kernel" in k,
+             "flash_attention": lambda k: "flash_attention" in k,
              "gemm": lambda k: any(w in k.lower() for w in
                                    ("gemm", "cutlass", "xmma", "nvjet",
                                     "cublas"))}
@@ -1114,6 +1267,7 @@ def phase_moe_full() -> dict:
            "decode_tokens_per_s": LM_BATCH * LM_DECODE / decode_s,
            "decode_bound_ms": 1e3 * weight_bytes / HBM_BYTES_PER_S,
            "peak_mem_bytes": peak, "prefill_launches": prefill_launches,
+           "prefill_flash_launches_by_kernel": prefill_by_kernel,
            "launches": launches,
            "segment_matmul_per_decode_step":
                (launches["segment_matmul"]
@@ -1128,7 +1282,7 @@ def phase_moe_full() -> dict:
     return rec
 
 
-def phase_moe_check() -> None:
+def phase_moe_check() -> dict:
     """The same architecture in f32 (weights from seed 0) with capacity
     factor n_experts / top_k, so no token is ever dropped: a 2 x 1024
     prompt, 8 greedy decode steps, then prefill(prompt + 8 generated)
@@ -1169,10 +1323,12 @@ def phase_moe_check() -> None:
     require(bool(torch.isfinite(got).all() and torch.isfinite(want).all()),
             "moe_check: logits not finite")
     require(dropped == 0, f"moe_check: {dropped} assignments dropped")
+    by_kernel = flash_launches()
     require(segment_matmul.launches == 3 * cfg.n_layers * (2 + MOE_CHECK_AT)
-            and flash_attention.launches == 2 * cfg.n_layers,
+            and flash_attention.launches == 2 * cfg.n_layers
+            and by_kernel == dict(sm90=0, simt=2 * cfg.n_layers),
             "moe_check launches: segment_matmul "
-            f"{segment_matmul.launches}, flash {flash_attention.launches}")
+            f"{segment_matmul.launches}, flash {by_kernel}")
     require(rel <= MOE_CHECK_TOL,
             f"moe_check: prefill(S={S}) vs decode step {MOE_CHECK_AT}: "
             f"relative L2 {rel} > {MOE_CHECK_TOL}")
@@ -1184,10 +1340,12 @@ def phase_moe_check() -> None:
           "assignments": assigned, "dropped": dropped,
           "segment_matmul_launches": segment_matmul.launches,
           "flash_launches": flash_attention.launches,
+          "flash_launches_by_kernel": by_kernel,
           "peak_mem_bytes": torch.cuda.max_memory_allocated()})
     del model, got, want, logits
     gc.collect()
     torch.cuda.empty_cache()
+    return by_kernel
 
 
 def tree_to(tree, device):
@@ -1370,23 +1528,24 @@ def main() -> None:
     del g
     torch.cuda.empty_cache()
 
-    fa = phase_flash_attention()
+    fa, fa_simt = phase_flash_attention()
     torch.cuda.empty_cache()
     sm = phase_segment_matmul()
     eb = phase_embedding_bag()
     torch.cuda.empty_cache()
     phase_lm_small()
-    fa["launches"] = phase_lm_full()["flash_attention"]
+    fa["launches"] = phase_lm_full()["sm90"]
     gc.collect()
     torch.cuda.empty_cache()
     phase_moe_small()
     moe = phase_moe_full()
-    fa["launches_moe_prefill"] = moe["prefill_launches"]["flash_attention"]
+    fa["launches_moe_prefill"] = moe["prefill_flash_launches_by_kernel"][
+        "sm90"]
     sm["launches"] = moe["launches"]["segment_matmul"]
-    phase_moe_check()
+    fa_simt["launches"] = phase_moe_check()["simt"]
     phase_recsys_small()
     eb["launches"] = phase_recsys_full()
-    recs += [fa, sm, eb]
+    recs += [fa, fa_simt, sm, eb]
     require(all(r["launches"] > 0 for r in recs),
             "a kernel was launched no time on its path")
     emit({"phase": "total", "seconds": time.perf_counter() - T_START})

@@ -32,6 +32,8 @@ SOURCES = {
     "tree_sampler": _KERNELS / "tree_sampler" / "csrc" / "tree_sampler.cu",
     "flash_attention": _KERNELS / "flash_attention" / "csrc"
     / "flash_attention.cu",
+    "flash_attention_sm90": _KERNELS / "flash_attention" / "csrc"
+    / "flash_attention_sm90.cu",
     "segment_matmul": _KERNELS / "segment_matmul" / "csrc"
     / "segment_matmul.cu",
     "embedding_bag": _KERNELS / "embedding_bag" / "csrc"

@@ -1,11 +1,19 @@
-"""Wrapper of the flash-attention kernel (``csrc/flash_attention.cu``).
+"""Wrappers of the two flash-attention kernels.
 
 Keeps the JAX package's public layout: q ``[B, Sq, Hq, D]``, k/v
 ``[B, Skv, Hkv, D]``, out ``[B, Sq, Hq, D]`` in q's dtype.
 ``flash_attention`` takes the plain torch version (``ref.py``) for CPU
-tensors and launches the CUDA kernel for CUDA tensors; on any other
-device, or on inputs the kernel does not take, it raises.
-``flash_attention.launches`` counts the kernel launches.
+tensors and launches a CUDA kernel for CUDA tensors; on any other
+device, or on inputs the kernels do not take, it raises.  On the card it
+dispatches on dtype and head dim (``kernel_for``): bf16 at head dims 64
+and 128 goes to ``csrc/flash_attention_sm90.cu`` (wgmma fed by TMA; p
+rounded to bf16 before P.V, as the LM's JAX reference rounds it), every
+other input to ``csrc/flash_attention.cu`` (CUDA cores, f32 p).  A
+failed build or launch raises; neither kernel stands in for the other.
+
+``flash_attention.launches`` counts every kernel launch,
+``flash_attention.launches_sm90`` and ``flash_attention.launches_simt``
+each kernel's own.
 """
 from __future__ import annotations
 
@@ -17,6 +25,7 @@ from .. import _build
 from .ref import flash_attention_ref
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
+SM90_HEAD_DIMS = (64, 128)      # bf16 only
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 20
              + [ctypes.c_float] * 2 + [ctypes.c_int64, ctypes.c_void_p])
@@ -53,8 +62,25 @@ def _check_inputs(q, k, v, window):
                          f" see no key in their window of {window}")
 
 
+def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel a CUDA call launches: ``"flash_attention_sm90"`` for
+    bf16 at head dims 64 and 128, else ``"flash_attention"``."""
+    if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS:
+        return "flash_attention_sm90"
+    return "flash_attention"
+
+
+def tma_ready(x: torch.Tensor) -> bool:
+    """True when TMA can read ``x`` as it is: a 16-byte aligned base, a
+    contiguous last dimension and the other strides multiples of 16
+    bytes."""
+    step = 16 // x.element_size()
+    return (x.data_ptr() % 16 == 0 and x.stride(-1) == 1
+            and all(s > 0 and s % step == 0 for s in x.stride()[:-1]))
+
+
 def flash_attention(q, k, v, *, causal=True, window=0, attn_softcap=0.0):
-    """GQA attention with online softmax (see the kernel source)."""
+    """GQA attention with online softmax (see the kernel sources)."""
     _check_inputs(q, k, v, window)
     device = q.device
     if device.type == "cpu":
@@ -62,25 +88,54 @@ def flash_attention(q, k, v, *, causal=True, window=0, attn_softcap=0.0):
                                    attn_softcap=attn_softcap)
     if device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {device}")
+    return _launch(kernel_for(q.dtype, q.shape[-1]), q, k, v, causal,
+                   window, attn_softcap)
+
+
+def _flash_attention_simt(q, k, v, *, causal=True, window=0,
+                          attn_softcap=0.0):
+    """The CUDA-core kernel on any input it takes, bf16 at head dims 64
+    and 128 included: for timing it beside the sm90 kernel on the same
+    work.  Never called on the path."""
+    _check_inputs(q, k, v, window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device "
+                         f"{q.device}")
+    return _launch("flash_attention", q, k, v, causal, window, attn_softcap)
+
+
+def _launch(kernel, q, k, v, causal, window, attn_softcap):
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
-    q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
-    out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=device)
+    if kernel == "flash_attention_sm90":
+        q, k, v = (x if tma_ready(x)
+                   else x.clone(memory_format=torch.contiguous_format)
+                   for x in (q, k, v))
+    else:
+        q, k, v = (x if x.stride(-1) == 1 else x.contiguous()
+                   for x in (q, k, v))
+    out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    lib = _build.library("flash_attention")
-    fn = lib.flash_attention_launch
+    lib = _build.library(kernel)
+    fn = getattr(lib, f"{kernel}_launch")
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     strides = [s for x in (q, k, v, out) for s in x.stride()[:3]]
-    with torch.cuda.device(device):
+    with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 B, Sq, Skv, Hq, Hkv, D, *strides, int(causal), int(window),
                 D ** -0.5, float(attn_softcap), _DTYPES[q.dtype], stream)
-    _build.check(rc, "flash_attention")
+    _build.check(rc, kernel)
     flash_attention.launches += 1
+    if kernel == "flash_attention_sm90":
+        flash_attention.launches_sm90 += 1
+    else:
+        flash_attention.launches_simt += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_sm90 = 0
+flash_attention.launches_simt = 0

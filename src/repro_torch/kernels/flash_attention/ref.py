@@ -9,6 +9,11 @@ against the CUDA kernel on the card by ``chip_smoke.py``.
 The scores are materialised one kv head (and its query group) at a
 time, so the card can run it at S = 8192 without holding every head's
 ``[S, S]`` scores at once.
+
+``round_p=True`` follows the trajectory of the sm90 kernel and of the
+LM's JAX reference (``repro.models.attention._flash_inner``) instead: it
+walks the keys in ``kv_tile`` tiles with a running max and rounds p to
+the input dtype before ``P.V``, with ``l`` summed from the unrounded p.
 """
 from __future__ import annotations
 
@@ -29,9 +34,13 @@ def visible(qpos, kpos, causal: bool, window: int) -> torch.Tensor:
     return ok
 
 
-def flash_attention_ref(q, k, v, *, causal=True, window=0, attn_softcap=0.0):
+def flash_attention_ref(q, k, v, *, causal=True, window=0, attn_softcap=0.0,
+                        round_p=False, kv_tile=128):
     """q ``[B, Sq, Hq, D]``; k/v ``[B, Skv, Hkv, D]`` -> ``[B, Sq, Hq, D]``
     in ``q.dtype``."""
+    if round_p:
+        return _online_rounded(q, k, v, causal, window, attn_softcap,
+                               kv_tile)
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, _ = k.shape
     G = Hq // Hkv
@@ -51,3 +60,36 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, attn_softcap=0.0):
         outs.append(torch.einsum("bgqk,bkd->bqgd", p, v[:, :, h].float()))
         del p
     return torch.stack(outs, dim=2).reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def _online_rounded(q, k, v, causal, window, attn_softcap, kv_tile):
+    """Online softmax over ``kv_tile``-key tiles, p rounded to ``q.dtype``
+    before it multiplies v (f32 scores, running max, sum and output)."""
+    B, Sq, Hq, D = q.shape
+    _, Skv, Hkv, _ = k.shape
+    G = Hq // Hkv
+    qpos = torch.arange(Sq, device=q.device)
+    qg = q.reshape(B, Sq, Hkv, G, D).float()
+    m = torch.full((B, Sq, Hkv, G), NEG_INF, device=q.device)
+    l = torch.zeros((B, Sq, Hkv, G), device=q.device)
+    acc = torch.zeros((B, Sq, Hkv, G, D), device=q.device)
+    for k0 in range(0, Skv, kv_tile):
+        kb = k[:, k0:k0 + kv_tile].float()
+        vb = v[:, k0:k0 + kv_tile].float()
+        s = torch.einsum("bqhgd,bkhd->bqhgk", qg, kb) * (D ** -0.5)
+        if attn_softcap:
+            s = attn_softcap * torch.tanh(s / attn_softcap)
+        ok = visible(qpos, torch.arange(k0, k0 + kb.shape[1],
+                                        device=q.device), causal, window)
+        s = torch.where(ok[None, :, None, None, :], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        del s
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bqhgk,bkhd->bqhgd", p.to(q.dtype).float(), vb)
+        m = m_new
+        del p
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(B, Sq, Hq, D).to(q.dtype)

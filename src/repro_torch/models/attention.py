@@ -3,8 +3,9 @@
 The port of ``repro.models.attention``.  Paths, selected by ``impl``:
 
 * ``"flash"`` (default) and ``"pallas"`` — the hand-written CUDA
-  flash-attention kernel (``kernels/flash_attention``) on CUDA tensors,
-  its plain torch version on CPU tensors.  The reference's ``"flash"``
+  flash-attention kernels (``kernels/flash_attention``: wgmma for bf16
+  at head dims 64 and 128, CUDA cores otherwise) on CUDA tensors, the
+  plain torch version on CPU tensors.  The reference's ``"flash"``
   computes the same online-softmax function in jnp, and its ``"pallas"``
   is the Pallas kernel the CUDA kernel replaces, so both land there;
 * ``"naive"`` — the ``[S, S]`` reference, with explicit positions and

@@ -22,6 +22,7 @@ import torch
 from .configs import get_smoke_config
 from .kernels.embedding_bag.ops import embedding_bag
 from .kernels.flash_attention.ops import flash_attention
+from .kernels.flash_attention.ref import NEG_INF, visible
 from .kernels.segment_matmul.ops import segment_matmul
 from .models import moe, recsys
 from .models.convert import (lm_from_numpy, numpy_params,
@@ -68,6 +69,42 @@ class PinnedRoutes:
                 f"(gaps {gap.tolist()})")
             self.flips += int(flip.sum())
         return g, e, aux
+
+
+def p_rounding_allowance(q, k, v, *, causal=True, window=0,
+                         attn_softcap=0.0):
+    """Per output element ``[B, Sq, Hq, D]``, how far two p's rounded to
+    the other bf16 neighbour can move it: ``2 * 2^-7 * max_j (p_ij / l_i)
+    * max_j |v_jd|`` (the max over the row's keys, resp. over all keys of
+    the kv head).
+
+    The sm90 flash kernel and ``flash_attention_ref(round_p=True)`` round
+    the same p to bf16, but they sum ``q . k`` in different f32 orders, so
+    a p within ~1e-6 of a bf16 rounding boundary may round up in one and
+    down in the other: one bf16 step of p, at most 2^-7 of it, times its
+    value row.  Such near-ties are rare, and where the softmax is flat
+    (thousands of keys) every p is small, so this is ~0 there; where it
+    is peaked (a few keys, or scores at a softcap) one flip moves an
+    output by up to 2^-7 of the row's largest term."""
+    B, Sq, Hq, D = q.shape
+    _, Skv, Hkv, _ = k.shape
+    G = Hq // Hkv
+    ok = visible(torch.arange(Sq, device=q.device),
+                 torch.arange(Skv, device=q.device), causal, window)
+    qg = q.reshape(B, Sq, Hkv, G, D)
+    pmax = []
+    for h in range(Hkv):
+        s = torch.einsum("bqgd,bkd->bgqk", qg[:, :, h].float(),
+                         k[:, :, h].float()) * (D ** -0.5)
+        if attn_softcap:
+            s = attn_softcap * torch.tanh(s / attn_softcap)
+        s = torch.where(ok, s, NEG_INF)
+        # the largest p / l of a row is exp(max - logsumexp)
+        pmax.append(torch.exp(s.amax(-1) - torch.logsumexp(s, -1)))
+        del s
+    pmax = torch.stack(pmax, 1).reshape(B, Hq, Sq).transpose(1, 2)
+    vmax = v.float().abs().amax(1).repeat_interleave(G, 1)  # [B, Hq, D]
+    return 2 * 2.0 ** -7 * pmax[..., None] * vmax[:, None]
 
 
 def _launches():

@@ -148,6 +148,133 @@ def test_card_lm_equals_cpu(cuda_device, arch, dtype, tol):
         torch.testing.assert_close(card, cpu, atol=tol, rtol=tol)
 
 
+SM90_CUDA_CASES = [
+    # (B, Sq, Skv, Hq, Hkv, D, causal, window, softcap, q scale): bf16 at
+    # head dims 64 and 128, the sm90 kernel's inputs
+    (1, 200, 200, 4, 4, 64, True, 0, 0.0, 1),        # ragged, MHA
+    (2, 333, 333, 4, 2, 128, True, 100, 50.0, 1),    # GQA 2:1, window 100
+    (1, 8200, 8200, 4, 1, 128, True, 4096, 50.0, 1),  # GQA 4:1, window 4096
+    (1, 8200, 8200, 2, 2, 64, True, 0, 0.0, 1),      # long causal, ragged
+    (1, 200, 333, 2, 2, 64, False, 0, 0.0, 1),       # Sq < Skv, no causal
+    (2, 333, 200, 4, 2, 128, False, 0, 0.0, 1),      # Sq > Skv, no causal
+    (1, 333, 200, 2, 1, 128, True, 0, 0.0, 1),       # Sq > Skv, causal
+    (1, 384, 384, 8, 2, 64, False, 100, 30.0, 1),    # window, no causal
+    (1, 256, 256, 4, 2, 128, True, 0, 50.0, 8),      # scores at the cap
+    (2, 1, 1, 4, 2, 64, True, 0, 0.0, 1),            # Sq = Skv = 1
+    (1, 1, 333, 4, 4, 128, False, 0, 0.0, 1),        # Sq = 1
+]
+
+
+def _kernel_tol(dtype: str) -> dict:
+    """``chip_smoke.KERNEL_TOL[dtype]``: the limits the smoke run holds
+    every kernel to against its plain version."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.KERNEL_TOL[dtype]
+
+
+@pytest.mark.parametrize("case", SM90_CUDA_CASES)
+def test_sm90_flash_kernel_equals_rounded_plain_version(cuda_device, case):
+    """The wgmma kernel against the plain version on its own trajectory
+    (``round_p=True``: p rounded to bf16 before P.V) under the smoke
+    run's bf16 limits, plus per element what two p's rounded the other
+    way at an f32 near-tie can move it (``p_rounding_allowance``: with a
+    window of 100 keys or scores at the cap one p is a large share of a
+    row); and against the default plain version (p in f32) under the
+    2e-2 of the test above."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.testing import p_rounding_allowance
+    B, Sq, Skv, Hq, Hkv, D, causal, window, cap, scale = case
+    g = torch.Generator(device=cuda_device).manual_seed(Sq + Skv + D)
+    q, k, v = (torch.randn(s, generator=g, device=cuda_device)
+               .to(torch.bfloat16)
+               for s in ((B, Sq, Hq, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D)))
+    q = q * scale                                     # exact in bf16
+    kw = dict(causal=causal, window=window, attn_softcap=cap)
+    n, n90 = flash_attention.launches, flash_attention.launches_sm90
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n + 1
+    assert flash_attention.launches_sm90 == n90 + 1
+    want = flash_attention_ref(q, k, v, round_p=True, **kw).float()
+    tol = _kernel_tol("bfloat16")
+    err = (got.float() - want).abs()
+    rms = float(want.pow(2).mean().sqrt())
+    assert bool(torch.isfinite(got).all())
+    allow = p_rounding_allowance(q, k, v, **kw)
+    assert bool((err <= tol["atol_rel"] * rms + tol["rtol"] * want.abs()
+                 + allow).all()), float(err.max())
+    assert float((got.float() - want).norm() / want.norm()) \
+        <= tol["rel_l2_max"]
+    torch.testing.assert_close(got, flash_attention_ref(q, k, v, **kw),
+                               atol=2e-2, rtol=2e-2)
+
+
+def test_sm90_flash_kernel_reads_unaligned_views(cuda_device):
+    """Views TMA cannot read as they are (a base off 16 bytes, a head
+    stride that is no multiple of 16 bytes) are copied first."""
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         tma_ready)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    base = torch.randn((1, 130, 4, 72), generator=g, device=cuda_device)
+    q = base.to(torch.bfloat16)[..., 4:68]               # 8-byte offset
+    kv = torch.randn((2 * 130 * 2 * 64 + 1,), generator=g,
+                     device=cuda_device).to(torch.bfloat16)
+    k = kv[1:1 + 130 * 2 * 64].view(1, 130, 2, 64)     # 2-byte offset
+    v = kv[:130 * 2 * 64].view(1, 130, 2, 64)
+    assert not tma_ready(q) and not tma_ready(k) and tma_ready(v)
+    n90 = flash_attention.launches_sm90
+    got = flash_attention(q, k, v, causal=True, window=0, attn_softcap=0.0)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_sm90 == n90 + 1
+    want = flash_attention_ref(q, k, v, round_p=True).float()
+    assert float((got.float() - want).norm() / want.norm()) <= \
+        _kernel_tol("bfloat16")["rel_l2_max"]
+
+
+def test_card_lm_sm90_equals_cpu(cuda_device):
+    """The Gemma-2 smoke config widened to head dim 128, bf16: prefill
+    goes through the sm90 kernel in every layer (n_layers launches, none
+    of the CUDA-core kernel) and agrees with the CPU run (which keeps p
+    in f32) within the bf16 LM tolerance."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.models.convert import lm_from_numpy, numpy_params
+    cfg = dataclasses.replace(get_smoke_config("gemma2-27b"), head_dim=128,
+                              query_scale=128.0 ** -0.5)
+    params = numpy_params(cfg, seed=4)
+    tokens = torch.as_tensor(
+        np.random.default_rng(4).integers(0, cfg.vocab, (2, 23)))
+    runs = []
+    for device in ("cpu", cuda_device):
+        model = lm_from_numpy(cfg, params, device=device)
+        tok = tokens.to(device)
+        n90, nsimt = (flash_attention.launches_sm90,
+                      flash_attention.launches_simt)
+        logits, cache = model.prefill(tok[:, :20], 24,
+                                      compute_dtype=torch.bfloat16)
+        out = [logits]
+        for s in range(20, 23):
+            logits, cache = model.decode_step(cache, tok[:, s:s + 1],
+                                              compute_dtype=torch.bfloat16)
+            out.append(logits)
+        want = cfg.n_layers if device != "cpu" else 0
+        assert flash_attention.launches_sm90 - n90 == want
+        assert flash_attention.launches_simt == nsimt
+        runs.append([x.cpu() for x in out] + [cache["k"].cpu()])
+    for card, cpu in zip(runs[1], runs[0]):
+        torch.testing.assert_close(card, cpu, atol=5e-2, rtol=5e-2)
+
+
 # -- the MoE and recsys serving paths --------------------------------------
 SM_CUDA_CASES = [
     # (group sizes, K, N, bm): the kernel tests' cases (padded by

@@ -152,21 +152,29 @@ def _wrapper(path: Path, name: str) -> ast.FunctionDef:
                 if isinstance(n, ast.FunctionDef) and n.name == name)
 
 
-@pytest.mark.parametrize("kernel,ref", [("interval_weight",
-                                         "interval_weight_ref"),
-                                        ("tree_sampler", "tree_sampler_ref"),
-                                        ("flash_attention",
-                                         "flash_attention_ref"),
-                                        ("segment_matmul",
-                                         "segment_matmul_ref"),
-                                        ("embedding_bag",
-                                         "embedding_bag_ref")])
-def test_cuda_path_launches_or_raises(kernel, ref):
+# (kernel, its plain version, the function that launches, the library
+# name it builds and checks): flash attention dispatches between two
+# kernels, so its wrapper hands the name to one launching function
+LAUNCHERS = [("interval_weight", "interval_weight_ref", "interval_weight",
+              "'interval_weight'"),
+             ("tree_sampler", "tree_sampler_ref", "tree_sampler",
+              "'tree_sampler'"),
+             ("flash_attention", "flash_attention_ref", "_launch", "kernel"),
+             ("segment_matmul", "segment_matmul_ref", "segment_matmul",
+              "'segment_matmul'"),
+             ("embedding_bag", "embedding_bag_ref", "embedding_bag",
+              "'embedding_bag'")]
+
+
+@pytest.mark.parametrize("kernel,ref,launcher,lib", LAUNCHERS)
+def test_cuda_path_launches_or_raises(kernel, ref, launcher, lib):
     """Statically (no CUDA tensor can be made here): the wrapper has no
     ``try``, reaches its plain version only under a ``device.type ==
     "cpu"`` test, and otherwise builds/loads its library, launches,
-    checks the launch's error code and counts it."""
-    fn = _wrapper(PORT / "kernels" / kernel / "ops.py", kernel)
+    checks the launch's error code and counts it (itself, or through
+    the one launching function it calls, which has no ``try`` either)."""
+    ops = PORT / "kernels" / kernel / "ops.py"
+    fn = _wrapper(ops, kernel)
     assert not any(isinstance(n, ast.Try) for n in ast.walk(fn))
     ref_calls = [n for n in ast.walk(fn) if isinstance(n, ast.Call)
                  and isinstance(n.func, ast.Name) and n.func.id == ref]
@@ -175,10 +183,28 @@ def test_cuda_path_launches_or_raises(kernel, ref):
                and "== 'cpu'" in ast.unparse(n.test)]
     assert len(cpu_ifs) == 1
     assert ref_calls[0] in list(ast.walk(cpu_ifs[0]))
+    if launcher != kernel:
+        assert f"return {launcher}(" in ast.unparse(fn)
+        fn = _wrapper(ops, launcher)
+        assert not any(isinstance(n, ast.Try) for n in ast.walk(fn))
     src = ast.unparse(fn)
-    assert f"_build.library('{kernel}')" in src
-    assert f"_build.check(rc, '{kernel}')" in src
+    assert f"_build.library({lib})" in src
+    assert f"_build.check(rc, {lib})" in src
     assert f"{kernel}.launches += 1" in src
+
+
+def test_flash_attention_dispatches_between_two_built_kernels():
+    """Both flash kernels are built sources, and ``kernel_for`` names
+    one of them for every dtype and head dim the wrapper takes."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention.ops import (HEAD_DIMS,
+                                                         kernel_for)
+    names = {kernel_for(dt, d) for dt in (torch.float32, torch.bfloat16)
+             for d in HEAD_DIMS}
+    assert names == {"flash_attention", "flash_attention_sm90"}
+    assert names <= set(_build.SOURCES)
 
 
 def test_build_reads_only_repo_sources_for_sm90a():
