@@ -17,10 +17,11 @@ port's two paths:
 * MoE LM serving: card against CPU for both MoE smoke configs, then
   Qwen1.5-MoE-A2.7B at full width and depth (random bf16 weights from
   seed 0, the config's capacity factor 1.25): a 2 x 8192-token prefill and
-  16 greedy decode steps, shown to go through the grouped-GEMM kernel in
-  every expert product and the sm90 flash kernel in every prefill layer;
-  then the same architecture in f32 with no capacity drops, prefill
-  against decode, through the CUDA-core flash kernel (f32);
+  16 greedy decode steps, shown to go through the sm90 grouped-GEMM
+  kernel (wgmma + TMA) in every expert product, prefill and decode, and
+  the sm90 flash kernel in every prefill layer; then the same
+  architecture in f32 with no capacity drops, prefill against decode,
+  through the CUDA-core kernels of both (f32);
 * recsys serving: card against CPU for the DCN-v2 smoke config, then
   DCN-v2 at full width (the Criteo-1TB table profile, 62,988,288 rows of
   16 in bf16): the serve_p99, serve_bulk and retrieval_cand traffic of
@@ -865,7 +866,7 @@ def phase_lm_full() -> dict:
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     prefill_launches = flash_attention.launches
-    prefill_by_kernel = flash_launches()
+    prefill_by_kernel = by_kernel(flash_attention)
     require(tuple(logits.shape) == (LM_BATCH, 1, cfg.vocab),
             f"prefill logits shape {tuple(logits.shape)}")
     require(bool(torch.isfinite(logits).all()), "prefill logits not finite")
@@ -941,45 +942,74 @@ def phase_lm_full() -> dict:
     return prefill_by_kernel
 
 
-def phase_segment_matmul() -> dict:
-    """The grouped-GEMM kernel against its plain version at the MoE path's
-    shapes (Qwen1.5-MoE-A2.7B, 64 padded experts): the prefill's gate/up
-    (C = 1368 rows per expert, K = 2048, N = 1408) and down (K = 1408,
-    N = 2048) products in bf16, a decode step's (C = 8) in bf16, and the
-    f32 check run's gate/up (C = 2072), beside ``torch.bmm`` on the same
-    layout.  Two faults are read with the plain version: a block that
-    uses the next group's weights, and a segment whose ragged last rows
-    are dropped."""
+def phase_segment_matmul() -> tuple[dict, dict]:
+    """The grouped-GEMM kernels against their plain version at the MoE
+    path's shapes (Qwen1.5-MoE-A2.7B, 64 padded experts): the sm90 kernel
+    on the prefill's gate/up (C = 1368 rows per expert, K = 2048,
+    N = 1408) and down (K = 1408, N = 2048) products and a decode step's
+    (C = 8) gate/up and down, in bf16; the mma.sync / f32 kernel on the
+    f32 check run's gate/up (C = 2072).  Each case asserts which kernel
+    ran.  Two faults are read with the plain version: a block that uses
+    the next group's weights, and a segment whose ragged last rows are
+    dropped.  The mma.sync kernel is also held to the plain version on
+    each bf16 case (``_segment_matmul_simt``).  The bf16 cases are timed
+    through the sm90 kernel, through the mma.sync kernel on the same
+    work, as ``torch.bmm`` on the same layout, and as the plain
+    version."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels.segment_matmul.ops import segment_matmul
+    from repro_torch.kernels.segment_matmul.ops import (
+        _segment_matmul_simt, kernel_for, segment_matmul)
     from repro_torch.kernels.segment_matmul.ref import segment_matmul_ref
     from repro_torch.models.moe import capacity
     cfg = get_config(MOE_ARCH)
     E, d, ffe = cfg.e_pad, cfg.d_model, cfg.d_expert
     c_prefill = capacity(cfg, LM_BATCH * LM_PROMPT)
+    c_decode = capacity(cfg, LM_BATCH)
     c_check = capacity(replace_capacity(cfg),
                        LM_BATCH * (MOE_CHECK_PROMPT + MOE_CHECK_AT))
     gen = torch.Generator(device="cuda").manual_seed(0)
     # (case, C, K, N, dtype)
-    cases = (("prefill gate/up", c_prefill, d, ffe, torch.bfloat16),
-             ("prefill down", c_prefill, ffe, d, torch.bfloat16),
-             ("decode gate/up", capacity(cfg, LM_BATCH), d, ffe,
-              torch.bfloat16),
+    bf16 = torch.bfloat16
+    cases = (("prefill gate/up", c_prefill, d, ffe, bf16),
+             ("prefill down", c_prefill, ffe, d, bf16),
+             ("decode gate/up", c_decode, d, ffe, bf16),
+             ("decode down", c_decode, ffe, d, bf16),
              ("f32 check gate/up", c_check, d, ffe, torch.float32))
     groups = torch.arange(E, dtype=torch.int32, device="cuda")
-    recs = []
+    recs = {}
     for case, C, K, N, dtype in cases:
         dt = str(dtype).split(".")[1]
+        kernel = kernel_for(dtype, K, N)
+        require(kernel == ("segment_matmul_sm90" if dtype == bf16
+                           else "segment_matmul"),
+                f"segment_matmul {case}: dispatched to {kernel}")
+        counter = ("launches_sm90" if kernel == "segment_matmul_sm90"
+                   else "launches_simt")
         x = torch.randn((E * C, K), generator=gen, device="cuda").to(dtype)
         w = (torch.randn((E, K, N), generator=gen, device="cuda")
              * K ** -0.5).to(dtype)
+        n = getattr(segment_matmul, counter)
         got = segment_matmul(x, w, groups)
         want = segment_matmul_ref(x, w, groups)
         torch.cuda.synchronize()
-        rec = dict(case=case, dtype=dt, E=E, C=C, K=K, N=N,
+        require(getattr(segment_matmul, counter) == n + 1,
+                f"segment_matmul {case}: not through {kernel}")
+        rec = dict(case=case, kernel=kernel, dtype=dt, E=E, C=C, K=K, N=N,
                    **check_close(f"segment_matmul {case}", got, want, dt))
         del got
+        if dtype == bf16:
+            # the mma.sync kernel on the same bf16 work, held to the same
+            # limits as on the path it serves (bf16 of odd widths)
+            n = segment_matmul.launches_simt
+            got = _segment_matmul_simt(x, w, groups)
+            torch.cuda.synchronize()
+            require(segment_matmul.launches_simt == n + 1,
+                    f"segment_matmul {case}: mma.sync kernel not launched")
+            rec["simt_max_abs_err"] = check_close(
+                f"segment_matmul {case} (mma.sync)", got, want,
+                dt)["max_abs_err"]
+            del got
         shifted = (groups + 1) % E
         rec["fault_next_group"] = check_fault(
             f"segment_matmul {case}", "a block uses the next group's weights",
@@ -994,7 +1024,7 @@ def phase_segment_matmul() -> dict:
         del dropped, want
         flops = 2 * E * C * K * N
         nbytes = (E * C * K + E * K * N + E * C * N) * x.element_size()
-        ops_s = flops / (BF16_FLOPS_PER_S if dtype == torch.bfloat16
+        ops_s = flops / (BF16_FLOPS_PER_S if dtype == bf16
                          else F32_FLOPS_PER_S)
         reps = 50 if C <= 64 else 10
         rec.update(
@@ -1007,22 +1037,42 @@ def phase_segment_matmul() -> dict:
             bound_ms=max(ops_s, nbytes / HBM_BYTES_PER_S) * 1e3,
             bound_by=("operations" if ops_s >= nbytes / HBM_BYTES_PER_S
                       else "bytes"))
+        if dtype == bf16:
+            rec["simt_ms"] = cuda_ms(
+                lambda: _segment_matmul_simt(x, w, groups),
+                reps=reps if C <= 64 else 3)
         del x, w
-        recs.append(rec)
+        recs[case] = rec
         emit({"phase": "segment_matmul", **rec})
-    head, dec = recs[0], recs[2]
-    return dict(
+    head, f32 = recs["prefill gate/up"], recs["f32 check gate/up"]
+    sm90 = dict(
+        name="segment_matmul_sm90", route="cuda",
+        source="src/repro_torch/kernels/segment_matmul/csrc/"
+               "segment_matmul_sm90.cu",
+        replaces="src/repro/kernels/segment_matmul/kernel.py:46",
+        max_abs_err=max(r["max_abs_err"] for r in recs.values()
+                        if r["dtype"] == "bfloat16"),
+        # the prefill's gate/up launch; the other three cases beside it
+        case=head["case"], ms=head["ms"], plain_ms=head["plain_ms"],
+        bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+        library_ms=head["library_ms"], simt_ms=head["simt_ms"])
+    for case, key in (("prefill down", "prefill_down"),
+                      ("decode gate/up", "decode"),
+                      ("decode down", "decode_down")):
+        sm90.update({f"{key}_{k}": recs[case][k] for k in (
+            "ms", "simt_ms", "bound_ms", "bound_by", "library_ms")})
+    simt = dict(
         name="segment_matmul", route="cuda",
         source="src/repro_torch/kernels/segment_matmul/csrc/"
                "segment_matmul.cu",
         replaces="src/repro/kernels/segment_matmul/kernel.py:46",
-        max_abs_err=max(r["max_abs_err"] for r in recs),
-        # the prefill's gate/up launch; the decode launch beside it
-        case=head["case"], ms=head["ms"], plain_ms=head["plain_ms"],
-        bound_ms=head["bound_ms"], bound_by=head["bound_by"],
-        library_ms=head["library_ms"],
-        decode_ms=dec["ms"], decode_bound_ms=dec["bound_ms"],
-        decode_library_ms=dec["library_ms"])
+        case=f32["case"],
+        **{k: f32[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms")},
+        # the same kernel on the four bf16 cases
+        bf16_max_abs_err=max(r["simt_max_abs_err"] for r in recs.values()
+                             if r["dtype"] == "bfloat16"))
+    return sm90, simt
 
 
 def phase_embedding_bag() -> dict:
@@ -1135,18 +1185,16 @@ def phase_moe_small() -> None:
 
 
 def reset_counters(*fns) -> None:
-    from repro_torch.kernels.flash_attention.ops import flash_attention
     for fn in fns:
         fn.launches = 0
-        if fn is flash_attention:
+        if hasattr(fn, "launches_sm90"):
             fn.launches_sm90 = fn.launches_simt = 0
 
 
-def flash_launches() -> dict:
-    """Launches of each flash kernel since the counters were reset."""
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-    return dict(sm90=flash_attention.launches_sm90,
-                simt=flash_attention.launches_simt)
+def by_kernel(fn) -> dict:
+    """Launches of each of ``fn``'s two kernels (flash attention, the
+    grouped GEMM) since the counters were reset."""
+    return dict(sm90=fn.launches_sm90, simt=fn.launches_simt)
 
 
 class CountDrops:
@@ -1207,18 +1255,24 @@ def phase_moe_full() -> dict:
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     prefill_launches = {fn.__name__: fn.launches for fn in counters}
-    prefill_by_kernel = flash_launches()
+    prefill_by_kernel = by_kernel(flash_attention)
+    prefill_sm = by_kernel(segment_matmul)
     dropped, assigned = int(drops.dropped), drops.assignments
     require(tuple(logits.shape) == (LM_BATCH, 1, cfg.vocab),
             f"prefill logits shape {tuple(logits.shape)}")
     require(bool(torch.isfinite(logits).all()), "prefill logits not finite")
+    step_sm = []                  # grouped-GEMM launches of each step
     t0 = time.perf_counter()
     for _ in range(LM_DECODE):
+        before = by_kernel(segment_matmul)
         tok = logits[:, -1].argmax(-1, keepdim=True)
         logits, cache = model.decode_step(cache, tok)
+        step_sm.append({k: v - before[k]
+                        for k, v in by_kernel(segment_matmul).items()})
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in counters}
+    sm_by_kernel = by_kernel(segment_matmul)
     require(bool(torch.isfinite(logits).all()), "decode logits not finite")
     require(cache["kv_len"] == LM_PROMPT + LM_DECODE, "kv_len")
     per_layer = 3 * cfg.n_layers
@@ -1233,11 +1287,18 @@ def phase_moe_full() -> dict:
     require(launches["interval_weight"] == launches["tree_sampler"]
             == launches["embedding_bag"] == 0,
             f"other paths' kernels launched on the MoE path: {launches}")
+    require(prefill_sm == dict(sm90=per_layer, simt=0)
+            and all(step == dict(sm90=per_layer, simt=0)
+                    for step in step_sm),
+            f"grouped-GEMM launches by kernel: prefill {prefill_sm}, "
+            f"decode steps {step_sm}")
     peak = torch.cuda.max_memory_allocated()
     del cache, logits
     gc.collect()
     torch.cuda.empty_cache()
-    kinds = {"segment_matmul": lambda k: "sm_bf16_kernel" in k,
+    kinds = {"segment_matmul": lambda k: "segment_matmul_sm90_kernel" in k,
+             "segment_matmul_simt": lambda k: ("sm_bf16_kernel" in k
+                                               or "sm_f32_kernel" in k),
              "flash_attention": lambda k: "flash_attention" in k,
              "gemm": lambda k: any(w in k.lower() for w in
                                    ("gemm", "cutlass", "xmma", "nvjet",
@@ -1268,7 +1329,9 @@ def phase_moe_full() -> dict:
            "decode_bound_ms": 1e3 * weight_bytes / HBM_BYTES_PER_S,
            "peak_mem_bytes": peak, "prefill_launches": prefill_launches,
            "prefill_flash_launches_by_kernel": prefill_by_kernel,
+           "prefill_segment_matmul_launches_by_kernel": prefill_sm,
            "launches": launches,
+           "segment_matmul_launches_by_kernel": sm_by_kernel,
            "segment_matmul_per_decode_step":
                (launches["segment_matmul"]
                 - prefill_launches["segment_matmul"]) / LM_DECODE,
@@ -1286,8 +1349,8 @@ def phase_moe_check() -> dict:
     """The same architecture in f32 (weights from seed 0) with capacity
     factor n_experts / top_k, so no token is ever dropped: a 2 x 1024
     prompt, 8 greedy decode steps, then prefill(prompt + 8 generated)
-    against decode step 8, through both f32 kernels (segment_matmul,
-    flash)."""
+    against decode step 8, through the CUDA-core f32 kernels of both
+    (segment_matmul.cu, flash_attention.cu) only."""
     import gc
 
     import numpy as np
@@ -1323,12 +1386,14 @@ def phase_moe_check() -> dict:
     require(bool(torch.isfinite(got).all() and torch.isfinite(want).all()),
             "moe_check: logits not finite")
     require(dropped == 0, f"moe_check: {dropped} assignments dropped")
-    by_kernel = flash_launches()
+    flash_by_kernel = by_kernel(flash_attention)
+    sm_by_kernel = by_kernel(segment_matmul)
     require(segment_matmul.launches == 3 * cfg.n_layers * (2 + MOE_CHECK_AT)
+            and sm_by_kernel == dict(sm90=0, simt=segment_matmul.launches)
             and flash_attention.launches == 2 * cfg.n_layers
-            and by_kernel == dict(sm90=0, simt=2 * cfg.n_layers),
-            "moe_check launches: segment_matmul "
-            f"{segment_matmul.launches}, flash {by_kernel}")
+            and flash_by_kernel == dict(sm90=0, simt=2 * cfg.n_layers),
+            f"moe_check launches: segment_matmul {sm_by_kernel}, flash "
+            f"{flash_by_kernel}")
     require(rel <= MOE_CHECK_TOL,
             f"moe_check: prefill(S={S}) vs decode step {MOE_CHECK_AT}: "
             f"relative L2 {rel} > {MOE_CHECK_TOL}")
@@ -1339,13 +1404,14 @@ def phase_moe_check() -> dict:
                                 .float().mean()),
           "assignments": assigned, "dropped": dropped,
           "segment_matmul_launches": segment_matmul.launches,
+          "segment_matmul_launches_by_kernel": sm_by_kernel,
           "flash_launches": flash_attention.launches,
-          "flash_launches_by_kernel": by_kernel,
+          "flash_launches_by_kernel": flash_by_kernel,
           "peak_mem_bytes": torch.cuda.max_memory_allocated()})
     del model, got, want, logits
     gc.collect()
     torch.cuda.empty_cache()
-    return by_kernel
+    return dict(flash=flash_by_kernel, segment_matmul=sm_by_kernel)
 
 
 def tree_to(tree, device):
@@ -1530,7 +1596,7 @@ def main() -> None:
 
     fa, fa_simt = phase_flash_attention()
     torch.cuda.empty_cache()
-    sm = phase_segment_matmul()
+    sm, sm_simt = phase_segment_matmul()
     eb = phase_embedding_bag()
     torch.cuda.empty_cache()
     phase_lm_small()
@@ -1541,11 +1607,13 @@ def main() -> None:
     moe = phase_moe_full()
     fa["launches_moe_prefill"] = moe["prefill_flash_launches_by_kernel"][
         "sm90"]
-    sm["launches"] = moe["launches"]["segment_matmul"]
-    fa_simt["launches"] = phase_moe_check()["simt"]
+    sm["launches"] = moe["segment_matmul_launches_by_kernel"]["sm90"]
+    check = phase_moe_check()
+    fa_simt["launches"] = check["flash"]["simt"]
+    sm_simt["launches"] = check["segment_matmul"]["simt"]
     phase_recsys_small()
     eb["launches"] = phase_recsys_full()
-    recs += [fa, fa_simt, sm, eb]
+    recs += [fa, fa_simt, sm, sm_simt, eb]
     require(all(r["launches"] > 0 for r in recs),
             "a kernel was launched no time on its path")
     emit({"phase": "total", "seconds": time.perf_counter() - T_START})

@@ -36,6 +36,8 @@ SOURCES = {
     / "flash_attention_sm90.cu",
     "segment_matmul": _KERNELS / "segment_matmul" / "csrc"
     / "segment_matmul.cu",
+    "segment_matmul_sm90": _KERNELS / "segment_matmul" / "csrc"
+    / "segment_matmul_sm90.cu",
     "embedding_bag": _KERNELS / "embedding_bag" / "csrc"
     / "embedding_bag.cu",
 }

@@ -1,15 +1,17 @@
 // Hopper building blocks for the port's kernels: TMA tensor loads that
 // complete on an mbarrier, the mbarrier ring's operations, the async-proxy
-// fence, wgmma (bf16 in, f32 accumulators; m64n64k16 and m64n128k16, A
-// from shared memory or from registers) with its fence / commit / wait,
-// the 64-bit shared-memory matrix descriptor for the 128-byte swizzle, and
-// setmaxnreg.  All of it is inline PTX for sm_90a; the host side encodes a
-// tensor map through libcuda's cuTensorMapEncodeTiled, whose address the
-// runtime looks up at first use, so a kernel library needs no -lcuda.
+// fence, wgmma (bf16 in, f32 accumulators; m64n64k16 and m64n128k16 with
+// A from shared memory or from registers, m64n256k16 with A from shared
+// memory) with its fence / commit / wait, the 64-bit shared-memory matrix
+// descriptor for the 128-byte swizzle, and setmaxnreg.  All of it is
+// inline PTX for sm_90a; the host side encodes a tensor map through
+// libcuda's cuTensorMapEncodeTiled, whose address the runtime looks up at
+// first use, so a kernel library needs no -lcuda.
 //
-// Used by flash_attention/csrc/flash_attention_sm90.cu.  The redesign of
-// segment_matmul (pipelined TMA stages feeding wgmma) is to use the same
-// header.
+// Used by flash_attention/csrc/flash_attention_sm90.cu (4-D maps, Q.K^T
+// with both operands K-major, P.V with A from registers) and by
+// segment_matmul/csrc/segment_matmul_sm90.cu (3-D maps, x K-major times w
+// MN-major, both from shared memory).
 //
 // Layout convention: a tile is loaded by TMA with CU_TENSOR_MAP_SWIZZLE_128B
 // in boxes of 64 bf16 columns (128 bytes, the widest box that swizzle
@@ -89,6 +91,21 @@ __device__ __forceinline__ void fence_proxy_async() {
 }
 
 // -- TMA ----------------------------------------------------------------------
+// Loads the box at coordinates (c0 innermost .. c2) of a 3-D tensor map into
+// shared memory at `dst`; completes `bytes` of transactions on `bar`.
+// Elements past the tensor's extent arrive as zeros.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // Loads the box at coordinates (c0 innermost .. c3) of a 4-D tensor map into
 // shared memory at `dst`; completes `bytes` of transactions on `bar`.
 // Elements past the tensor's extent arrive as zeros.
@@ -176,6 +193,13 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   REPRO_WGMMA_D8(d, 0), REPRO_WGMMA_D8(d, 8), REPRO_WGMMA_D8(d, 16),      \
       REPRO_WGMMA_D8(d, 24), REPRO_WGMMA_D8(d, 32), REPRO_WGMMA_D8(d, 40), \
       REPRO_WGMMA_D8(d, 48), REPRO_WGMMA_D8(d, 56)
+#define REPRO_WGMMA_D128(d)                                               \
+  REPRO_WGMMA_D8(d, 0), REPRO_WGMMA_D8(d, 8), REPRO_WGMMA_D8(d, 16),      \
+      REPRO_WGMMA_D8(d, 24), REPRO_WGMMA_D8(d, 32), REPRO_WGMMA_D8(d, 40), \
+      REPRO_WGMMA_D8(d, 48), REPRO_WGMMA_D8(d, 56), REPRO_WGMMA_D8(d, 64), \
+      REPRO_WGMMA_D8(d, 72), REPRO_WGMMA_D8(d, 80), REPRO_WGMMA_D8(d, 88), \
+      REPRO_WGMMA_D8(d, 96), REPRO_WGMMA_D8(d, 104),                      \
+      REPRO_WGMMA_D8(d, 112), REPRO_WGMMA_D8(d, 120)
 
 // Accumulator layout (every shape here): thread t of the warpgroup holds,
 // for j = 0 .. N/8 - 1, d[4j + e] at row 16 * (t / 32) + (t % 32) / 4 +
@@ -213,6 +237,33 @@ __device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64],
       " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
       ", %64, %65, p, 1, 1, 0, %67;\n}\n"
       : REPRO_WGMMA_D64(d)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TransB));
+}
+
+// D[64 x 256] (+)= A[64 x 16] B[16 x 256], A and B from shared memory.
+template <int TransB>
+__device__ __forceinline__ void wgmma_ss_m64n256k16(float (&d)[128],
+                                                  uint64_t desc_a,
+                                                  uint64_t desc_b,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16\n"
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+      " %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73,"
+      " %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85,"
+      " %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97,"
+      " %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108,"
+      " %109, %110, %111, %112, %113, %114, %115, %116, %117, %118,"
+      " %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}"
+      ", %128, %129, p, 1, 1, 0, %131;\n}\n"
+      : REPRO_WGMMA_D128(d)
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TransB));
 }
 
@@ -259,6 +310,7 @@ __device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64],
 #undef REPRO_WGMMA_D8
 #undef REPRO_WGMMA_D32
 #undef REPRO_WGMMA_D64
+#undef REPRO_WGMMA_D128
 
 // Two f32 into one bf16x2 register (lo in the low half), round to nearest.
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
@@ -296,20 +348,20 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A 4-D bf16 tensor map with 128-byte swizzle; dims and box innermost first,
-// strides in bytes of dims 1..3 (dim 0 is contiguous).  Needs a 16-byte
-// aligned base and strides that are multiples of 16.  Returns false when
-// libcuda refuses it.
-inline bool make_map_bf16_4d(CUtensorMap* map, const void* base,
-                             const uint64_t dims[4],
-                             const uint64_t strides[3],
-                             const uint32_t box[4]) {
+// A bf16 tensor map of rank 3 or 4 with 128-byte swizzle; dims and box
+// innermost first, strides in bytes of dims 1..rank-1 (dim 0 is
+// contiguous).  Needs a 16-byte aligned base and strides that are
+// multiples of 16.  Returns false when libcuda refuses it.
+inline bool make_map_bf16(CUtensorMap* map, const void* base, int rank,
+                          const uint64_t* dims, const uint64_t* strides,
+                          const uint32_t* box) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return false;
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                        const_cast<void*>(base), dims, strides, box,
-                        elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                        (cuuint32_t)rank, const_cast<void*>(base), dims,
+                        strides, box, elem_strides,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -324,7 +324,7 @@ bool make_map(CUtensorMap* map, const void* base, int64_t B, int64_t S,
   const uint64_t strides[3] = {(uint64_t)sh * 2, (uint64_t)ss * 2,
                                (uint64_t)sb * 2};
   const uint32_t box[4] = {64, 1, (uint32_t)rows, 1};
-  return repro_torch::make_map_bf16_4d(map, base, dims, strides, box);
+  return repro_torch::make_map_bf16(map, base, 4, dims, strides, box);
 }
 
 template <int D>

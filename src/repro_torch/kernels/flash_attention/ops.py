@@ -21,7 +21,7 @@ import ctypes
 
 import torch
 
-from .. import _build
+from .. import _build, tma_ready
 from .ref import flash_attention_ref
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -68,15 +68,6 @@ def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
     if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS:
         return "flash_attention_sm90"
     return "flash_attention"
-
-
-def tma_ready(x: torch.Tensor) -> bool:
-    """True when TMA can read ``x`` as it is: a 16-byte aligned base, a
-    contiguous last dimension and the other strides multiples of 16
-    bytes."""
-    step = 16 // x.element_size()
-    return (x.data_ptr() % 16 == 0 and x.stride(-1) == 1
-            and all(s > 0 and s % step == 0 for s in x.stride()[:-1]))
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, attn_softcap=0.0):

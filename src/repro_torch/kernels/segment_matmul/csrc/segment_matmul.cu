@@ -33,11 +33,13 @@
 // 4 x 4 patch.  The output is rounded once to x's dtype.  Ragged K and N
 // are masked; 16-byte loads are used when K, N and the pointers allow.
 //
-// What it leaves on the table: wgmma and TMA.  The loads are not
-// pipelined (one shared-memory stage, two barriers per k tile), and
-// mma.sync issued from shared memory reaches a fraction of the bf16 peak;
-// a ring of TMA stages feeding wgmma, and for decode a split of K over
-// more blocks, are later work.
+// Where it runs now: f32 inputs (the f32 MoE check) and bf16 inputs whose
+// K or N is no multiple of 8.  bf16 with K and N multiples of 8, every
+// expert product of the MoE path, goes to segment_matmul_sm90.cu (a TMA
+// ring feeding wgmma); the wrapper in ../ops.py dispatches.  What this
+// kernel leaves on the table is why: the loads are not pipelined (one
+// shared-memory stage, two barriers per k tile), and mma.sync issued from
+// shared memory reaches a fraction of the bf16 peak.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>

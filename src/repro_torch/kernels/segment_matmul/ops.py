@@ -1,13 +1,21 @@
-"""Wrapper of the grouped-GEMM kernel (``csrc/segment_matmul.cu``) and
-the segment-padding helper.
+"""Wrappers of the two grouped-GEMM kernels and the segment-padding
+helper.
 
 ``segment_matmul(x, w, block_groups)`` computes ``y[i] = x[i] @
 w[g(i)]`` with one group id per ``bm``-row block, as the JAX package's
 ``segment_matmul`` does: f32 accumulation, the output in ``x``'s dtype.
 It takes the plain torch version (``ref.py``) for CPU tensors and
-launches the CUDA kernel for CUDA tensors; on any other device, or on
-inputs the kernel does not take, it raises.  ``segment_matmul.launches``
-counts the kernel launches.
+launches a CUDA kernel for CUDA tensors; on any other device, or on
+inputs the kernels do not take, it raises.  On the card it dispatches on
+dtype and widths (``kernel_for``): bf16 with K and N positive multiples
+of 8 goes to ``csrc/segment_matmul_sm90.cu`` (wgmma fed by a TMA ring),
+every other input to ``csrc/segment_matmul.cu`` (mma.sync for bf16, f32
+FMAs for f32).  A failed build or launch raises; neither kernel stands
+in for the other.
+
+``segment_matmul.launches`` counts every kernel launch,
+``segment_matmul.launches_sm90`` and ``segment_matmul.launches_simt``
+each kernel's own.
 
 Group ids out of ``[0, G)`` would read outside ``w``: the wrapper checks
 them when ``block_groups`` lies on the host (it is then copied to the
@@ -22,11 +30,13 @@ import ctypes
 import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, tma_ready
 from .ref import segment_matmul_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 6 + [ctypes.c_void_p]
+# Every launch takes x, w, groups, y; M, K, N, nblocks, G; then its own
+# tail; then the stream.
+_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 5
 
 
 def pad_segments(x: np.ndarray, group_sizes: np.ndarray, bm: int = 128):
@@ -84,8 +94,17 @@ def _check_inputs(x, w, block_groups):
         raise ValueError("segment_matmul: block_groups on another card")
 
 
+def kernel_for(dtype: torch.dtype, K: int, N: int) -> str:
+    """The kernel a CUDA call launches: ``"segment_matmul_sm90"`` for bf16
+    when K and N are positive multiples of 8 (the 16-byte strides TMA
+    needs), else ``"segment_matmul"``."""
+    if dtype == torch.bfloat16 and K > 0 and K % 8 == 0 and N % 8 == 0:
+        return "segment_matmul_sm90"
+    return "segment_matmul"
+
+
 def segment_matmul(x, w, block_groups):
-    """Grouped GEMM on pre-padded rows (see the kernel source)."""
+    """Grouped GEMM on pre-padded rows (see the kernel sources)."""
     if isinstance(block_groups, np.ndarray):
         block_groups = torch.as_tensor(block_groups)
     _check_inputs(x, w, block_groups)
@@ -94,28 +113,58 @@ def segment_matmul(x, w, block_groups):
         return segment_matmul_ref(x, w, block_groups)
     if device.type != "cuda":
         raise ValueError(f"segment_matmul: no kernel for device {device}")
+    return _launch(kernel_for(x.dtype, x.shape[1], w.shape[2]), x, w,
+                   block_groups)
+
+
+def _segment_matmul_simt(x, w, block_groups):
+    """The mma.sync / f32 kernel on any input it takes, bf16 with widths
+    the sm90 kernel takes included: for timing it beside the sm90 kernel
+    on the same work.  Never called on the path."""
+    if isinstance(block_groups, np.ndarray):
+        block_groups = torch.as_tensor(block_groups)
+    _check_inputs(x, w, block_groups)
+    if x.device.type != "cuda":
+        raise ValueError(f"segment_matmul: no kernel for device {x.device}")
+    return _launch("segment_matmul", x, w, block_groups)
+
+
+def _launch(kernel, x, w, block_groups):
+    device = x.device
     M, K = x.shape
     G, _, N = w.shape
-    x, w = x.contiguous(), w.contiguous()
-    groups = block_groups.to(device=device, dtype=torch.int32).contiguous()
     y = torch.empty((M, N), dtype=x.dtype, device=device)
     if y.numel() == 0:
         return y
-    vec_elems = 16 // x.element_size()
-    vec = int(K % vec_elems == 0 and N % vec_elems == 0
-              and all(t.data_ptr() % 16 == 0 for t in (x, w, y)))
-    lib = _build.library("segment_matmul")
-    fn = lib.segment_matmul_launch
-    fn.argtypes = _ARGTYPES
+    groups = block_groups.to(device=device, dtype=torch.int32).contiguous()
+    if kernel == "segment_matmul_sm90":
+        x, w = (t if tma_ready(t)
+                else t.clone(memory_format=torch.contiguous_format)
+                for t in (x, w))
+        # the row stride of x, the group and k strides of w
+        tail = (x.stride(0), w.stride(0), w.stride(1))
+        counter = "launches_sm90"
+    else:
+        x, w = x.contiguous(), w.contiguous()
+        vec_elems = 16 // x.element_size()
+        vec = int(K % vec_elems == 0 and N % vec_elems == 0
+                  and all(t.data_ptr() % 16 == 0 for t in (x, w, y)))
+        tail = (_DTYPES[x.dtype] | vec << 1,)  # flags
+        counter = "launches_simt"
+    lib = _build.library(kernel)
+    fn = getattr(lib, f"{kernel}_launch")
+    fn.argtypes = _ARGS + [ctypes.c_int64] * len(tail) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(x.data_ptr(), w.data_ptr(), groups.data_ptr(), y.data_ptr(),
-                M, K, N, groups.shape[0], G, _DTYPES[x.dtype] | vec << 1,
-                stream)
-    _build.check(rc, "segment_matmul")
+                M, K, N, groups.shape[0], G, *tail, stream)
+    _build.check(rc, kernel)
     segment_matmul.launches += 1
+    setattr(segment_matmul, counter, getattr(segment_matmul, counter) + 1)
     return y
 
 
 segment_matmul.launches = 0
+segment_matmul.launches_sm90 = 0
+segment_matmul.launches_simt = 0

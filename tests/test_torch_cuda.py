@@ -325,6 +325,134 @@ def test_segment_matmul_kernel_marks_bad_group_ids(cuda_device):
     assert bool((y[:8] == 32).all()) and bool(torch.isnan(y[8:]).all())
 
 
+def _sm_inputs(device, sizes, K, N, bm, seed):
+    """Padded bf16 rows and weights of one case, made from a numpy seed."""
+    import numpy as np
+    from repro_torch.kernels.segment_matmul.ops import pad_segments
+    r = np.random.default_rng(seed)
+    x = r.standard_normal((sum(sizes), K)).astype(np.float32)
+    xp, groups, _ = pad_segments(x, np.array(sizes), bm=bm)
+    w = r.standard_normal((len(sizes), K, N)).astype(np.float32) * K ** -0.5
+    return (torch.as_tensor(xp).to(device, torch.bfloat16),
+            torch.as_tensor(w).to(device, torch.bfloat16),
+            torch.as_tensor(groups))
+
+
+def _assert_bf16_close(got, want):
+    """The smoke run's bf16 limits (``chip_smoke.KERNEL_TOL``): both
+    accumulate in f32 and round once, so they differ by at most an ulp."""
+    tol = _kernel_tol("bfloat16")
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    rms = float(want.pow(2).mean().sqrt())
+    assert bool(torch.isfinite(got).all())
+    assert bool((err <= tol["atol_rel"] * rms + tol["rtol"] * want.abs())
+                .all()), float(err.max())
+    assert float((got - want).norm() / want.norm()) <= tol["rel_l2_max"]
+
+
+# (group sizes, K, N, bm): the cases of SM_CUDA_CASES whose K and N the
+# sm90 kernel takes, a ragged segment of two row tiles per expert (the MoE
+# layout, C = 200), and a decode step's layout at Qwen1.5-MoE's widths
+# (64 experts of C = 8 rows, K 2048, N 1408)
+SM90_CUDA_CASES = [
+    *[c for c in SM_CUDA_CASES if c[1] % 8 == 0 and c[2] % 8 == 0],
+    ((200,) * 4, 256, 384, 200),
+    ((8,) * 64, 2048, 1408, 8),
+]
+
+
+@pytest.mark.parametrize("case", SM90_CUDA_CASES)
+def test_sm90_segment_matmul_kernel_equals_plain_version(cuda_device, case):
+    """bf16 with K and N multiples of 8 goes through the wgmma kernel
+    (one sm90 launch, none of the other kernel) and agrees with the plain
+    version under the smoke run's bf16 limits, with the group ids on the
+    host and on the card."""
+    from repro_torch.kernels.segment_matmul.ops import segment_matmul
+    from repro_torch.kernels.segment_matmul.ref import segment_matmul_ref
+    sizes, K, N, bm = case
+    x, w, groups = _sm_inputs(cuda_device, sizes, K, N, bm, seed=K + N)
+    n90, nsimt = segment_matmul.launches_sm90, segment_matmul.launches_simt
+    got = segment_matmul(x, w, groups)
+    got_dev = segment_matmul(x, w, groups.to(cuda_device))
+    torch.cuda.synchronize()
+    assert segment_matmul.launches_sm90 == n90 + 2
+    assert segment_matmul.launches_simt == nsimt
+    assert torch.equal(got, got_dev)
+    _assert_bf16_close(got, segment_matmul_ref(x, w, groups))
+
+
+def test_sm90_segment_matmul_reads_unaligned_views(cuda_device):
+    """Views TMA cannot read as they are (a base 2 bytes off 16, w with
+    N strided) are copied first; a row view at a 16-byte offset is read
+    in place."""
+    from repro_torch.kernels.segment_matmul.ops import (segment_matmul,
+                                                        tma_ready)
+    from repro_torch.kernels.segment_matmul.ref import segment_matmul_ref
+    x, w, groups = _sm_inputs(cuda_device, (100, 30, 250), 64, 192, 128, 7)
+    M, K = x.shape
+    flat = torch.empty(M * K + 1, dtype=x.dtype, device=cuda_device)
+    off = flat[1:].view(M, K)                          # 2-byte offset
+    off.copy_(x)
+    wt = w.transpose(1, 2).contiguous().transpose(1, 2)   # N strided
+    rows = torch.cat([x[:1], x])[1:]                   # 128-byte offset
+    assert not tma_ready(off) and not tma_ready(wt) and tma_ready(rows)
+    want = segment_matmul_ref(x, w, groups)
+    for xs, ws in ((off, w), (x, wt), (rows, w)):
+        n90 = segment_matmul.launches_sm90
+        got = segment_matmul(xs, ws, groups)
+        torch.cuda.synchronize()
+        assert segment_matmul.launches_sm90 == n90 + 1
+        _assert_bf16_close(got, want)
+
+
+@pytest.mark.parametrize("bm", [8, 128])
+def test_sm90_segment_matmul_marks_bad_group_ids(cuda_device, bm):
+    """A segment whose id is out of range is written as NaN in both tile
+    configurations (decode bm < 64, prefill bm >= 64); its neighbour is
+    right."""
+    from repro_torch.kernels.segment_matmul.ops import segment_matmul
+    x = torch.ones(2 * bm, 32, dtype=torch.bfloat16, device=cuda_device)
+    w = torch.ones(2, 32, 8, dtype=torch.bfloat16, device=cuda_device)
+    n90 = segment_matmul.launches_sm90
+    y = segment_matmul(x, w, torch.tensor([1, 5], dtype=torch.int32,
+                                          device=cuda_device))
+    torch.cuda.synchronize()
+    assert segment_matmul.launches_sm90 == n90 + 1
+    assert bool((y[:bm] == 32).all()) and bool(torch.isnan(y[bm:]).all())
+
+
+def test_segment_matmul_odd_width_bf16_takes_the_simt_kernel(cuda_device):
+    """bf16 with K = 36 (no 16-byte rows for TMA) launches the mma.sync
+    kernel once and the sm90 kernel not at all."""
+    from repro_torch.kernels.segment_matmul.ops import segment_matmul
+    from repro_torch.kernels.segment_matmul.ref import segment_matmul_ref
+    x, w, groups = _sm_inputs(cuda_device, (100, 30, 250), 36, 128, 128, 9)
+    n, n90, nsimt = (segment_matmul.launches, segment_matmul.launches_sm90,
+                     segment_matmul.launches_simt)
+    got = segment_matmul(x, w, groups)
+    torch.cuda.synchronize()
+    assert (segment_matmul.launches, segment_matmul.launches_sm90,
+            segment_matmul.launches_simt) == (n + 1, n90, nsimt + 1)
+    _assert_bf16_close(got, segment_matmul_ref(x, w, groups))
+
+
+def test_segment_matmul_simt_timing_entry_takes_sm90_widths(cuda_device):
+    """``_segment_matmul_simt`` runs the mma.sync kernel on work the
+    wrapper would give the sm90 kernel, and both agree with the plain
+    version."""
+    from repro_torch.kernels.segment_matmul.ops import (
+        _segment_matmul_simt, segment_matmul)
+    from repro_torch.kernels.segment_matmul.ref import segment_matmul_ref
+    x, w, groups = _sm_inputs(cuda_device, (200,) * 4, 256, 384, 200, 11)
+    nsimt, n90 = segment_matmul.launches_simt, segment_matmul.launches_sm90
+    got = _segment_matmul_simt(x, w, groups)
+    torch.cuda.synchronize()
+    assert segment_matmul.launches_simt == nsimt + 1
+    assert segment_matmul.launches_sm90 == n90
+    _assert_bf16_close(got, segment_matmul_ref(x, w, groups))
+
+
 EB_CUDA_CASES = [
     # (V, d, B, bag, with_weights, pad_fraction): the kernel tests' cases,
     # DCN-v2's row width, a width with no 16-byte loads, a wide row

@@ -153,15 +153,15 @@ def _wrapper(path: Path, name: str) -> ast.FunctionDef:
 
 
 # (kernel, its plain version, the function that launches, the library
-# name it builds and checks): flash attention dispatches between two
-# kernels, so its wrapper hands the name to one launching function
+# name it builds and checks): flash attention and segment_matmul dispatch
+# between two kernels each, so their wrappers hand the name to one
+# launching function
 LAUNCHERS = [("interval_weight", "interval_weight_ref", "interval_weight",
               "'interval_weight'"),
              ("tree_sampler", "tree_sampler_ref", "tree_sampler",
               "'tree_sampler'"),
              ("flash_attention", "flash_attention_ref", "_launch", "kernel"),
-             ("segment_matmul", "segment_matmul_ref", "segment_matmul",
-              "'segment_matmul'"),
+             ("segment_matmul", "segment_matmul_ref", "_launch", "kernel"),
              ("embedding_bag", "embedding_bag_ref", "embedding_bag",
               "'embedding_bag'")]
 
@@ -204,6 +204,17 @@ def test_flash_attention_dispatches_between_two_built_kernels():
     names = {kernel_for(dt, d) for dt in (torch.float32, torch.bfloat16)
              for d in HEAD_DIMS}
     assert names == {"flash_attention", "flash_attention_sm90"}
+    assert names <= set(_build.SOURCES)
+
+
+def test_segment_matmul_dispatches_between_two_built_kernels():
+    """Both grouped-GEMM kernels are built sources, and ``kernel_for``
+    names one of them for every dtype and width the wrapper takes."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.segment_matmul.ops import kernel_for
+    names = {kernel_for(dt, K, N) for dt in (torch.float32, torch.bfloat16)
+             for K in (0, 36, 64, 1408, 2048) for N in (8, 100, 1408)}
+    assert names == {"segment_matmul", "segment_matmul_sm90"}
     assert names <= set(_build.SOURCES)
 
 
