@@ -8,8 +8,9 @@ version on the card at the shapes of its main path, and drives the
 port's two paths:
 
 * TIMEST: card against CPU on a small graph, then one full-size estimate
-  through ``repro_torch.estimate``, shown to go through the
-  interval-weight and tree-sampler kernels;
+  through ``repro_torch.estimate``, shown to launch the dep-sum
+  (interval-weight) kernel once per dep-sum and the tree-sampler kernel,
+  which draws its own threefry bits, once per chunk;
 * LM serving: card against CPU for the Gemma-2 smoke config, then
   Gemma-2-27B at full width (random bf16 weights from seed 0): a
   2 x 8192-token prefill and 16 greedy decode steps, shown to go through
@@ -55,6 +56,9 @@ SMALL_GRAPH = "powerlaw:n=150,m=2000,time_span=40000,seed=11"
 # default threefry mode): W, cnt2_sum, valid
 SMALL_CASES = (("M5-3", 3000, 1024, 0, (412857, 20, 446)),
                ("M4-2", 3000, 512, 3, (640115, 557, 395)))
+# wider windows for the full graph until W passes 2^32 (a day, a week,
+# a month): the tree sampler's draws then wrap as jax's do
+WIDE_DELTAS = (86400, 604800, 2592000)
 FIELDS = ("estimate", "W", "k", "cnt2_sum", "valid", "fail_vmap",
           "fail_delta", "fail_order", "overflow", "tree_edges")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
@@ -141,27 +145,28 @@ def find_steps(n):
     return torch.ceil(torch.log2(n.clamp(min=1).double())).long()
 
 
-def sampler_bytes(dev, wts, schedule, S, x, edges, window) -> int:
+def sampler_bytes(dev, wts, schedule, S, edges, window) -> int:
     """Bytes the tree sampler must move on this run's data.
 
-    Draws and outputs once each, plus one 8 B word per gather the kernel
-    makes on each sample's own data: the window bisection over ``q``;
-    the center edge's inverse CDF over its window's edge range; per
-    child, the three bisections of the meet vertex's CSR segment and of
-    its parallel-edge list (full segment lengths), then the inverse CDF
-    over the delta range ``[plo, phi)`` only, each of its steps two
-    prefix words plus, with the Claim 4.8 exclusion, the nested search
-    over ``[qlo, qhi)`` and two more prefix words.
+    The key once and the outputs once (the kernel computes its draws:
+    no draw inputs), plus one 8 B word per gather a bisection makes on
+    each sample's own data: the window bisection over ``q``; the center
+    edge's inverse CDF over its window's edge range; per child, the
+    three bisections of the meet vertex's CSR segment and of its
+    parallel-edge list (full segment lengths), then the inverse CDF over
+    the delta range ``[plo, phi)`` only, each of its steps two prefix
+    words plus, with the Claim 4.8 exclusion, the nested search over
+    ``[qlo, qhi)`` and two more prefix words.
     """
     import torch
     from repro_torch.core.bisect import (bisect_iters, seg_lower_bound,
                                          seg_upper_bound)
-    K = x.shape[0]
+    K = window.shape[0]
     t = dev["t"]
     it = bisect_iters(t.shape[0])
     delta, wd = wts.delta, wts.wd
     win = window
-    words = bisect_steps(torch.full_like(x, wts.q)) + 4          # window
+    words = bisect_steps(torch.full_like(win, wts.q)) + 4        # window
     span = wts.win_hi[win] - wts.win_lo[win]
     words = words + 2 + 2 * find_steps(span)                     # center
     for (s, c, meet_end, alpha, beta, use_rev) in schedule:
@@ -189,7 +194,7 @@ def sampler_bytes(dev, wts, schedule, S, x, edges, window) -> int:
             qhi = seg_upper_bound(dev["pair_t"], q0, q1, thi, iters=it)
             words = (words + 3 + 3 * bisect_steps(q1 - q0) + 2
                      + evals * (bisect_steps(qhi - qlo) + 2))
-    io = K * (8 + 16 * (S - 1) + 8 * S + 8)
+    io = 16 + K * 8 * (S + 1)
     return int(words.sum()) * 8 + io
 
 
@@ -286,80 +291,226 @@ def phase_build() -> None:
           "built": built, "dir": str(_build.BUILD_DIR.relative_to(ROOT))})
 
 
-def phase_interval_weight(dev, wts, tree) -> dict:
-    """The kernel against its plain version on one real dep-sum."""
+def dep_sum_bytes(dev, d, use_c2: bool) -> int:
+    """Bytes one dep-sum must move: each array the function needs read
+    once (each edge's time and meet vertex, the alpha-CSR's pointers and
+    times, the child's two prefixes; with C2 each edge's pair id, the
+    pair pointers and times and two prefixes) and the output once: 72 m
+    + 8 n + 8 P B with C2.  The kernel's own order (``perm`` and the
+    gather back, ``pos``) is a cost of its design, not of the function,
+    and is not counted."""
+    from repro_torch.kernels.interval_weight.ref import pair_ids
+    alpha = "out" if d.alpha > 0 else "in"
+    need = [dev["t"], dev["src" if d.meet_end == 0 else "dst"],
+            dev[f"{alpha}_ptr"], dev[f"{alpha}_t"]]
+    if use_c2:
+        need += [pair_ids(dev, d), dev["pair_ptr"], dev["pair_t"]]
+    m = dev["t"].shape[0]
+    prefixes = (4 if use_c2 else 2) * (m + 1) * 8
+    return (sum(x.numel() * x.element_size() for x in need)
+            + prefixes + m * 8)
+
+
+def composite_dep_sum(dev, d, window, delta, wd, ps_csr, ps_pair, keys):
+    """The library yardstick of one dep-sum: ``torch.searchsorted`` on
+    composite keys ``owner * (time_span + 2) + t``, which are sorted
+    globally in CSR order (``keys``: the alpha-CSR's and the pair-CSR's),
+    three searches and the gathers per sum; several torch calls, not
+    one."""
     import torch
-    from repro_torch.core.weights import dep_sum_queries
-    from repro_torch.kernels.interval_weight.ops import interval_weight
-    from repro_torch.kernels.interval_weight.ref import interval_weight_ref
-    d = tree.deps[tree.root][0]
-    qs = dep_sum_queries(dev, d, wts.delta, wts.wd, "own", use_c2=True)
-    csr_t, *q = qs["lam"]
-    args = (csr_t, wts.ps_acc_own[d.child].contiguous(),
-            wts.ps_acc_prev[d.child].contiguous(),
-            *[a.contiguous() for a in q])
-    got = interval_weight(*args)
-    want = interval_weight_ref(*args)
-    torch.cuda.synchronize()
-    require(got.dtype == want.dtype and torch.equal(got, want),
-            "interval_weight kernel differs from its plain version")
-    err = int((got - want).abs().max())
-    ms = cuda_ms(lambda: interval_weight(*args), reps=20)
-    plain_ms = cuda_ms(lambda: interval_weight_ref(*args), reps=3)
-    m, Q = csr_t.shape[0], q[0].shape[0]
-    nbytes = (3 * m + 2 + 6 * Q) * 8
+    from repro_torch.kernels.interval_weight.ref import dep_sum_queries
+    qs = dep_sum_queries(dev, d, delta, wd, window, ps_pair is not None)
+    span = keys["span"]
+
+    def iw(key, ps, q):
+        owner, _, _, tlo, thi, brk = q
+        base = owner * span
+        plo = torch.searchsorted(key, base + tlo.clamp(min=0))
+        phi = torch.searchsorted(key, base + thi.clamp(max=span - 1),
+                                 right=True)
+        pmid = torch.minimum(torch.maximum(torch.searchsorted(
+            key, base + brk.clamp(max=span - 1)), plo), phi)
+        return (ps[0][pmid] - ps[0][plo]) + (ps[1][phi] - ps[1][pmid])
+    meet = (dev["src"] if d.meet_end == 0 else dev["dst"]).long()
+    lam = iw(keys["out" if d.alpha > 0 else "in"], ps_csr,
+             (meet, *qs["lam"][1:]))
+    if ps_pair is None:
+        return lam
+    from repro_torch.kernels.interval_weight.ref import pair_ids
+    pid = pair_ids(dev, d).long()
+    el = iw(keys["pair"], ps_pair, (pid.clamp(min=0), *qs["el"][1:]))
+    return lam - torch.where(pid >= 0, el, 0)
+
+
+def composite_keys(dev) -> dict:
+    import torch
+    span = int(dev["t"][-1]) + 2
+
+    def key(ptr, times):
+        owner = torch.repeat_interleave(
+            torch.arange(ptr.shape[0] - 1, device=ptr.device), ptr.diff())
+        return owner * span + times
+    return dict(span=span, out=key(dev["out_ptr"], dev["out_t"]),
+                **{"in": key(dev["in_ptr"], dev["in_t"])},
+                pair=key(dev["pair_ptr"], dev["pair_t"]))
+
+
+def phase_interval_weight(dev, wts, tree) -> dict:
+    """The dep-sum kernel against its plain version on every dep-sum of
+    one real candidate tree (each dependency, own and prev, C2 on).  ``ms``
+    times the wrapper: the kernel and its gather back to edge order,
+    which ``gather_ms`` times alone."""
+    import torch
+    from repro_torch.kernels.interval_weight.ops import dep_sum, kernel_arrays
+    from repro_torch.kernels.interval_weight.ref import dep_sum_ref
+    keys = composite_keys(dev)
+    m = dev["t"].shape[0]
     it = max(8, m.bit_length() + 1)
-    ops = Q * 3 * it * 4
-    bound = max(nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S) * 1e3
+    runs, err = [], 0
+    for s in tree.topo_down:
+        for d in tree.deps[s]:
+            c = d.child
+            ps_csr = (wts.ps_acc_own[c], wts.ps_acc_prev[c])
+            ps_pair = (wts.ps_pair_own[c], wts.ps_pair_prev[c])
+            arrays = kernel_arrays(dev, d)   # once per kind on the path
+            for window in ("own", "prev"):
+                args = (dev, d, window, wts.delta, wts.wd, ps_csr, ps_pair)
+                got = dep_sum(*args, arrays)
+                want = dep_sum_ref(*args)
+                lib = composite_dep_sum(*args, keys)
+                torch.cuda.synchronize()
+                require(got.dtype == want.dtype and torch.equal(got, want),
+                        f"dep_sum kernel differs from its plain version "
+                        f"(child {c}, {window})")
+                require(torch.equal(lib, want), "composite-key yardstick "
+                        "differs from the plain version")
+                err = max(err, int((got - want).abs().max()))
+                nbytes = dep_sum_bytes(dev, d, True)
+                ops = m * 6 * it * 4
+                runs.append(dict(
+                    child=c, window=window, bytes=nbytes,
+                    ms=cuda_ms(lambda: dep_sum(*args, arrays), reps=20),
+                    gather_ms=cuda_ms(lambda: got[arrays["pos"]], reps=20),
+                    library_ms=cuda_ms(
+                        lambda: composite_dep_sum(*args, keys), reps=5),
+                    bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                                 ops / OPS_PER_S) * 1e3,
+                    bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
+                              >= ops / OPS_PER_S else "operations")))
+    first = runs[0]
+    d0 = tree.deps[tree.topo_down[0]][0]
+    args0 = (dev, d0, "own", wts.delta, wts.wd,
+             (wts.ps_acc_own[d0.child], wts.ps_acc_prev[d0.child]),
+             (wts.ps_pair_own[d0.child], wts.ps_pair_prev[d0.child]))
+    plain_ms = cuda_ms(lambda: dep_sum_ref(*args0), reps=2)
+
+    def mean(k):
+        return sum(r[k] for r in runs) / len(runs)
     rec = dict(name="interval_weight", route="cuda",
                source="src/repro_torch/kernels/interval_weight/csrc/"
                       "interval_weight.cu",
                replaces="src/repro/kernels/interval_weight/kernel.py:75",
-               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-               bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
-                         >= ops / OPS_PER_S else "operations"),
-               library_ms=None)
-    emit({"phase": "interval_weight", "Q": Q, "m": m, "bytes": nbytes,
-          "equal": True, **{k: rec[k] for k in ("ms", "plain_ms",
-                                                 "bound_ms")}})
+               max_abs_err=err, ms=mean("ms"), plain_ms=plain_ms,
+               bound_ms=mean("bound_ms"), bound_by=first["bound_by"],
+               library_ms=mean("library_ms"))
+    emit({"phase": "interval_weight", "m": m, "dep_sums": len(runs),
+          "use_c2": True, "equal": True, "library_equal": True,
+          "library": "torch.searchsorted on composite keys, 3 searches "
+                     "and 4 gathers per sum: several calls, not one",
+          "per_dep_sum": runs, "gather_ms": mean("gather_ms"),
+          **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms",
+                                 "library_ms")}})
     return rec
 
 
-def phase_tree_sampler(dev, wts, tree, chunk: int) -> dict:
-    """The kernel against its plain version on one chunk's real draws."""
+def sampler_case(dev, wts, tree, chunk: int, key) -> tuple:
+    """The keyed kernel against ``prepare_draws`` + the plain version on
+    one chunk; returns the kernel's output and the largest absolute
+    difference from the plain version's."""
     import torch
-    from repro_torch.core import rng
     from repro_torch.kernels.tree_sampler.ops import (build_schedule,
                                                       prepare_draws,
-                                                      tree_sampler)
+                                                      tree_sampler_keyed)
     from repro_torch.kernels.tree_sampler.ref import tree_sampler_ref
-    schedule = build_schedule(tree)
-    S = tree.num_edges
-    key = rng.fold_in(rng.PRNGKey(0), 0).cuda()
-    x, uhi, ulo = prepare_draws(tree, wts, key, chunk)
-    args = (schedule, tree.root, S, dev, wts, x, uhi, ulo)
-    e_k, w_k = tree_sampler(*args)
-    e_r, w_r = tree_sampler_ref(*args)
+    args = (build_schedule(tree), tree.root, tree.num_edges, dev, wts)
+    e_k, w_k = tree_sampler_keyed(*args, key, chunk)
+    e_r, w_r = tree_sampler_ref(*args, *prepare_draws(tree, wts, key,
+                                                       chunk))
     torch.cuda.synchronize()
     require(torch.equal(e_k, e_r) and torch.equal(w_k, w_r),
-            "tree_sampler kernel differs from its plain version")
+            f"tree_sampler kernel differs from prepare_draws + its plain "
+            f"version (W = {int(wts.W_total)})")
     err = max(int((e_k - e_r).abs().max()), int((w_k - w_r).abs().max()))
-    ms = cuda_ms(lambda: tree_sampler(*args), reps=20)
-    plain_ms = cuda_ms(lambda: tree_sampler_ref(*args), reps=2)
-    nbytes = sampler_bytes(dev, wts, schedule, S, x, e_k, w_k)
+    return e_k, w_k, err
+
+
+def phase_tree_sampler(g, dev, wts, tree, chunk: int) -> dict:
+    """The keyed kernel against its plain version on one full-size chunk,
+    one chunk of the small graph (W < 2^32, where jax's randint reduction
+    does not wrap) and one of the full graph at the first of
+    ``WIDE_DELTAS`` whose W passes 2^32 (``mult`` wraps to 0); a second
+    key must move the output."""
+    import torch
+    from repro_torch.core import rng
+    from repro_torch.core.spanning_tree import candidate_trees
+    from repro_torch.core.weights import preprocess
+    from repro_torch.kernels.tree_sampler.ops import (build_schedule,
+                                                      prepare_draws,
+                                                      tree_sampler_keyed)
+    from repro_torch.kernels.tree_sampler.ref import tree_sampler_ref
+    from repro_torch.launch.estimate import parse_graph
+    key = rng.fold_in(rng.PRNGKey(0), 0).cuda()
+    e_k, w_k, err = sampler_case(dev, wts, tree, chunk, key)
+    e_2, _, err_2 = sampler_case(dev, wts, tree, chunk,
+                                 rng.fold_in(rng.PRNGKey(0), 1).cuda())
+    require(not torch.equal(e_k, e_2), "a second key left the sample "
+            "unchanged")
+    sg = parse_graph(SMALL_GRAPH)
+    stree = candidate_trees(tree.motif, n_candidates=3,
+                            roots_per_tree=2)[0]
+    sdev = sg.device_arrays("cuda")
+    swts = preprocess(sg, stree, SMALL_CASES[0][1], dev=sdev)
+    small_W = int(swts.W_total)
+    require(0 < small_W < 2 ** 32, "small graph W not < 2^32")
+    err_small = sampler_case(sdev, swts, stree, chunk, key)[2]
+    del sdev, swts
+    for wide_delta in WIDE_DELTAS:
+        wide = preprocess(g, tree, wide_delta, dev=dev)
+        wide_W = int(wide.W_total)
+        if wide_W >= 2 ** 32:
+            break
+    require(wide_W >= 2 ** 32, f"no delta of {WIDE_DELTAS} gives W >= "
+            f"2^32 (last W {wide_W})")
+    err_wide = sampler_case(dev, wide, tree, chunk, key)[2]
+    del wide
+    torch.cuda.empty_cache()
+
+    schedule = build_schedule(tree)
+    S = tree.num_edges
+    args = (schedule, tree.root, S, dev, wts)
+    ms = cuda_ms(lambda: tree_sampler_keyed(*args, key, chunk), reps=20)
+    plain_ms = cuda_ms(lambda: tree_sampler_ref(
+        *args, *prepare_draws(tree, wts, key, chunk)), reps=2)
+    draws_ms = cuda_ms(lambda: prepare_draws(tree, wts, key, chunk), reps=5)
+    nbytes = sampler_bytes(dev, wts, schedule, S, e_k, w_k)
     ops = nbytes // 8 * 4
     bound = max(nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S) * 1e3
     rec = dict(name="tree_sampler", route="cuda",
                source="src/repro_torch/kernels/tree_sampler/csrc/"
                       "tree_sampler.cu",
                replaces="src/repro/kernels/tree_sampler/kernel.py:244",
-               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+               max_abs_err=max(err, err_2, err_small, err_wide), ms=ms,
+               plain_ms=plain_ms,
+               bound_ms=bound,
                bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
                          >= ops / OPS_PER_S else "operations"),
                library_ms=None)
     emit({"phase": "tree_sampler", "K": chunk, "S": S, "bytes": nbytes,
-          "equal": True, **{k: rec[k] for k in ("ms", "plain_ms",
-                                                 "bound_ms")}})
+          "W": int(wts.W_total), "W_gt_2^32": int(wts.W_total) > 2 ** 32,
+          "small_W": small_W, "wide_delta": wide_delta, "wide_W": wide_W,
+          "equal": True, "equal_small": True, "equal_wide": True,
+          "second_key_moves": True, "prepare_draws_ms": draws_ms,
+          **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms")}})
     return rec
 
 
@@ -383,23 +534,30 @@ def phase_small() -> None:
 
 
 def phase_full(g, motif_name: str, delta: int, k: int, chunk: int) -> dict:
-    """The main path at full size, launch counters read around it."""
+    """The main path at full size, launch counters read around it: one
+    dep-sum launch per dep-sum of every candidate tree's DP, one sampler
+    launch per chunk."""
     import math
 
     import torch
     from repro_torch import estimate, get_motif
-    from repro_torch.kernels.interval_weight.ops import interval_weight
-    from repro_torch.kernels.tree_sampler.ops import tree_sampler
+    from repro_torch.core.spanning_tree import candidate_trees
+    from repro_torch.kernels.interval_weight.ops import dep_sum
+    from repro_torch.kernels.tree_sampler.ops import tree_sampler_keyed
+    want = dict(interval_weight=sum(
+        2 * len(deps) for tree in candidate_trees(
+            get_motif(motif_name), n_candidates=3, roots_per_tree=2)
+        for deps in tree.deps), tree_sampler=-(-k // chunk))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    interval_weight.launches = 0
-    tree_sampler.launches = 0
+    dep_sum.launches = 0
+    tree_sampler_keyed.launches = 0
     t0 = time.perf_counter()
     res = estimate(g, get_motif(motif_name), delta, k, seed=0, chunk=chunk,
                    device="cuda")
     wall = time.perf_counter() - t0
-    launches = dict(interval_weight=interval_weight.launches,
-                    tree_sampler=tree_sampler.launches)
+    launches = dict(interval_weight=dep_sum.launches,
+                    tree_sampler=tree_sampler_keyed.launches)
     peak = torch.cuda.max_memory_allocated()
     require(0 < res.W < 2 ** 62, f"W_total {res.W} outside (0, 2^62)")
     require(math.isfinite(res.estimate) and res.estimate >= 0,
@@ -409,12 +567,14 @@ def phase_full(g, motif_name: str, delta: int, k: int, chunk: int) -> dict:
             "counts out of range")
     require(res.fail_vmap + res.fail_delta + res.fail_order + res.valid
             == res.k, "validation flags do not partition the samples")
-    require(all(v > 0 for v in launches.values()),
-            f"a kernel was not launched on the main path: {launches}")
+    require(launches == want, f"kernel launches on the main path "
+            f"{launches}, want one per dep-sum and per chunk: {want}")
     emit({"phase": "full", "motif": motif_name, "delta": delta,
           "m": g.m, "n": g.n, "estimate": res.estimate, "W": res.W,
           "W_lt_2^62": True, "k": res.k, "valid": res.valid,
           "cnt2_sum": res.cnt2_sum, "overflow": res.overflow,
+          "fail_vmap": res.fail_vmap, "fail_delta": res.fail_delta,
+          "fail_order": res.fail_order,
           "tree_edges": list(res.tree_edges), "wall_s": wall,
           "tree_select_s": res.tree_select_s,
           "preprocess_s": res.preprocess_s, "sampling_s": res.sampling_s,
@@ -427,10 +587,12 @@ def phase_breakdown(g, motif_name: str, delta: int, chunk: int,
                     n_chunks: int = 16) -> None:
     """Where a sampling chunk's time goes, on the main path's tree.
 
-    Host clock around each stage with a device sync after it (draws,
-    the tree-sampler kernel, the vertex map, validation + DeriveCnt),
-    then one ``torch.profiler`` pass over the same chunks for the
-    device-busy time and the idle share of the wall clock.
+    Host clock around each stage with a device sync after it (the
+    sampler kernel with its own draws, the vertex map, validation +
+    DeriveCnt), then one ``torch.profiler`` pass over the same chunks for
+    the device-busy time, the idle share and the device kernels per
+    chunk; and the kernels the host-side draws (``prepare_draws``, which
+    the kernel replaced) take for one chunk.
     """
     import torch
     from repro_torch import choose_tree, get_motif
@@ -439,7 +601,7 @@ def phase_breakdown(g, motif_name: str, delta: int, chunk: int,
     from repro_torch.core.validate import make_count_fn
     from repro_torch.kernels.tree_sampler.ops import (build_schedule,
                                                       prepare_draws,
-                                                      tree_sampler)
+                                                      tree_sampler_keyed)
     dev = g.device_arrays("cuda")
     tree, wts = choose_tree(g, get_motif(motif_name), delta, dev=dev)
     schedule = build_schedule(tree)
@@ -454,10 +616,9 @@ def phase_breakdown(g, motif_name: str, delta: int, chunk: int,
                 torch.cuda.synchronize()
             marks.append(time.perf_counter())
         mark()
-        x, uhi, ulo = prepare_draws(tree, wts, keys[j], chunk)
-        mark()
-        edges, window = tree_sampler(schedule, tree.root, tree.num_edges,
-                                     dev, wts, x, uhi, ulo)
+        edges, window = tree_sampler_keyed(schedule, tree.root,
+                                           tree.num_edges, dev, wts,
+                                           keys[j], chunk)
         mark()
         samples = dict(edges=edges, window=window,
                        phi_v=vertex_map(tree, dev, edges))
@@ -469,13 +630,17 @@ def phase_breakdown(g, motif_name: str, delta: int, chunk: int,
 
     stages(0, True)                               # warm
     per = [stages(j, True) for j in range(n_chunks)]
-    names = ("draws", "tree_sampler", "vertex_map", "validate")
+    names = ("sample", "vertex_map", "validate")
     ms = {n: 1e3 * sum(p[i] for p in per) / n_chunks
           for i, n in enumerate(names)}
     prof = device_profile(lambda: [stages(j, False)
                                    for j in range(n_chunks)])
+    draws = device_profile(lambda: prepare_draws(tree, wts, keys[0], chunk))
     emit({"phase": "breakdown", "chunks": n_chunks, "chunk": chunk,
-          "host_ms_per_chunk_synced": ms, **prof})
+          "host_ms_per_chunk_synced": ms,
+          "device_kernels_per_chunk": prof["kernel_launches"] / n_chunks,
+          "prepare_draws_kernels_per_chunk": draws["kernel_launches"],
+          **prof})
 
 
 def attended_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
@@ -845,8 +1010,8 @@ def phase_lm_full() -> dict:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.interval_weight.ops import interval_weight
-    from repro_torch.kernels.tree_sampler.ops import tree_sampler
+    from repro_torch.kernels.interval_weight.ops import dep_sum
+    from repro_torch.kernels.tree_sampler.ops import tree_sampler_keyed
     from repro_torch.models.convert import init_lm
     cfg = get_config(LM_ARCH)
     torch.cuda.synchronize()
@@ -859,7 +1024,7 @@ def phase_lm_full() -> dict:
                        for p in model.parameters())
     prompt = torch.as_tensor(np.random.default_rng(0).integers(
         0, cfg.vocab, (LM_BATCH, LM_PROMPT))).cuda()
-    counters = (flash_attention, interval_weight, tree_sampler)
+    counters = (flash_attention, dep_sum, tree_sampler_keyed)
     reset_counters(*counters)
     t0 = time.perf_counter()
     logits, cache = model.prefill(prompt, LM_PROMPT + LM_DECODE)
@@ -886,7 +1051,7 @@ def phase_lm_full() -> dict:
             f"{cfg.n_layers} of the sm90 kernel")
     require(launches["flash_attention"] == cfg.n_layers,
             f"flash launches in decode: {launches}")
-    require(launches["interval_weight"] == launches["tree_sampler"] == 0,
+    require(launches["dep_sum"] == launches["tree_sampler_keyed"] == 0,
             f"TIMEST kernels launched on the LM path: {launches}")
     require(all(bool(torch.isfinite(x).all()) for x in step_logits),
             "decode logits not finite")
@@ -1231,9 +1396,9 @@ def phase_moe_full() -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels.embedding_bag.ops import embedding_bag
     from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.interval_weight.ops import interval_weight
+    from repro_torch.kernels.interval_weight.ops import dep_sum
     from repro_torch.kernels.segment_matmul.ops import segment_matmul
-    from repro_torch.kernels.tree_sampler.ops import tree_sampler
+    from repro_torch.kernels.tree_sampler.ops import tree_sampler_keyed
     from repro_torch.models.convert import init_lm
     cfg = get_config(MOE_ARCH)
     torch.cuda.synchronize()
@@ -1247,7 +1412,7 @@ def phase_moe_full() -> dict:
     prompt = torch.as_tensor(np.random.default_rng(0).integers(
         0, cfg.vocab, (LM_BATCH, LM_PROMPT))).cuda()
     counters = (segment_matmul, flash_attention, embedding_bag,
-                interval_weight, tree_sampler)
+                dep_sum, tree_sampler_keyed)
     reset_counters(*counters)
     t0 = time.perf_counter()
     with CountDrops() as drops:
@@ -1284,7 +1449,7 @@ def phase_moe_full() -> dict:
     require(launches["segment_matmul"] == per_layer * (1 + LM_DECODE)
             and launches["flash_attention"] == cfg.n_layers,
             f"decode launches {launches}")
-    require(launches["interval_weight"] == launches["tree_sampler"]
+    require(launches["dep_sum"] == launches["tree_sampler_keyed"]
             == launches["embedding_bag"] == 0,
             f"other paths' kernels launched on the MoE path: {launches}")
     require(prefill_sm == dict(sm90=per_layer, simt=0)
@@ -1582,7 +1747,7 @@ def main() -> None:
     dev = g.device_arrays("cuda")
     wts = preprocess(g, tree, args.delta, dev=dev)
     recs = [phase_interval_weight(dev, wts, tree),
-            phase_tree_sampler(dev, wts, tree, args.chunk)]
+            phase_tree_sampler(g, dev, wts, tree, args.chunk)]
     del dev, wts
     torch.cuda.empty_cache()
 

@@ -106,8 +106,13 @@ def estimate(g: TemporalGraph, motif: TemporalMotif, delta: int, k: int,
     """Alg. 6: the full TIMEST estimate with ``k`` samples on ``device``.
 
     Draws ``ceil(k / chunk) * chunk`` samples; chunk ``j`` from
-    ``fold_in(PRNGKey(seed), j)``.
+    ``fold_in(PRNGKey(seed), j)``.  Refuses ``k < 1`` and ``delta < 0``
+    with the reference's messages.
     """
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    if delta < 0:
+        raise ValueError(f"delta must be >= 0, got {delta}")
     dev = g.device_arrays(require_device(device))
     t0 = time.perf_counter()
     timings: dict = {}

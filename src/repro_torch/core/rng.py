@@ -100,10 +100,19 @@ def bits(key: torch.Tensor, K: int, *, partitionable: bool = True
     """
     i = torch.arange(K, dtype=torch.int64, device=key.device)
     if partitionable:
-        b0, b1 = _hash(key, i >> 32, i & _M32)
-        return _join64(b0, b1)
+        return bits_at(key, i)
     y0, y1 = _hash(key, i, i + K)
     return _join64(y0, y1)
+
+
+def bits_at(key: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Entries ``idx`` of ``bits(key, K)`` in the partitionable mode, each
+    from its own counter: ``threefry2x32(key, idx >> 32, idx & M32)``.
+
+    ``key [..., 2]``, ``idx [N]`` int64 -> ``[..., N]``.
+    """
+    b0, b1 = _hash(key, idx >> 32, idx & _M32)
+    return _join64(b0, b1)
 
 
 # ---------------------------------------------------------------------------

@@ -9,17 +9,17 @@ Per sample: (1) window ``i ~ W_i / W`` by bisecting the window-prefix
 CDF; (2) center edge by the two-piece (own|prev) inverse CDF over the
 window's edge range; (3) children top-down along the static tree
 schedule, each by the generalized inverse CDF over its alpha-CSR
-segment minus the parallel-edge pair list (Claim 4.8).  All three steps
-run in the tree-sampler op (``kernels/tree_sampler``): the CUDA kernel
-on the card, its plain twin on the CPU.  The sampler reads only
-``tree_signature`` fields of the tree.
+segment minus the parallel-edge pair list (Claim 4.8).  The draws and
+all three steps run in the tree-sampler op (``kernels/tree_sampler``):
+on the card one kernel launch per chunk, handed the chunk key, which
+draws its own threefry bits; on the CPU ``prepare_draws`` and the plain
+twin.  The sampler reads only ``tree_signature`` fields of the tree.
 """
 from __future__ import annotations
 
 import torch
 
-from ..kernels.tree_sampler.ops import (build_schedule, prepare_draws,
-                                        tree_sampler)
+from ..kernels.tree_sampler.ops import build_schedule, tree_sampler_keyed
 from .spanning_tree import SpanningTree
 
 
@@ -51,9 +51,9 @@ def make_sample_fn(tree: SpanningTree, K: int, device):
         if on.type != device.type or device.index not in (None, on.index):
             raise ValueError(f"sampler built for {device}, graph on "
                              f"{dev['t'].device}")
-        x, uhi, ulo = prepare_draws(tree, wts, key.to(device), K)
-        edges, window = tree_sampler(schedule, tree.root, tree.num_edges,
-                                     dev, wts, x, uhi, ulo)
+        edges, window = tree_sampler_keyed(schedule, tree.root,
+                                           tree.num_edges, dev, wts,
+                                           key.to(device), K)
         return dict(edges=edges, window=window,
                     phi_v=vertex_map(tree, dev, edges))
 

@@ -8,9 +8,10 @@ keeps two dense weight arrays ``w_own[s]``/``w_prev[s]`` and every
 interval sum inside a window splits at the ``(i+1)*wd`` breakpoint into
 four gathers of exclusive prefix sums held in CSR order.
 
-The inner dep-sum (Claim 4.9) is the interval-weight op
-(``kernels/interval_weight``): the CUDA kernel on the card, its plain
-twin on the CPU.  All weight arithmetic is exact int64.
+Each dep-sum (Claim 4.9, less the Claim 4.8 exclusion) is one call of
+the dep-sum op (``kernels/interval_weight``): one launch of the CUDA
+kernel on the card, its plain twin on the CPU (``dep_sum_queries``, then
+two interval-weight sums).  All weight arithmetic is exact int64.
 """
 from __future__ import annotations
 
@@ -19,9 +20,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..kernels.interval_weight.ops import interval_weight
+from ..kernels.interval_weight.ops import dep_sum, kernel_arrays
 from .graph import TemporalGraph
-from .spanning_tree import BEFORE, OUT, Dependency, SpanningTree
+from .spanning_tree import OUT, SpanningTree
 
 
 @dataclass
@@ -96,48 +97,6 @@ def num_windows(time_span: int, wd: int) -> int:
     return max(1, -(-int(time_span + 1) // int(wd)) - 1)
 
 
-def dep_sum_queries(dev: dict, d: Dependency, delta: int, wd: int,
-                    window: str, use_c2: bool) -> dict:
-    """The interval-weight queries of one dependency's dep-sum, all edges.
-
-    ``window`` is ``"own"`` (window ``i = floor(t/wd)``) or ``"prev"``
-    (``i - 1``).  Returns ``lam = (csr_t, p0, p1, tlo, thi, brk)`` for
-    the Lambda sum over the alpha-CSR segment of the meet vertex and,
-    with ``use_c2``, ``el = (pair_t, q0, q1, tlo, thi, brk)`` for the
-    parallel-edge exclusion (Claim 4.8).  The caller pairs each with the
-    child's prefix sums in the same order.
-    """
-    t = dev["t"]
-    meet = (dev["src"] if d.meet_end == 0 else dev["dst"]).long()
-    if d.alpha == OUT:
-        ptr, csr_t = dev["out_ptr"], dev["out_t"]
-    else:
-        ptr, csr_t = dev["in_ptr"], dev["in_t"]
-    p0 = ptr[meet]
-    p1 = ptr[meet + 1]
-    i = t // wd if window == "own" else t // wd - 1
-    if d.beta == BEFORE:
-        tlo = torch.maximum(t - delta, i * wd)
-        thi = t
-    else:
-        tlo = t
-        thi = torch.minimum(t + delta, (i + 2) * wd - 1)
-    brk = (i + 1) * wd
-    out = dict(lam=(csr_t, p0, p1, tlo, thi, brk))
-    if use_c2:
-        # parallel edges to the *other* endpoint of e (Claim 4.8)
-        if d.alpha == OUT:
-            pid = dev["pair_id"] if d.meet_end == 0 else dev["rev_pair_id"]
-        else:
-            pid = dev["rev_pair_id"] if d.meet_end == 0 else dev["pair_id"]
-        pid = pid.long()
-        pid0 = pid.clamp(min=0)
-        q0 = dev["pair_ptr"][pid0]
-        q1 = torch.where(pid >= 0, dev["pair_ptr"][pid0 + 1], q0)
-        out["el"] = (dev["pair_t"], q0, q1, tlo, thi, brk)
-    return out
-
-
 def make_preprocess_fn(tree: SpanningTree, use_c2: bool = True):
     """Build ``fn(dev, delta, wd, q) -> weight dict``.
 
@@ -150,17 +109,6 @@ def make_preprocess_fn(tree: SpanningTree, use_c2: bool = True):
     order = list(reversed(tree.topo_down))   # children before parents
     alpha_of = access_alpha(tree)
     root = tree.root
-
-    def dep_sum(dev, delta, wd, w_csr, w_pair, d, window):
-        qs = dep_sum_queries(dev, d, delta, wd, window, use_c2)
-        pso, psp = w_csr[d.child]
-        csr_t, *lam_q = qs["lam"]
-        lam = interval_weight(csr_t, pso, psp, *lam_q)
-        if not use_c2:
-            return lam
-        ppo, ppp = w_pair[d.child]
-        pair_t, *el_q = qs["el"]
-        return lam - interval_weight(pair_t, ppo, ppp, *el_q)
 
     def fn(dev, delta, wd, q):
         delta, wd, q = int(delta), int(wd), int(q)
@@ -175,12 +123,19 @@ def make_preprocess_fn(tree: SpanningTree, use_c2: bool = True):
         w_prev: list = [None] * S
         w_csr: dict = {}
         w_pair: dict = {}
+        arrays: dict = {}   # the dep-sum's gathered inputs, per kind
         for s in order:
             wo = torch.ones(m, dtype=torch.int64, device=t.device)
             wp = torch.ones(m, dtype=torch.int64, device=t.device)
             for d in tree.deps[s]:
-                wo = wo * dep_sum(dev, delta, wd, w_csr, w_pair, d, "own")
-                wp = wp * dep_sum(dev, delta, wd, w_csr, w_pair, d, "prev")
+                ps_csr = w_csr[d.child]
+                ps_pair = w_pair[d.child] if use_c2 else None
+                kind = (d.meet_end, d.alpha)
+                if kind not in arrays:
+                    arrays[kind] = kernel_arrays(dev, d)
+                args = (delta, wd, ps_csr, ps_pair, arrays[kind])
+                wo = wo * dep_sum(dev, d, "own", *args)
+                wp = wp * dep_sum(dev, d, "prev", *args)
             wo = torch.where(own_ok, wo, 0)
             wp = torch.where(prev_ok, wp, 0)
             w_own[s], w_prev[s] = wo, wp

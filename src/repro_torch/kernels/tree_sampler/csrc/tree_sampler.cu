@@ -1,47 +1,64 @@
-// Tree-sampler kernel: all of TIMEST Alg. 3 for one sample per thread.
+// Tree-sampler kernel: all of TIMEST Alg. 3, drawing its own bits.
 //
 // Replaces the Pallas kernel repro/kernels/tree_sampler/kernel.py
-// (_sampler_kernel, launched by tree_sampler_call; host side in ops.py).
-// Per sample k, on precomputed draws (x[k], uhi[k, :], ulo[k, :]):
+// (_sampler_kernel, launched by tree_sampler_call; host side in ops.py),
+// together with the draws the host made for it (ops.prepare_draws).  For
+// sample k of a chunk:
 //
-//   1. window  i ~ W_i / W     bisect the window-prefix CDF ps_win;
-//   2. center  e0 ~ w_root     two-piece (own|prev) inverse CDF over the
-//                              window's edge range;
+//   0. draws     jax's threefry bits of the chunk key, bit for bit
+//                (threefry.cuh): keys = split(key, S + 2); the target
+//                x = randint(keys[0], K, max(W, 1))[k] and, per child c,
+//                the two 64-bit draws of randint(keys[2 + c], ...)[k];
+//   1. window    i ~ W_i / W: bisect the window-prefix CDF ps_win;
+//   2. center    e0 ~ w_root: two-piece (own|prev) inverse CDF over the
+//                window's edge range;
 //   3. children, along the static top-down schedule: bisect the meet
 //      vertex's alpha-CSR segment to the window-truncated time bounds,
 //      exclude the parallel-edge pair list (Claim 4.8) by a nested
-//      bisection into its position sub-sequence, draw the target with
-//      jax's randint reduction against the in-kernel span, and find the
-//      child edge by the generalized inverse CDF.
+//      bisection into its position sub-sequence, reduce the child's draws
+//      against the in-kernel span with jax's randint, and find the child
+//      edge by the generalized inverse CDF.
 //
-// Everything is int64 (prefixes, times, targets) and the draws are
-// uint64, so the kernel is exact at every graph size: the Pallas kernel
-// ran f32 prefixes behind a 2^24 gate and never ran on a real graph.
-// randint_from_bits is jax's _randint reduction in unsigned long long,
-// which wraps mod 2^64 exactly as jax's uint64 does.
+// Everything is int64 (prefixes, times, targets) and the draws uint64,
+// so the kernel is exact at every graph size; randint_from_bits wraps
+// mod 2^64 as jax's uint64 does (mult is 0 once W > 2^32).
 //
 // What bounds it on the H100: memory latency.  A sample is a chain of
-// dependent random 8 B gathers (per child: ~3 log2(deg) time words, then
-// ~log2(deg) steps of the inverse CDF each doing a nested log2(pairs)
-// bisection and four prefix reads); the bytes it must move are small
-// (draws 8 + 16 S, outputs 8 (S + 1), plus the gathered words), so at
-// K = 8192 the kernel is bound by the depth of that chain, not by the
-// 3.35 TB/s of HBM.
+// dependent random 8 B gathers (per child: three searches of the meet
+// vertex's segment, three of its pair list, then the inverse CDF, whose
+// every step runs a nested search of the pair list and reads four
+// prefix words); the bytes it must move are small (the key, outputs
+// 8 (S + 1) B a sample, plus the gathered words), so at K = 8192 it is
+// bound by the depth of that chain, not by the 3.35 TB/s of HBM.
 //
-// Design: one thread per sample (128 per block), the graph and weights
-// read straight from device memory (the ~GB of prefixes do not fit in
-// shared memory; the 50 MB L2 holds the hot segments), the schedule of
-// at most MAX_STEPS (parent, child, meet_end, alpha, beta, use_rev) steps
-// passed by value in the kernel argument, and the bisection body shared
-// with the interval-weight kernel (bisect.cuh).  Warp-cooperative search
-// and more samples in flight are left for a later change.
+// Design:
+//   * A group of G = 8 lanes per sample (8 timed faster than 16 and 32
+//     on an H100: fewer lanes keep more samples in flight and waste fewer
+//     probes on short segments).  Each search and each inverse CDF runs
+//     G-ary (bisect.cuh): the lanes
+//     probe G pivots at once, each evaluating its own g(p), with its own
+//     nested pair search, and a ballot picks the sub-interval, so the
+//     chain is about log(G + 1) / log(2) times shorter than bisection.
+//     Every search has a unique answer, so the order changes no bit.
+//   * The draws cost no memory traffic: the block derives the chunk's
+//     keys once into shared memory (S + 2 threefry blocks and their
+//     splits) and each lane then computes its sample's bits from the
+//     sample index as counter.  The key and W are read on the device, so
+//     the host waits on nothing.
+//   * The graph and weights are read straight from device memory (the GB
+//     of prefixes do not fit in shared memory; the 50 MB L2 holds the hot
+//     segments); the schedule of at most MAX_STEPS (parent, child,
+//     meet_end, alpha, beta, use_rev) steps is passed by value.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "bisect.cuh"
+#include "threefry.cuh"
 
 constexpr int MAX_STEPS = 15;
 constexpr int MAX_EDGES = MAX_STEPS + 1;
+constexpr int THREADS = 256;
+constexpr int G = 8;   // lanes per sample
 
 struct Step {
   int64_t parent, child, meet_end, alpha, beta, use_rev;
@@ -73,30 +90,28 @@ struct SamplerArgs {
   const int64_t* ps_acc_prev;
   const int64_t* ps_pair_own;
   const int64_t* ps_pair_prev;
-  const int64_t* x;
-  const uint64_t* uhi;
-  const uint64_t* ulo;
+  const int64_t* W_total;  // 0-d
+  const int64_t* key;      // [2] uint32 words
   int64_t* edges;
   int64_t* window;
-  int64_t K, m, S, q, root, use_c2, it, itq, delta, wd, n_steps;
+  int64_t K, m, S, q, root, use_c2, it, delta, wd, n_steps;
   Step steps[MAX_STEPS];
 };
 
 namespace {
 
+using repro_torch::Key;
+using repro_torch::LaneGroup;
+using repro_torch::bits_at;
 using repro_torch::clamp64;
+using repro_torch::group_first_true;
+using repro_torch::group_monotone_find;
+using repro_torch::group_seg_bisect;
 using repro_torch::max64;
 using repro_torch::min64;
-using repro_torch::monotone_find;
+using repro_torch::randint_from_bits;
 using repro_torch::seg_bisect;
-
-// jax.random.randint's reduction of its two 64-bit draws against span.
-__device__ __forceinline__ uint64_t randint_from_bits(uint64_t hi, uint64_t lo,
-                                                      uint64_t span) {
-  const uint64_t c = (1ULL << 32) % span;
-  const uint64_t mult = (c * c) % span;
-  return ((hi % span) * mult + (lo % span)) % span;
-}
+using repro_torch::split_at;
 
 // C(p) = (PSo[min(p,mid)] - PSo[lo]) + (PSp[max(p,mid)] - PSp[mid]).
 struct TwoPiece {
@@ -117,18 +132,40 @@ struct TwoPiece {
   }
 };
 
-__global__ void __launch_bounds__(128)
+// jax's randint(key, ...)[k] against span, from the two keys its split
+// gives: the per-sample half of the draw schedule.
+__device__ __forceinline__ int64_t draw(Key hi_key, Key lo_key, uint64_t k,
+                                        int64_t span) {
+  return (int64_t)randint_from_bits(bits_at(hi_key, k), bits_at(lo_key, k),
+                                    (uint64_t)(span > 1 ? span : 1));
+}
+
+__global__ void __launch_bounds__(THREADS)
 tree_sampler_kernel(const SamplerArgs a) {
-  const int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= a.K) return;
+  // -- 0. the chunk's keys, once per block ---------------------------------
+  // slot 0: the two keys of the window target's randint; slot 1 + c: the
+  // two of child c's randint
+  __shared__ Key keys[1 + MAX_EDGES][2];
+  if (threadIdx.x < a.S + 2 && threadIdx.x != 1) {
+    const Key chunk = {(uint32_t)a.key[0], (uint32_t)a.key[1]};
+    const Key ki = split_at(chunk, threadIdx.x);   // split(key, S + 2)[i]
+    const int slot = threadIdx.x == 0 ? 0 : threadIdx.x - 1;
+    keys[slot][0] = split_at(ki, 0);
+    keys[slot][1] = split_at(ki, 1);
+  }
+  __syncthreads();
+
+  const LaneGroup<G> grp;
+  const int64_t k = ((int64_t)blockIdx.x * THREADS + threadIdx.x) / G;
+  if (k >= a.K) return;   // whole groups leave together
   const int64_t m = a.m;
   const int64_t nmax = m - 1;   // last index of the [m] arrays
   const int64_t pmax = m;       // last index of the [m + 1] prefixes
   const int it = (int)a.it;
 
   // -- 1. window ------------------------------------------------------
-  const int64_t x = a.x[k];
-  int64_t win = seg_bisect(a.ps_win, a.q, 0, a.q, x, true, (int)a.itq) - 1;
+  const int64_t x = draw(keys[0][0], keys[0][1], k, *a.W_total);
+  int64_t win = group_seg_bisect(grp, a.ps_win, a.q, 0, a.q, x, true) - 1;
   win = clamp64(win, 0, a.q - 1);
   const int64_t resid = x - a.ps_win[win];
 
@@ -138,7 +175,7 @@ tree_sampler_kernel(const SamplerArgs a) {
   {
     const TwoPiece C(a.ps_acc_own + a.root * (m + 1),
                      a.ps_acc_prev + a.root * (m + 1), lo, mid, pmax);
-    edges[a.root] = monotone_find(C, lo, hi, resid, it);
+    edges[a.root] = group_monotone_find(grp, C, lo, hi, resid);
   }
 
   // -- 3. children, top-down (static schedule) --------------------------
@@ -162,48 +199,53 @@ tree_sampler_kernel(const SamplerArgs a) {
       thi = min64(te + a.delta, (win + 2) * a.wd - 1);
     }
     const int64_t brk = (win + 1) * a.wd;
-    const int64_t plo = seg_bisect(csr_t, nmax, p0, p1, tlo, false, it);
-    const int64_t phi = seg_bisect(csr_t, nmax, p0, p1, thi, true, it);
+    // phi >= plo when tlo <= thi, so phi is searched from plo then; pmid
+    // = clip(lower_bound(brk), plo, phi) is brk's bound inside [plo, phi],
+    // and phi itself when phi < plo
+    const int64_t plo = group_seg_bisect(grp, csr_t, nmax, p0, p1, tlo, false);
+    const int64_t phi = group_seg_bisect(grp, csr_t, nmax,
+                                         tlo <= thi ? plo : p0, p1, thi, true);
     const int64_t pmid =
-        min64(max64(seg_bisect(csr_t, nmax, p0, p1, brk, false, it), plo), phi);
+        phi < plo ? phi
+                  : group_seg_bisect(grp, csr_t, nmax, plo, phi, brk, false);
     const int64_t off = sp.child * (m + 1);
     const TwoPiece CL(a.ps_acc_own + off, a.ps_acc_prev + off, plo, pmid,
                       pmax);
+    const Key* ck = keys[1 + sp.child];
     int64_t pstar;
     if (a.use_c2) {
       const int64_t pid = sp.use_rev ? a.rev_pair_id[e] : a.pair_id[e];
       const int64_t pid0 = pid > 0 ? pid : 0;
       const int64_t q0 = a.pair_ptr[pid0];
       const int64_t q1 = pid >= 0 ? a.pair_ptr[pid0 + 1] : q0;
-      const int64_t qlo = seg_bisect(a.pair_t, nmax, q0, q1, tlo, false, it);
-      const int64_t qhi = seg_bisect(a.pair_t, nmax, q0, q1, thi, true, it);
-      const int64_t qmid = min64(
-          max64(seg_bisect(a.pair_t, nmax, q0, q1, brk, false, it), qlo), qhi);
+      const int64_t qlo =
+          group_seg_bisect(grp, a.pair_t, nmax, q0, q1, tlo, false);
+      const int64_t qhi = group_seg_bisect(grp, a.pair_t, nmax,
+                                           tlo <= thi ? qlo : q0, q1, thi,
+                                           true);
+      const int64_t qmid =
+          qhi < qlo ? qhi
+                    : group_seg_bisect(grp, a.pair_t, nmax, qlo, qhi, brk,
+                                       false);
       const TwoPiece CE(a.ps_pair_own + off, a.ps_pair_prev + off, qlo, qmid,
                         pmax);
+      // each lane's own nested search: the lanes of a group probe
+      // different p
       auto g = [&](int64_t p) {
         const int64_t cross = seg_bisect(pair_pos, nmax, qlo, qhi, p, false, it);
         return CL(p) - CE(cross);
       };
-      const int64_t wx = g(phi);
-      const uint64_t span = (uint64_t)(wx > 1 ? wx : 1);
-      const int64_t rx =
-          (int64_t)randint_from_bits(a.uhi[k * a.S + sp.child],
-                                     a.ulo[k * a.S + sp.child], span);
-      pstar = monotone_find(g, plo, phi, rx, it);
+      const int64_t rx = draw(ck[0], ck[1], k, g(phi));
+      pstar = group_monotone_find(grp, g, plo, phi, rx);
     } else {
-      const int64_t wx = CL(phi);
-      const uint64_t span = (uint64_t)(wx > 1 ? wx : 1);
-      const int64_t rx =
-          (int64_t)randint_from_bits(a.uhi[k * a.S + sp.child],
-                                     a.ulo[k * a.S + sp.child], span);
-      pstar = monotone_find(CL, plo, phi, rx, it);
+      const int64_t rx = draw(ck[0], ck[1], k, CL(phi));
+      pstar = group_monotone_find(grp, CL, plo, phi, rx);
     }
     edges[sp.child] = csr_edge[clamp64(pstar, 0, nmax)];
   }
 
-  for (int s = 0; s < a.S; ++s) a.edges[k * a.S + s] = edges[s];
-  a.window[k] = win;
+  for (int s = grp.rank; s < a.S; s += G) a.edges[k * a.S + s] = edges[s];
+  if (grp.rank == 0) a.window[k] = win;
 }
 
 }  // namespace
@@ -212,9 +254,8 @@ extern "C" int tree_sampler_launch(const SamplerArgs* args, void* stream) {
   if (args->n_steps > MAX_STEPS || args->S > MAX_EDGES) {
     return (int)cudaErrorInvalidValue;
   }
-  const int threads = 128;
-  const int64_t blocks = (args->K + threads - 1) / threads;
-  tree_sampler_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+  const int64_t blocks = (args->K * G + THREADS - 1) / THREADS;
+  tree_sampler_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
       *args);
   return (int)cudaGetLastError();
 }

@@ -4,13 +4,17 @@
 key schedule as the JAX reference sampler: ``keys = split(key, S + 2)``;
 ``keys[0]`` gives the window/center target ``x = randint(keys[0], K, W)``
 and child ``c`` gets the two raw 64-bit draws that
-``randint(keys[2 + c], ...)`` would split off internally, so the kernel
+``randint(keys[2 + c], ...)`` would split off internally, so the sampler
 can replay the modular reduction against its in-kernel span.
+``draws_at`` gives the same draws one sample index at a time, as the
+CUDA kernel derives them from the chunk key.
 
-``tree_sampler`` takes the plain torch version (``ref.py``) for CPU
-tensors and launches ``csrc/tree_sampler.cu`` for CUDA tensors; on any
-other device, or on inputs the kernel does not take, it raises.
-``tree_sampler.launches`` counts the kernel launches.
+``tree_sampler_keyed`` samples a chunk from its key: ``prepare_draws``
+and the plain torch version (``ref.py``) for CPU tensors, one launch of
+``csrc/tree_sampler.cu`` (which draws its own bits) for CUDA tensors; on
+any other device, or on inputs the kernel does not take, it raises.
+``tree_sampler_keyed.launches`` counts the kernel launches.
+``tree_sampler`` runs the plain version on given draws (CPU only).
 
 Structural-fields-only contract: this module reads only the fields of
 ``core.spanning_tree.tree_signature`` (root, deps, topo_down,
@@ -53,11 +57,38 @@ def prepare_draws(tree: SpanningTree, wts, key: torch.Tensor, K: int):
     Returns ``(x [K], uhi [K, S], ulo [K, S])`` int64; ``uhi``/``ulo``
     hold uint64 bit patterns and the root's column is zero.
     """
-    S = tree.num_edges
+    return _prepare_draws(tree.root, tree.num_edges, wts, key, K)
+
+
+def _prepare_draws(root: int, S: int, wts, key: torch.Tensor, K: int):
     keys = rng.split(key, S + 2)
     x = rng.randint(keys[0], K, wts.W_total.clamp(min=1))
     # one threefry pass for every child's (hi, lo) pair
     draws = rng.bits(rng.split(keys[2:], 2), K)          # [S, 2, K]
+    draws[root] = 0
+    return x, draws[:, 0].T.contiguous(), draws[:, 1].T.contiguous()
+
+
+def draws_at(tree: SpanningTree, wts, key: torch.Tensor, idx: torch.Tensor):
+    """The rows ``idx`` (int64 ``[N]``) of ``prepare_draws(tree, wts, key,
+    K)``, each computed from its own sample index, as the CUDA kernel
+    derives them.
+
+    The schedule: the chunk's keys ``keys = split(key, S + 2)`` and
+    their splits ``split(keys[0], 2)`` and ``split(keys[2 + c], 2)`` are
+    made once (per block, in the kernel); sample ``k`` then takes
+    ``x = randint_from_bits(bits(kx0)[k], bits(kx1)[k], max(W, 1))`` and,
+    for child ``c``, ``uhi = bits(kc0)[k]``, ``ulo = bits(kc1)[k]``,
+    where ``bits(key)[k]`` is the threefry block at counter ``k``
+    (``rng.bits_at``).  Returns ``(x [N], uhi [N, S], ulo [N, S])``.
+    """
+    S = tree.num_edges
+    keys = rng.split(key, S + 2)
+    kx = rng.split(keys[0], 2)
+    span = wts.W_total.clamp(min=1).expand(idx.shape)
+    x = rng.randint_from_bits(rng.bits_at(kx[0], idx),
+                              rng.bits_at(kx[1], idx), span)
+    draws = rng.bits_at(rng.split(keys[2:], 2), idx)     # [S, 2, N]
     draws[tree.root] = 0
     return x, draws[:, 0].T.contiguous(), draws[:, 1].T.contiguous()
 
@@ -72,10 +103,9 @@ _GRAPH = ("t", "src", "dst", "out_ptr", "in_ptr", "out_t", "in_t",
           "pair_t", "pair_id", "rev_pair_id")
 _WEIGHTS = ("ps_win", "win_lo", "win_mid", "win_hi", "ps_acc_own",
             "ps_acc_prev", "ps_pair_own", "ps_pair_prev")
-_DRAWS = ("x", "uhi", "ulo")
 _OUT = ("edges", "window")
-_SCALARS = ("K", "m", "S", "q", "root", "use_c2", "it", "itq", "delta",
-            "wd", "n_steps")
+_SCALARS = ("K", "m", "S", "q", "root", "use_c2", "it", "delta", "wd",
+            "n_steps")
 _I32 = ("src", "dst", "out_edge", "in_edge", "pair_id", "rev_pair_id")
 
 
@@ -83,25 +113,20 @@ class _SamplerArgs(ctypes.Structure):
     """Mirror of ``SamplerArgs`` in ``csrc/tree_sampler.cu``."""
 
     _fields_ = ([(n, ctypes.c_void_p)
-                 for n in _GRAPH + _WEIGHTS + _DRAWS + _OUT]
+                 for n in _GRAPH + _WEIGHTS + ("W_total", "key") + _OUT]
                 + [(n, ctypes.c_int64) for n in _SCALARS]
                 + [("steps", _Step * MAX_STEPS)])
 
 
-def _check_inputs(schedule, S, dev, wts, x, uhi, ulo):
-    device = x.device
+def _check_inputs(schedule, S, dev, wts, device, extra):
     m = dev["t"].shape[0]
-    K = x.shape[0]
     tensors = dict({n: dev[n] for n in _GRAPH},
-                   **{n: getattr(wts, n) for n in _WEIGHTS},
-                   x=x, uhi=uhi, ulo=ulo)
+                   **{n: getattr(wts, n) for n in _WEIGHTS}, **extra)
     for name, v in tensors.items():
         want = torch.int32 if name in _I32 else torch.int64
         if v.device != device or v.dtype != want:
             raise ValueError(f"tree_sampler: {name} must be {want} on "
                              f"{device}, got {v.dtype} on {v.device}")
-    if uhi.shape != (K, S) or ulo.shape != (K, S):
-        raise ValueError("tree_sampler: uhi/ulo must be [K, S]")
     if wts.ps_acc_own.shape != (S, m + 1):
         raise ValueError("tree_sampler: prefixes must be [S, m+1]")
     if len(schedule) > MAX_STEPS or len(schedule) != S - 1:
@@ -111,15 +136,42 @@ def _check_inputs(schedule, S, dev, wts, x, uhi, ulo):
 
 def tree_sampler(schedule: tuple, root: int, S: int, dev: dict, wts, x,
                  uhi, ulo):
-    """Alg. 3 for ``K = len(x)`` samples on precomputed draws; returns
-    ``(edges [K, S], window [K])`` int64 (see the kernel source)."""
-    _check_inputs(schedule, S, dev, wts, x, uhi, ulo)
-    device = x.device
+    """Alg. 3 for ``K = len(x)`` samples on given draws (``prepare_draws``)
+    with the plain version; returns ``(edges [K, S], window [K])`` int64.
+
+    CPU tensors only: on the card the kernel draws its own bits
+    (``tree_sampler_keyed``)."""
+    K = x.shape[0]
+    _check_inputs(schedule, S, dev, wts, x.device,
+                  dict(x=x, uhi=uhi, ulo=ulo))
+    if uhi.shape != (K, S) or ulo.shape != (K, S):
+        raise ValueError("tree_sampler: uhi/ulo must be [K, S]")
+    if x.device.type != "cpu":
+        raise ValueError(f"tree_sampler: no kernel for device {x.device} "
+                         "(on the card the kernel draws its own bits: "
+                         "tree_sampler_keyed)")
+    return tree_sampler_ref(schedule, root, S, dev, wts, x, uhi, ulo)
+
+
+def tree_sampler_keyed(schedule: tuple, root: int, S: int, dev: dict, wts,
+                       key: torch.Tensor, K: int):
+    """Alg. 3 for K samples drawn from the chunk key ``key`` (``[2]``
+    int64, on the graph's device); returns ``(edges [K, S], window [K])``
+    int64.
+
+    CPU tensors: ``prepare_draws`` then the plain version.  CUDA tensors:
+    one launch of the kernel, which draws the same bits itself.
+    """
+    device = key.device
+    _check_inputs(schedule, S, dev, wts, device,
+                  dict(W_total=wts.W_total, key=key))
+    if key.shape != (2,) or K < 0:
+        raise ValueError("tree_sampler: key must be [2] and K >= 0")
     if device.type == "cpu":
-        return tree_sampler_ref(schedule, root, S, dev, wts, x, uhi, ulo)
+        return tree_sampler_ref(schedule, root, S, dev, wts,
+                                *_prepare_draws(root, S, wts, key, K))
     if device.type != "cuda":
         raise ValueError(f"tree_sampler: no kernel for device {device}")
-    K = x.shape[0]
     m = dev["t"].shape[0]
     edges = torch.empty((K, S), dtype=torch.int64, device=device)
     window = torch.empty(K, dtype=torch.int64, device=device)
@@ -127,13 +179,12 @@ def tree_sampler(schedule: tuple, root: int, S: int, dev: dict, wts, x,
         return edges, window
     keep = dict({n: dev[n].contiguous() for n in _GRAPH},
                 **{n: getattr(wts, n).contiguous() for n in _WEIGHTS},
-                x=x.contiguous(), uhi=uhi.contiguous(),
-                ulo=ulo.contiguous(), edges=edges, window=window)
+                W_total=wts.W_total, key=key.contiguous(), edges=edges,
+                window=window)
     args = _SamplerArgs(
         **{n: v.data_ptr() for n, v in keep.items()},
-        K=K, m=m, S=S, q=wts.q, root=root,
-        use_c2=int(wts.use_c2), it=bisect_iters(m),
-        itq=bisect_iters(wts.q), delta=wts.delta, wd=wts.wd,
+        K=K, m=m, S=S, q=wts.q, root=root, use_c2=int(wts.use_c2),
+        it=bisect_iters(m), delta=wts.delta, wd=wts.wd,
         n_steps=len(schedule))
     for i, step in enumerate(schedule):
         args.steps[i] = _Step(*step)
@@ -143,8 +194,8 @@ def tree_sampler(schedule: tuple, root: int, S: int, dev: dict, wts, x,
     with torch.cuda.device(device):
         rc = fn(ctypes.byref(args), torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "tree_sampler")
-    tree_sampler.launches += 1
+    tree_sampler_keyed.launches += 1
     return edges, window
 
 
-tree_sampler.launches = 0
+tree_sampler_keyed.launches = 0

@@ -10,18 +10,20 @@ installed.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import pytest
 import torch
 
 from repro_torch import estimate, get_motif, powerlaw_temporal_graph
 from repro_torch.core import rng
 from repro_torch.core.spanning_tree import candidate_trees
-from repro_torch.core.weights import dep_sum_queries, preprocess
-from repro_torch.kernels.interval_weight.ops import interval_weight
-from repro_torch.kernels.interval_weight.ref import interval_weight_ref
+from repro_torch.core.weights import preprocess
+from repro_torch.kernels.interval_weight.ops import dep_sum
+from repro_torch.kernels.interval_weight.ref import dep_sum_ref
 from repro_torch.kernels.tree_sampler.ops import (build_schedule,
                                                   prepare_draws,
-                                                  tree_sampler)
+                                                  tree_sampler_keyed)
 from repro_torch.kernels.tree_sampler.ref import tree_sampler_ref
 
 pytestmark = pytest.mark.cuda
@@ -40,31 +42,48 @@ def cuda_device():
 
 @pytest.mark.parametrize("motif", ["M5-3", "M4-2"])
 @pytest.mark.parametrize("use_c2", [True, False])
-def test_kernels_equal_plain_versions(cuda_device, motif, use_c2):
+@pytest.mark.parametrize("use_c3", [True, False])
+def test_kernels_equal_plain_versions(cuda_device, motif, use_c2, use_c3):
+    """Both TIMEST kernels bit-equal to their plain versions: the dep-sum
+    for every dependency and window of the DP, the keyed sampler at K = 1
+    and at K not a multiple of the block; C3 off leaves one window
+    (q = 1).  Each launch counts once."""
     g = powerlaw_temporal_graph(**GRAPH)
     tree = candidate_trees(get_motif(motif))[0]
     dev = g.device_arrays(cuda_device)
-    wts = preprocess(g, tree, 2000, dev=dev, use_c2=use_c2)
-    for d in tree.deps[tree.root]:
-        for window in ("own", "prev"):
-            qs = dep_sum_queries(dev, d, wts.delta, wts.wd, window, True)
-            csr_t, *q = qs["lam"]
-            args = (csr_t, wts.ps_acc_own[d.child].contiguous(),
-                    wts.ps_acc_prev[d.child].contiguous(), *q)
-            n = interval_weight.launches
-            assert torch.equal(interval_weight(*args),
-                               interval_weight_ref(*args))
-            assert interval_weight.launches == n + 1
-    x, uhi, ulo = prepare_draws(tree, wts, rng.PRNGKey(1).to(cuda_device),
-                                777)
-    args = (build_schedule(tree), tree.root, tree.num_edges, dev, wts, x,
-            uhi, ulo)
-    n = tree_sampler.launches
-    e_k, w_k = tree_sampler(*args)
-    e_r, w_r = tree_sampler_ref(*args)
-    torch.cuda.synchronize()
-    assert tree_sampler.launches == n + 1
-    assert torch.equal(e_k, e_r) and torch.equal(w_k, w_r)
+    wts = preprocess(g, tree, 2000, dev=dev, use_c2=use_c2, use_c3=use_c3)
+    assert (wts.q == 1) == (not use_c3)
+    for s in tree.topo_down:
+        for d in tree.deps[s]:
+            c = d.child
+            ps_csr = (wts.ps_acc_own[c], wts.ps_acc_prev[c])
+            ps_pair = ((wts.ps_pair_own[c], wts.ps_pair_prev[c]) if use_c2
+                       else None)
+            for window in ("own", "prev"):
+                args = (dev, d, window, wts.delta, wts.wd, ps_csr, ps_pair)
+                n = dep_sum.launches
+                got = dep_sum(*args)
+                assert dep_sum.launches == n + 1
+                assert torch.equal(got, dep_sum_ref(*args))
+    schedule = build_schedule(tree)
+    args = (schedule, tree.root, tree.num_edges, dev, wts)
+    key = rng.fold_in(rng.PRNGKey(1), 3).to(cuda_device)
+    for K in (1, 777, 4096 + 5):
+        want = tree_sampler_ref(*args, *prepare_draws(tree, wts, key, K))
+        n = tree_sampler_keyed.launches
+        got = tree_sampler_keyed(*args, key, K)
+        torch.cuda.synchronize()
+        assert tree_sampler_keyed.launches == n + 1
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    other = tree_sampler_keyed(*args, rng.PRNGKey(2).to(cuda_device), 777)
+    assert not torch.equal(other[0], want[0][:777])
+    # a window total past 2^32: jax's randint reduction wraps (mult = 0)
+    wide = dataclasses.replace(
+        wts, W_total=torch.tensor(2 ** 40 + 7, device=cuda_device))
+    args = (schedule, tree.root, tree.num_edges, dev, wide)
+    got = tree_sampler_keyed(*args, key, 777)
+    want = tree_sampler_ref(*args, *prepare_draws(tree, wide, key, 777))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("motif,k,seed", [("M5-3", 1024, 0),

@@ -100,37 +100,52 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
 
 
 def test_wrappers_raise_on_devices_without_a_kernel():
-    """``meta`` tensors stand in for a non-CPU request that cannot run."""
-    from repro_torch.kernels.interval_weight.ops import interval_weight
+    """``meta`` tensors stand in for a non-CPU request that cannot run.
+    The explicit-query and given-draws ops take CPU tensors only, and
+    the two kernel wrappers (dep-sum, keyed sampler) raise without
+    counting a launch."""
+    from repro_torch.kernels.interval_weight.ops import (dep_sum,
+                                                         interval_weight)
     from repro_torch.kernels.tree_sampler.ops import (build_schedule,
-                                                      tree_sampler)
+                                                      tree_sampler,
+                                                      tree_sampler_keyed)
     from repro_torch import get_motif
     from repro_torch.core.spanning_tree import candidate_trees
     from repro_torch.core.weights import preprocess
 
     meta = [torch.empty(n, dtype=torch.int64, device="meta")
             for n in (10, 11, 11, 4, 4, 4, 4, 4)]
-    before = interval_weight.launches
     with pytest.raises(ValueError, match="no kernel for device"):
         interval_weight(*meta)
-    assert interval_weight.launches == before
 
     g = _small_graph()
     tree = candidate_trees(get_motif("M4-2"))[0]
     dev = g.device_arrays("cpu")
     wts = preprocess(g, tree, 500, dev=dev, device="cpu")
     to_meta = {k: v.to("meta") for k, v in dev.items()}
+    d = tree.deps[tree.root][0]
+    ps = (wts.ps_acc_own[d.child].to("meta"),
+          wts.ps_acc_prev[d.child].to("meta"))
+    before = dep_sum.launches
+    with pytest.raises(ValueError, match="no kernel for device"):
+        dep_sum(to_meta, d, "own", 500, 500, ps, ps)
+    assert dep_sum.launches == before
+
     for f in ("ps_win", "win_lo", "win_mid", "win_hi", "ps_acc_own",
-              "ps_acc_prev", "ps_pair_own", "ps_pair_prev"):
+              "ps_acc_prev", "ps_pair_own", "ps_pair_prev", "W_total"):
         setattr(wts, f, getattr(wts, f).to("meta"))
     S = tree.num_edges
     x = torch.zeros(8, dtype=torch.int64, device="meta")
     u = torch.zeros((8, S), dtype=torch.int64, device="meta")
-    before = tree_sampler.launches
+    schedule = build_schedule(tree)
     with pytest.raises(ValueError, match="no kernel for device"):
-        tree_sampler(build_schedule(tree), tree.root, S, to_meta, wts, x,
-                     u, u)
-    assert tree_sampler.launches == before
+        tree_sampler(schedule, tree.root, S, to_meta, wts, x, u, u)
+    before = tree_sampler_keyed.launches
+    with pytest.raises(ValueError, match="no kernel for device"):
+        tree_sampler_keyed(schedule, tree.root, S, to_meta, wts,
+                           torch.zeros(2, dtype=torch.int64, device="meta"),
+                           8)
+    assert tree_sampler_keyed.launches == before
 
 
 def test_wrappers_reject_mixed_devices_and_dtypes():
@@ -152,14 +167,13 @@ def _wrapper(path: Path, name: str) -> ast.FunctionDef:
                 if isinstance(n, ast.FunctionDef) and n.name == name)
 
 
-# (kernel, its plain version, the function that launches, the library
+# (wrapper, its plain version, the function that launches, the library
 # name it builds and checks): flash attention and segment_matmul dispatch
 # between two kernels each, so their wrappers hand the name to one
-# launching function
-LAUNCHERS = [("interval_weight", "interval_weight_ref", "interval_weight",
-              "'interval_weight'"),
-             ("tree_sampler", "tree_sampler_ref", "tree_sampler",
-              "'tree_sampler'"),
+# launching function; a wrapper lives in kernels/<its kernel>/ops.py
+LAUNCHERS = [("dep_sum", "dep_sum_ref", "dep_sum", "'interval_weight'"),
+             ("tree_sampler_keyed", "tree_sampler_ref",
+              "tree_sampler_keyed", "'tree_sampler'"),
              ("flash_attention", "flash_attention_ref", "_launch", "kernel"),
              ("segment_matmul", "segment_matmul_ref", "_launch", "kernel"),
              ("embedding_bag", "embedding_bag_ref", "embedding_bag",
@@ -173,7 +187,9 @@ def test_cuda_path_launches_or_raises(kernel, ref, launcher, lib):
     "cpu"`` test, and otherwise builds/loads its library, launches,
     checks the launch's error code and counts it (itself, or through
     the one launching function it calls, which has no ``try`` either)."""
-    ops = PORT / "kernels" / kernel / "ops.py"
+    module = {"dep_sum": "interval_weight",
+              "tree_sampler_keyed": "tree_sampler"}.get(kernel, kernel)
+    ops = PORT / "kernels" / module / "ops.py"
     fn = _wrapper(ops, kernel)
     assert not any(isinstance(n, ast.Try) for n in ast.walk(fn))
     ref_calls = [n for n in ast.walk(fn) if isinstance(n, ast.Call)
