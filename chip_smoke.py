@@ -8,9 +8,18 @@ version on the card at the shapes of its main path, and drives the
 port's two paths:
 
 * TIMEST: card against CPU on a small graph, then one full-size estimate
-  through ``repro_torch.estimate``, shown to launch the dep-sum
-  (interval-weight) kernel once per dep-sum and the tree-sampler kernel,
-  which draws its own threefry bits, once per chunk;
+  through ``repro_torch.estimate``, the one-shot-Session shim (``api.
+  Session`` -> ``core.batch.BatchPlanner`` -> ``core.engine.run_plan``),
+  shown to launch the dep-sum (interval-weight) kernel once per dep-sum
+  and the tree-sampler kernel, which draws its own threefry bits, once
+  per chunk;
+* the TIMEST estimation service at full size: a tree cohort of three
+  motifs x two seeds through one ``Session.submit_many``, shown to
+  launch the sampler once per chunk for both seed streams, every cell
+  equal to its solo ``estimate()``; a checkpoint written at k / 2 and
+  resumed to k; three NDJSON requests through ``serve_loop``; and, on a
+  mid-size graph, the estimate's relative error against ``count_exact``
+  (a reading);
 * LM serving: card against CPU for the Gemma-2 smoke config, then
   Gemma-2-27B at full width (random bf16 weights from seed 0): a
   2 x 8192-token prefill and 16 greedy decode steps, shown to go through
@@ -35,7 +44,8 @@ device, or outside a checkout of the repository, it fails at once.
 
 TIMEST full size: a power-law temporal graph at the scale of SNAP's
 wiki-talk-temporal (1,140,149 nodes, 7,833,140 temporal edges, 2,320 days
-in seconds), motif M5-3, delta 3600, k = 2^20, chunk 8192, seed 0.
+in seconds), motif M5-3, delta 3600, k = 2^20, chunk 8192, seed 0.  The
+service phase runs on the same graph and delta.
 """
 from __future__ import annotations
 
@@ -59,6 +69,14 @@ SMALL_CASES = (("M5-3", 3000, 1024, 0, (412857, 20, 446)),
 # wider windows for the full graph until W passes 2^32 (a day, a week,
 # a month): the tree sampler's draws then wrap as jax's do
 WIDE_DELTAS = (86400, 604800, 2592000)
+# the service phase's tree cohort (one min-W tree signature on the full
+# graph at delta 3600, as on the small graph at 3000) and its seeds
+COHORT, COHORT_SEEDS = ("M5-2", "M5-3", "M5-4"), (0, 1)
+# the oracle reading: SNAP wiki-talk's edge density (7.8 M edges over
+# 2.0e8 s) at 200 k edges, and (motif, delta) cases whose exact count
+# takes seconds there (count_exact: 6 s and 5 s on a CPU core)
+ORACLE_GRAPH = "powerlaw:n=20000,m=200000,alpha=2.1,time_span=5120000,seed=0"
+ORACLE_CASES = (("M4-2", 3600), ("M5-2", 3600))
 FIELDS = ("estimate", "W", "k", "cnt2_sum", "valid", "fail_vmap",
           "fail_delta", "fail_order", "overflow", "tree_edges")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
@@ -129,6 +147,22 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_synced_s(fn, reps: int) -> float:
+    """Mean host wall time of ``fn()`` with the device synced before and
+    after each call (for work that launches many kernels and reads back
+    on the host), after one warm-up call."""
+    import torch
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        total += time.perf_counter() - t0
+    return total / reps
 
 
 def bisect_steps(n):
@@ -449,7 +483,9 @@ def phase_tree_sampler(g, dev, wts, tree, chunk: int) -> dict:
     one chunk of the small graph (W < 2^32, where jax's randint reduction
     does not wrap) and one of the full graph at the first of
     ``WIDE_DELTAS`` whose W passes 2^32 (``mult`` wraps to 0); a second
-    key must move the output."""
+    key must move the output.  One launch on the two keys stacked (a
+    cohort's two seed streams) must equal the two solo launches, and is
+    timed beside its bound."""
     import torch
     from repro_torch.core import rng
     from repro_torch.core.spanning_tree import candidate_trees
@@ -460,11 +496,24 @@ def phase_tree_sampler(g, dev, wts, tree, chunk: int) -> dict:
     from repro_torch.kernels.tree_sampler.ref import tree_sampler_ref
     from repro_torch.launch.estimate import parse_graph
     key = rng.fold_in(rng.PRNGKey(0), 0).cuda()
+    key2 = rng.fold_in(rng.PRNGKey(1), 0).cuda()
     e_k, w_k, err = sampler_case(dev, wts, tree, chunk, key)
-    e_2, _, err_2 = sampler_case(dev, wts, tree, chunk,
-                                 rng.fold_in(rng.PRNGKey(0), 1).cuda())
+    e_2, w_2, err_2 = sampler_case(dev, wts, tree, chunk, key2)
     require(not torch.equal(e_k, e_2), "a second key left the sample "
             "unchanged")
+    schedule = build_schedule(tree)
+    S = tree.num_edges
+    args = (schedule, tree.root, S, dev, wts)
+    keys2 = torch.stack([key, key2])
+    before = tree_sampler_keyed.launches
+    e_j, w_j = tree_sampler_keyed(*args, keys2, chunk)
+    torch.cuda.synchronize()
+    require(tree_sampler_keyed.launches == before + 1,
+            "two streams took more than one launch")
+    require(torch.equal(e_j[0], e_k) and torch.equal(w_j[0], w_k)
+            and torch.equal(e_j[1], e_2) and torch.equal(w_j[1], w_2),
+            "a stream of the two-stream launch differs from its solo "
+            "launch")
     sg = parse_graph(SMALL_GRAPH)
     stree = candidate_trees(tree.motif, n_candidates=3,
                             roots_per_tree=2)[0]
@@ -485,10 +534,13 @@ def phase_tree_sampler(g, dev, wts, tree, chunk: int) -> dict:
     del wide
     torch.cuda.empty_cache()
 
-    schedule = build_schedule(tree)
-    S = tree.num_edges
-    args = (schedule, tree.root, S, dev, wts)
     ms = cuda_ms(lambda: tree_sampler_keyed(*args, key, chunk), reps=20)
+    ms_j2 = cuda_ms(lambda: tree_sampler_keyed(*args, keys2, chunk),
+                    reps=20)
+    bytes_j2 = (sampler_bytes(dev, wts, schedule, S, e_k, w_k)
+                + sampler_bytes(dev, wts, schedule, S, e_2, w_2))
+    bound_j2 = max(bytes_j2 / HBM_BYTES_PER_S,
+                   bytes_j2 // 8 * 4 / OPS_PER_S) * 1e3
     plain_ms = cuda_ms(lambda: tree_sampler_ref(
         *args, *prepare_draws(tree, wts, key, chunk)), reps=2)
     draws_ms = cuda_ms(lambda: prepare_draws(tree, wts, key, chunk), reps=5)
@@ -504,13 +556,16 @@ def phase_tree_sampler(g, dev, wts, tree, chunk: int) -> dict:
                bound_ms=bound,
                bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
                          >= ops / OPS_PER_S else "operations"),
-               library_ms=None)
+               library_ms=None, streams_2_ms=ms_j2,
+               streams_2_bound_ms=bound_j2)
     emit({"phase": "tree_sampler", "K": chunk, "S": S, "bytes": nbytes,
           "W": int(wts.W_total), "W_gt_2^32": int(wts.W_total) > 2 ** 32,
           "small_W": small_W, "wide_delta": wide_delta, "wide_W": wide_W,
           "equal": True, "equal_small": True, "equal_wide": True,
           "second_key_moves": True, "prepare_draws_ms": draws_ms,
-          **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms")}})
+          "streams_2_equal_solo": True, "streams_2_bytes": bytes_j2,
+          **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms",
+                                 "streams_2_ms", "streams_2_bound_ms")}})
     return rec
 
 
@@ -533,21 +588,31 @@ def phase_small() -> None:
               **{f: getattr(card, f) for f in FIELDS}})
 
 
-def phase_full(g, motif_name: str, delta: int, k: int, chunk: int) -> dict:
-    """The main path at full size, launch counters read around it: one
-    dep-sum launch per dep-sum of every candidate tree's DP, one sampler
-    launch per chunk."""
+def dep_sums_of(motifs) -> int:
+    """Dep-sums the planner runs to choose the trees of ``motifs`` at one
+    delta: two per dependency of each distinct candidate tree signature
+    (its Weights cache computes a signature once)."""
+    from repro_torch import get_motif
+    from repro_torch.core.spanning_tree import candidate_trees, tree_signature
+    trees = {tree_signature(t): t for m in motifs
+             for t in candidate_trees(get_motif(m), n_candidates=3,
+                                      roots_per_tree=2)}
+    return sum(2 * len(deps) for t in trees.values() for deps in t.deps)
+
+
+def phase_full(g, motif_name: str, delta: int, k: int, chunk: int):
+    """The main path at full size through the Session shim, launch
+    counters read around it: one dep-sum launch per dep-sum of every
+    candidate tree's DP, one sampler launch per chunk.  Returns the
+    launches and the result."""
     import math
 
     import torch
     from repro_torch import estimate, get_motif
-    from repro_torch.core.spanning_tree import candidate_trees
     from repro_torch.kernels.interval_weight.ops import dep_sum
     from repro_torch.kernels.tree_sampler.ops import tree_sampler_keyed
-    want = dict(interval_weight=sum(
-        2 * len(deps) for tree in candidate_trees(
-            get_motif(motif_name), n_candidates=3, roots_per_tree=2)
-        for deps in tree.deps), tree_sampler=-(-k // chunk))
+    want = dict(interval_weight=dep_sums_of([motif_name]),
+                tree_sampler=-(-k // chunk))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     dep_sum.launches = 0
@@ -579,8 +644,227 @@ def phase_full(g, motif_name: str, delta: int, k: int, chunk: int) -> dict:
           "tree_select_s": res.tree_select_s,
           "preprocess_s": res.preprocess_s, "sampling_s": res.sampling_s,
           "samples_per_s": res.k / res.sampling_s,
+          "sampler_backend": res.sampler_backend,
           "peak_mem_bytes": peak, "launches": launches})
+    return launches, res
+
+
+def same_result(a, b) -> bool:
+    return all(getattr(a, f) == getattr(b, f) for f in FIELDS)
+
+
+def plan_cohort(g, dev, delta: int) -> tuple:
+    """The motifs of the service phase's tree cohort and how they were
+    chosen: ``COHORT`` when the planner puts all of them on one shared
+    Weights object (one tree signature) on this graph, else the largest
+    group of registered motifs whose min-W trees share a signature (each
+    motif planned with a planner of its own, freed before the next);
+    then every group of two or more is named."""
+    import torch
+    from repro_torch import BatchPlanner, get_motif
+    from repro_torch.core.motif import MOTIFS
+    from repro_torch.core.spanning_tree import tree_signature
+    planner = BatchPlanner(g, dev=dev)
+    if len({id(planner.plan(get_motif(m), delta)[1]) for m in COHORT}) == 1:
+        return COHORT, "the planned cohort"
+    del planner
+    torch.cuda.empty_cache()
+    groups: dict = {}
+    for name in MOTIFS:
+        tree, _ = BatchPlanner(g, dev=dev).plan(get_motif(name), delta)
+        groups.setdefault(tree_signature(tree), []).append(name)
+        torch.cuda.empty_cache()
+    best = max(groups.values(), key=len)
+    require(len(best) > 1, "no two registered motifs share a tree "
+            f"signature at delta {delta}")
+    shared = sorted("/".join(v) for v in groups.values() if len(v) > 1)
+    return tuple(best), (f"{'/'.join(COHORT)} do not share one signature "
+                         "here: the largest group the planner forms (groups "
+                         f"{', '.join(shared)})")
+
+
+def phase_service(g, delta: int, k: int, chunk: int, full) -> dict:
+    """The estimation service at full size, launch counters set to 0
+    before its cohort and read after it.
+
+    * cohort: ``COHORT`` x ``COHORT_SEEDS`` through one
+      ``Session.submit_many``: one cohort of len(COHORT) lanes x 2
+      streams, the sampler launched once per chunk for both streams,
+      each cell equal to a solo ``estimate()`` (cell (M5-3, 0) to phase
+      ``full``); then, on the cohort's own tree and Weights, one chunk
+      timed by stage: the two-stream sampler and each lane's validation;
+    * checkpoint: written at k / 2, resumed to k, equal to the unbroken
+      run;
+    * serve: three NDJSON requests through ``serve_loop`` (one adaptive,
+      ``target_rse``), each ``ok`` with ``estimate()``'s integers.
+    """
+    import io
+
+    import torch
+    from repro_torch import EstimateConfig, Request, Session, estimate
+    from repro_torch import get_motif
+    from repro_torch.api import serve_loop
+    from repro_torch.core import rng
+    from repro_torch.core.engine import STATS
+    from repro_torch.core.sampler import (make_batched_sample_fn,
+                                          make_cohort_count_fn)
+    from repro_torch.kernels.interval_weight.ops import dep_sum
+    from repro_torch.kernels.tree_sampler.ops import tree_sampler_keyed
+    dev = g.device_arrays("cuda")
+    motifs, chosen = plan_cohort(g, dev, delta)
+    del dev
+    torch.cuda.empty_cache()
+    n_chunks = -(-k // chunk)
+    cells = [(m, s) for m in motifs for s in COHORT_SEEDS]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    STATS.reset()
+    dep_sum.launches = 0
+    tree_sampler_keyed.launches = 0
+    t0 = time.perf_counter()
+    session = Session(g, EstimateConfig(chunk=chunk))
+    handles = session.submit_many([Request(m, delta, k, seed=s)
+                                   for m, s in cells])
+    results = [h.result() for h in handles]
+    wall = time.perf_counter() - t0
+    launches = dict(interval_weight=dep_sum.launches,
+                    tree_sampler=tree_sampler_keyed.launches)
+    peak = torch.cuda.max_memory_allocated()
+    stats = {f: getattr(STATS, f) for f in (
+        "dispatches", "fused_dispatches", "job_windows", "tree_cohorts",
+        "cohort_motif_lanes", "samples_shared", "witness_dispatches")}
+    windows = -(-n_chunks // session.config.checkpoint_every)
+    require(all(r.fused_jobs == len(cells) for r in results),
+            f"the {len(cells)} jobs did not form one cohort: fused_jobs "
+            f"{[r.fused_jobs for r in results]}")
+    require(stats["tree_cohorts"] == windows
+            and stats["cohort_motif_lanes"] == windows * len(motifs),
+            f"not one cohort of {len(motifs)} lanes a window: {stats}")
+    want = dict(interval_weight=dep_sums_of(motifs), tree_sampler=n_chunks)
+    require(launches == want, f"cohort launches {launches}, want one "
+            f"sampler launch per chunk for all {len(COHORT_SEEDS)} streams "
+            f"and one dep-sum launch per dep-sum: {want}")
+
+    solo_wall, solos, equal_full = 0.0, [], None
+    for (m, s), res in zip(cells, results):
+        t0 = time.perf_counter()
+        solo = estimate(g, get_motif(m), delta, k, seed=s, chunk=chunk)
+        solo_wall += time.perf_counter() - t0
+        solos.append(solo)
+        require(same_result(res, solo), f"cohort cell ({m}, {s}) differs "
+                f"from its solo estimate")
+        if (m, s) == (full.motif, 0):
+            equal_full = same_result(res, full)
+            require(equal_full, f"cohort cell ({m}, 0) differs from phase "
+                    "full")
+
+    # one chunk by stage on the cohort's tree and shared Weights
+    lead = handles[0]._tree
+    trees = tuple(dict.fromkeys(h._tree for h in handles))
+    wts, dev = handles[0]._wts, session.dev
+    keys = rng.fold_in(torch.stack([rng.PRNGKey(s) for s in COHORT_SEEDS]),
+                       0).cuda()
+    bs_fn = make_batched_sample_fn(lead, chunk, "cuda")
+    samples = bs_fn(dev, wts, keys)
+    sample_ms = cuda_ms(lambda: bs_fn(dev, wts, keys), reps=10)
+    lane_ms = {}
+    for tree in trees:
+        cc = make_cohort_count_fn((tree,), chunk)
+        lane_ms[tree.motif.name] = 1e3 * host_synced_s(
+            lambda: cc(dev, wts, samples), reps=5)
+    del session, handles, samples, wts, dev
+    torch.cuda.empty_cache()
+
+    # checkpoint: k / 2, then resumed to k
+    path = ROOT / "build" / "service_checkpoint.json"
+    path.parent.mkdir(exist_ok=True)
+    path.unlink(missing_ok=True)
+    motif = get_motif(full.motif)
+    half = estimate(g, motif, delta, k // 2, seed=0, chunk=chunk,
+                    checkpoint_path=str(path))
+    done_half = json.loads(path.read_text())["chunks_done"]
+    t0 = time.perf_counter()
+    resumed = estimate(g, motif, delta, k, seed=0, chunk=chunk,
+                       checkpoint_path=str(path))
+    resume_wall = time.perf_counter() - t0
+    done = json.loads(path.read_text())["chunks_done"]
+    path.unlink()
+    require(done_half == n_chunks // 2 and done == n_chunks,
+            f"checkpoint chunks_done {done_half}, {done}")
+    require(same_result(resumed, full), "the resumed run differs from the "
+            "unbroken one")
+
+    # serve: three NDJSON requests over in-memory streams
+    lines = [dict(id=1, motif=full.motif, delta=delta, k=k, seed=0),
+             dict(id=2, motif=cells[1][0], delta=delta, k=k,
+                  seed=cells[1][1]),
+             dict(id=3, motif=full.motif, delta=delta, k=k // 4, seed=1,
+                  target_rse=0.2, k_max=k)]
+    out = io.StringIO()
+    session = Session(g, EstimateConfig(chunk=chunk,
+                                        coalesce_window_s=3600.0))
+    t0 = time.perf_counter()
+    served = serve_loop(session, infile=io.StringIO(
+        "".join(json.dumps(ln) + "\n" for ln in lines)), outfile=out)
+    serve_wall = time.perf_counter() - t0
+    answers = [json.loads(ln) for ln in out.getvalue().splitlines()]
+    require(served == 3 and len(answers) == 3
+            and all(a["ok"] for a in answers), f"serve answers {answers}")
+    del session
+    torch.cuda.empty_cache()
+    for line, ans in zip(lines, answers):
+        want = estimate(g, get_motif(line["motif"]), delta, ans["k"],
+                        seed=line["seed"], chunk=chunk)
+        got = (ans["id"], ans["estimate"], ans["W"], ans["k"], ans["valid"],
+               ans["sampler_backend"])
+        require(got == (line["id"], want.estimate, want.W, want.k,
+                        want.valid, "cuda"),
+                f"serve answer {ans} differs from estimate() {want}")
+    emit({"phase": "service", "motifs": list(motifs), "chosen": chosen,
+          "seeds": list(COHORT_SEEDS), "delta": delta, "k": k,
+          "chunk": chunk, "lanes": len(trees),
+          "streams": len(COHORT_SEEDS), "cells_equal_solo": True,
+          "cell_equal_full": equal_full, "cohort_wall_s": wall,
+          "cohort_samples_per_s": len(COHORT_SEEDS) * n_chunks * chunk
+          / results[0].sampling_s,
+          "cohort_sampling_s": results[0].sampling_s,
+          "cohort_tree_select_s": sum(r.tree_select_s for r in results),
+          "solo_wall_s": solo_wall,
+          "solo_sampling_s": sum(r.sampling_s for r in solos),
+          "launches": launches, "sampler_launches_per_cohort_chunk":
+              launches["tree_sampler"] / n_chunks,
+          "engine_stats": stats, "peak_mem_bytes": peak,
+          "chunk_sample_2_streams_ms": sample_ms,
+          "chunk_validation_ms_per_lane": lane_ms,
+          "results": [[m, s, r.W, r.cnt2_sum, r.valid, r.estimate]
+                      for (m, s), r in zip(cells, results)],
+          "checkpoint_equal_unbroken": True, "half_k": half.k,
+          "resume_wall_s": resume_wall, "serve_equal_estimate": True,
+          "serve_wall_s": serve_wall,
+          "serve_answers": [{k_: a[k_] for k_ in (
+              "id", "k", "W", "valid", "estimate", "rse", "fused_jobs",
+              "windows")} for a in answers]})
     return launches
+
+
+def phase_oracle(chunk: int, k: int) -> None:
+    """The estimate against the exact count on a mid-size graph: its
+    relative error is printed, not gated."""
+    from repro_torch import count_exact, estimate, get_motif
+    from repro_torch.launch.estimate import parse_graph
+    g = parse_graph(ORACLE_GRAPH)
+    for name, delta in ORACLE_CASES:
+        t0 = time.perf_counter()
+        exact = count_exact(g, get_motif(name), delta)
+        exact_s = time.perf_counter() - t0
+        res = estimate(g, get_motif(name), delta, k, chunk=chunk)
+        emit({"phase": "oracle", "graph": ORACLE_GRAPH, "n": g.n, "m": g.m,
+              "motif": name, "delta": delta, "k": res.k, "exact": exact,
+              "estimate": res.estimate, "rel_err":
+                  abs(res.estimate - exact) / max(exact, 1),
+              "valid": res.valid, "W": res.W, "exact_s": exact_s,
+              "estimate_s": res.tree_select_s + res.sampling_s})
 
 
 def phase_breakdown(g, motif_name: str, delta: int, chunk: int,
@@ -1752,12 +2036,20 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     phase_small()
-    launches = phase_full(g, args.motif, args.delta, args.k, args.chunk)
+    launches, full = phase_full(g, args.motif, args.delta, args.k,
+                                args.chunk)
     phase_breakdown(g, args.motif, args.delta, args.chunk)
+    service = phase_service(g, args.delta, args.k, args.chunk, full)
     for rec in recs:
         rec["launches"] = launches[rec["name"]]
-    del g
+        rec["launches_service"] = service[rec["name"]]
+    recs[1].update(cohort_streams=len(COHORT_SEEDS),
+                   launches_per_cohort_chunk=service["tree_sampler"]
+                   / -(-args.k // args.chunk))
+    del g, full
+    gc.collect()
     torch.cuda.empty_cache()
+    phase_oracle(args.chunk, args.k)
 
     fa, fa_simt = phase_flash_attention()
     torch.cuda.empty_cache()
@@ -1779,8 +2071,8 @@ def main() -> None:
     phase_recsys_small()
     eb["launches"] = phase_recsys_full()
     recs += [fa, fa_simt, sm, sm_simt, eb]
-    require(all(r["launches"] > 0 for r in recs),
-            "a kernel was launched no time on its path")
+    require(all(r["launches"] > 0 and r.get("launches_service", 1) > 0
+                for r in recs), "a kernel was launched no time on its path")
     emit({"phase": "total", "seconds": time.perf_counter() - T_START})
     emit({"kernels": recs})
     emit({"ok": True, "device": {"platform": "gpu",

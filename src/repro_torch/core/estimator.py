@@ -1,28 +1,33 @@
 """End-to-end TIMEST estimation (paper Alg. 6/7).
 
-``estimate()`` runs the whole main path on one device: Alg. 7 tree
-choice over the looseness-ranked candidates (each one preprocessed by
-the Alg. 1/2 weight DP), the Alg. 3 sampler and the Alg. 4/5 counts in
-``checkpoint_every`` windows of chunks (``core.engine``), and the Alg. 6
-unbiasing.  For the same graph, motif, delta, k, seed and chunk it
-returns the JAX reference's ``repro.core.estimator.estimate`` result
-field for field.
+``estimate()`` is the reference's compatibility shim over the session
+API (``repro_torch.api``): it wraps the graph in a one-shot ``Session``
+and submits a single ``Request``.  The session plans (Alg. 7 tree choice
+over the looseness-ranked candidates, each preprocessed by the Alg. 1/2
+weight DP, through ``core.batch.BatchPlanner``) and hands the job to
+the engine (``core.engine``), which samples (Alg. 3) and counts (Alg.
+4/5) in ``checkpoint_every`` windows of chunks; ``unbias_estimate`` is
+Alg. 6.  For the same graph, motif, delta, k, seed and chunk it returns
+the JAX reference's ``repro.core.estimator.estimate`` result field for
+field.  This module also keeps ``choose_tree`` (Alg. 7 on its own, the
+planner's counterpart) and the ``EstimateResult`` container.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU; without a card they raise rather than fall back.
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 
 import torch
 
-from .engine import run_job
 from .graph import TemporalGraph
 from .motif import TemporalMotif
 from .spanning_tree import SpanningTree, candidate_trees
 from .weights import Weights, preprocess
+
+ACC_KEYS = ("cnt2", "valid", "fail_vmap", "fail_delta", "fail_order",
+            "overflow")
 
 
 def require_device(device) -> torch.device:
@@ -54,9 +59,19 @@ class EstimateResult:
     motif: str
     tree_edges: tuple
     delta: int
-    preprocess_s: float = 0.0   # weight DP of every candidate tree
+    preprocess_s: float = 0.0   # weight DP of the candidates it computed
     sampling_s: float = 0.0     # sampling + counting, device synced
     tree_select_s: float = 0.0  # Alg. 7 as a whole (includes preprocess)
+    sampler_backend: str = "cuda"   # the device type that sampled
+    fallback_reason: str = ""      # always "": the port never falls back
+    fused_jobs: int = 1            # jobs sharing this job's tree cohort
+    # empirical batch-means relative standard error, filled by the
+    # session layer (api/session.py); None when no session measured it
+    rse: float | None = None
+    # deadline partials: the job stopped at its last completed checkpoint
+    # window, ``k`` reports the samples actually drawn (never an error)
+    degraded: bool = False
+    degrade_reason: str = ""
 
     @property
     def valid_rate(self) -> float:
@@ -71,26 +86,23 @@ class EstimateResult:
 def choose_tree(g: TemporalGraph, motif: TemporalMotif, delta: int,
                 n_candidates: int = 3, roots_per_tree: int = 2,
                 dev: dict | None = None, use_c2: bool = True,
-                use_c3: bool = True, device: str = "cuda",
-                timings: dict | None = None) -> tuple[SpanningTree, Weights]:
+                use_c3: bool = True, device: str = "cuda"
+                ) -> tuple[SpanningTree, Weights]:
     """Alg. 7: looseness-ranked candidates, exact W for each, min-W wins.
 
     Same candidate order and strict ``<`` ranking as the reference, so
     the same tree wins; returns it with its already computed Weights.
-    ``timings["preprocess_s"]`` (when given) accumulates the DP time.
+    The session path chooses through ``core.batch.BatchPlanner``, which
+    ranks the same way and caches every candidate's Weights.
     """
     if dev is None:
         dev = g.device_arrays(require_device(device))
     best: tuple[int, SpanningTree, Weights] | None = None
     for tree in candidate_trees(motif, n_candidates=n_candidates,
                                 roots_per_tree=roots_per_tree):
-        t0 = time.perf_counter()
         w = preprocess(g, tree, delta, dev=dev, use_c2=use_c2,
                        use_c3=use_c3)
         Wt = int(w.W_total)
-        if timings is not None:
-            timings["preprocess_s"] = (timings.get("preprocess_s", 0.0)
-                                       + time.perf_counter() - t0)
         if best is None or Wt < best[0]:
             best = (Wt, tree, w)
         del w   # free a losing candidate before the next one is built
@@ -100,34 +112,32 @@ def choose_tree(g: TemporalGraph, motif: TemporalMotif, delta: int,
 
 
 def estimate(g: TemporalGraph, motif: TemporalMotif, delta: int, k: int,
-             seed: int = 0, chunk: int = 8192, Lmax: int = 16,
-             checkpoint_every: int = 64, use_c2: bool = True,
-             use_c3: bool = True, device: str = "cuda") -> EstimateResult:
+             seed: int = 0, tree: SpanningTree | None = None,
+             n_candidates: int = 3, chunk: int = 8192, Lmax: int = 16,
+             use_c2: bool = True, use_c3: bool = True,
+             checkpoint_path: str | None = None, checkpoint_every: int = 64,
+             dev: dict | None = None, wts: Weights | None = None,
+             device: str = "cuda") -> EstimateResult:
     """Alg. 6: the full TIMEST estimate with ``k`` samples on ``device``.
 
     Draws ``ceil(k / chunk) * chunk`` samples; chunk ``j`` from
-    ``fold_in(PRNGKey(seed), j)``.  Refuses ``k < 1`` and ``delta < 0``
-    with the reference's messages.
+    ``fold_in(PRNGKey(seed), j)``.  ``tree`` (with ``wts``) skips the
+    tree choice (and the weight DP); ``checkpoint_path`` writes the
+    reference's checkpoint JSON after every window and resumes from a
+    matching one.  Refuses ``k < 1`` and ``delta < 0`` with the
+    reference's messages (``api.Request``).
+
+    A one-shot ``Session`` per call: callers with several related
+    queries should hold a ``Session`` and let its preprocess cache and
+    coalescing windows share the work.
     """
-    if k < 1:
-        raise ValueError(f"k must be >= 1, got {k}")
-    if delta < 0:
-        raise ValueError(f"delta must be >= 0, got {delta}")
-    dev = g.device_arrays(require_device(device))
-    t0 = time.perf_counter()
-    timings: dict = {}
-    tree, wts = choose_tree(g, motif, delta, dev=dev, use_c2=use_c2,
-                            use_c3=use_c3, timings=timings)
-    tree_select_s = time.perf_counter() - t0
-    run = run_job(tree, wts, dev, k, seed, chunk=chunk, Lmax=Lmax,
-                  checkpoint_every=checkpoint_every)
-    W = int(wts.W_total)
-    acc = run.acc
-    return EstimateResult(
-        estimate=unbias_estimate(W, acc["cnt2"], run.k_eff),
-        W=W, k=run.k_eff, valid=acc["valid"], fail_vmap=acc["fail_vmap"],
-        fail_delta=acc["fail_delta"], fail_order=acc["fail_order"],
-        overflow=acc["overflow"], cnt2_sum=acc["cnt2"], motif=motif.name,
-        tree_edges=tree.edge_ids, delta=int(delta),
-        preprocess_s=timings.get("preprocess_s", 0.0),
-        sampling_s=run.sampling_s, tree_select_s=tree_select_s)
+    from ..api import EstimateConfig, Request, Session
+    cfg = EstimateConfig(chunk=chunk, Lmax=Lmax,
+                         checkpoint_every=checkpoint_every,
+                         n_candidates=n_candidates, use_c2=use_c2,
+                         use_c3=use_c3, device=device, seed=int(seed))
+    session = Session(g, cfg, dev=dev)
+    handle, = session.submit_many([Request(
+        motif=motif, delta=int(delta), k=int(k), seed=int(seed),
+        checkpoint_path=checkpoint_path, tree=tree, wts=wts)])
+    return handle.result()

@@ -2,8 +2,12 @@
 //
 // Replaces the Pallas kernel repro/kernels/tree_sampler/kernel.py
 // (_sampler_kernel, launched by tree_sampler_call; host side in ops.py),
-// together with the draws the host made for it (ops.prepare_draws).  For
-// sample k of a chunk:
+// together with the draws the host made for it (ops.prepare_draws).  One
+// launch samples a chunk of K samples for each of J streams (the chunk
+// keys of a tree cohort's seeds, keys [J, 2]): the stream is the grid's
+// y dimension, as a vmap over the key stack gives the Pallas kernel a
+// grid axis, and stream i's output is that of a launch on keys[i] alone.
+// For sample k of a stream's chunk:
 //
 //   0. draws     jax's threefry bits of the chunk key, bit for bit
 //                (threefry.cuh): keys = split(key, S + 2); the target
@@ -40,8 +44,8 @@
 //     nested pair search, and a ballot picks the sub-interval, so the
 //     chain is about log(G + 1) / log(2) times shorter than bisection.
 //     Every search has a unique answer, so the order changes no bit.
-//   * The draws cost no memory traffic: the block derives the chunk's
-//     keys once into shared memory (S + 2 threefry blocks and their
+//   * The draws cost no memory traffic: the block derives its stream's
+//     chunk keys once into shared memory (S + 2 threefry blocks and their
 //     splits) and each lane then computes its sample's bits from the
 //     sample index as counter.  The key and W are read on the device, so
 //     the host waits on nothing.
@@ -91,10 +95,10 @@ struct SamplerArgs {
   const int64_t* ps_pair_own;
   const int64_t* ps_pair_prev;
   const int64_t* W_total;  // 0-d
-  const int64_t* key;      // [2] uint32 words
-  int64_t* edges;
-  int64_t* window;
-  int64_t K, m, S, q, root, use_c2, it, delta, wd, n_steps;
+  const int64_t* key;      // [J, 2] uint32 words, one chunk key a stream
+  int64_t* edges;          // [J, K, S]
+  int64_t* window;         // [J, K]
+  int64_t K, m, S, q, root, use_c2, it, delta, wd, n_steps, J;
   Step steps[MAX_STEPS];
 };
 
@@ -142,12 +146,14 @@ __device__ __forceinline__ int64_t draw(Key hi_key, Key lo_key, uint64_t k,
 
 __global__ void __launch_bounds__(THREADS)
 tree_sampler_kernel(const SamplerArgs a) {
-  // -- 0. the chunk's keys, once per block ---------------------------------
+  // -- 0. the stream's chunk keys, once per block ---------------------------
   // slot 0: the two keys of the window target's randint; slot 1 + c: the
   // two of child c's randint
+  const int64_t stream = blockIdx.y;
   __shared__ Key keys[1 + MAX_EDGES][2];
   if (threadIdx.x < a.S + 2 && threadIdx.x != 1) {
-    const Key chunk = {(uint32_t)a.key[0], (uint32_t)a.key[1]};
+    const Key chunk = {(uint32_t)a.key[2 * stream],
+                       (uint32_t)a.key[2 * stream + 1]};
     const Key ki = split_at(chunk, threadIdx.x);   // split(key, S + 2)[i]
     const int slot = threadIdx.x == 0 ? 0 : threadIdx.x - 1;
     keys[slot][0] = split_at(ki, 0);
@@ -244,18 +250,20 @@ tree_sampler_kernel(const SamplerArgs a) {
     edges[sp.child] = csr_edge[clamp64(pstar, 0, nmax)];
   }
 
-  for (int s = grp.rank; s < a.S; s += G) a.edges[k * a.S + s] = edges[s];
-  if (grp.rank == 0) a.window[k] = win;
+  const int64_t row = stream * a.K + k;
+  for (int s = grp.rank; s < a.S; s += G) a.edges[row * a.S + s] = edges[s];
+  if (grp.rank == 0) a.window[row] = win;
 }
 
 }  // namespace
 
 extern "C" int tree_sampler_launch(const SamplerArgs* args, void* stream) {
-  if (args->n_steps > MAX_STEPS || args->S > MAX_EDGES) {
+  if (args->n_steps > MAX_STEPS || args->S > MAX_EDGES || args->J < 1 ||
+      args->J > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   const int64_t blocks = (args->K * G + THREADS - 1) / THREADS;
-  tree_sampler_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      *args);
+  const dim3 grid((unsigned)blocks, (unsigned)args->J);
+  tree_sampler_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(*args);
   return (int)cudaGetLastError();
 }

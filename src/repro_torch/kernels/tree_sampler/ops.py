@@ -9,11 +9,14 @@ can replay the modular reduction against its in-kernel span.
 ``draws_at`` gives the same draws one sample index at a time, as the
 CUDA kernel derives them from the chunk key.
 
-``tree_sampler_keyed`` samples a chunk from its key: ``prepare_draws``
-and the plain torch version (``ref.py``) for CPU tensors, one launch of
-``csrc/tree_sampler.cu`` (which draws its own bits) for CUDA tensors; on
-any other device, or on inputs the kernel does not take, it raises.
-``tree_sampler_keyed.launches`` counts the kernel launches.
+``tree_sampler_keyed`` samples a chunk from its key, or one chunk for
+each key of a ``[J, 2]`` stack (a tree cohort's seed streams, the
+reference's ``vmap`` over its key stack): ``prepare_draws`` and the
+plain torch version (``ref.py``) per stream for CPU tensors, one launch
+of ``csrc/tree_sampler.cu`` (which draws its own bits) for all J
+streams for CUDA tensors; on any other device, or on inputs the kernel
+does not take, it raises.  ``tree_sampler_keyed.launches`` counts the
+kernel launches.
 ``tree_sampler`` runs the plain version on given draws (CPU only).
 
 Structural-fields-only contract: this module reads only the fields of
@@ -105,7 +108,8 @@ _WEIGHTS = ("ps_win", "win_lo", "win_mid", "win_hi", "ps_acc_own",
             "ps_acc_prev", "ps_pair_own", "ps_pair_prev")
 _OUT = ("edges", "window")
 _SCALARS = ("K", "m", "S", "q", "root", "use_c2", "it", "delta", "wd",
-            "n_steps")
+            "n_steps", "J")
+MAX_STREAMS = 65535      # the grid's y extent
 _I32 = ("src", "dst", "out_edge", "in_edge", "pair_id", "rev_pair_id")
 
 
@@ -155,37 +159,52 @@ def tree_sampler(schedule: tuple, root: int, S: int, dev: dict, wts, x,
 
 def tree_sampler_keyed(schedule: tuple, root: int, S: int, dev: dict, wts,
                        key: torch.Tensor, K: int):
-    """Alg. 3 for K samples drawn from the chunk key ``key`` (``[2]``
-    int64, on the graph's device); returns ``(edges [K, S], window [K])``
-    int64.
+    """Alg. 3 for K samples drawn from the chunk key ``key`` (int64, on
+    the graph's device): ``[2]`` gives ``(edges [K, S], window [K])``,
+    a stack ``[J, 2]`` of J streams' keys gives ``(edges [J, K, S],
+    window [J, K])`` whose stream ``i`` is the output for ``key[i]``
+    alone.
 
-    CPU tensors: ``prepare_draws`` then the plain version.  CUDA tensors:
-    one launch of the kernel, which draws the same bits itself.
+    CPU tensors: ``prepare_draws`` then the plain version, per stream.
+    CUDA tensors: one launch of the kernel for all streams, which draws
+    the same bits itself.
     """
     device = key.device
     _check_inputs(schedule, S, dev, wts, device,
                   dict(W_total=wts.W_total, key=key))
-    if key.shape != (2,) or K < 0:
-        raise ValueError("tree_sampler: key must be [2] and K >= 0")
+    if key.shape[-1:] != (2,) or key.dim() > 2 or K < 0:
+        raise ValueError("tree_sampler: key must be [2] or [J, 2] and "
+                         "K >= 0")
+    keys = key.reshape(-1, 2)
+    J = keys.shape[0]
+    if not 1 <= J <= MAX_STREAMS:
+        raise ValueError(f"tree_sampler: {J} streams, want 1 to "
+                         f"{MAX_STREAMS}")
     if device.type == "cpu":
-        return tree_sampler_ref(schedule, root, S, dev, wts,
-                                *_prepare_draws(root, S, wts, key, K))
+        outs = [tree_sampler_ref(schedule, root, S, dev, wts,
+                                 *_prepare_draws(root, S, wts, kj, K))
+                for kj in keys]
+        edges = torch.stack([e for e, _ in outs])
+        window = torch.stack([w for _, w in outs])
+        return (edges, window) if key.dim() == 2 else (edges[0], window[0])
     if device.type != "cuda":
         raise ValueError(f"tree_sampler: no kernel for device {device}")
     m = dev["t"].shape[0]
-    edges = torch.empty((K, S), dtype=torch.int64, device=device)
-    window = torch.empty(K, dtype=torch.int64, device=device)
+    edges = torch.empty((*key.shape[:-1], K, S), dtype=torch.int64,
+                        device=device)
+    window = torch.empty((*key.shape[:-1], K), dtype=torch.int64,
+                         device=device)
     if K == 0:
         return edges, window
     keep = dict({n: dev[n].contiguous() for n in _GRAPH},
                 **{n: getattr(wts, n).contiguous() for n in _WEIGHTS},
-                W_total=wts.W_total, key=key.contiguous(), edges=edges,
+                W_total=wts.W_total, key=keys.contiguous(), edges=edges,
                 window=window)
     args = _SamplerArgs(
         **{n: v.data_ptr() for n, v in keep.items()},
         K=K, m=m, S=S, q=wts.q, root=root, use_c2=int(wts.use_c2),
         it=bisect_iters(m), delta=wts.delta, wd=wts.wd,
-        n_steps=len(schedule))
+        n_steps=len(schedule), J=J)
     for i, step in enumerate(schedule):
         args.steps[i] = _Step(*step)
     fn = _build.library("tree_sampler").tree_sampler_launch

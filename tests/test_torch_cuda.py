@@ -97,6 +97,57 @@ def test_card_estimate_equals_cpu(cuda_device, motif, k, seed):
         assert getattr(card, f) == getattr(cpu, f), f
 
 
+@pytest.mark.parametrize("J,K", [(1, 777), (3, 4096 + 5), (5, 1)])
+def test_multi_stream_sampler_equals_solo_launches_and_cpu(cuda_device, J,
+                                                           K):
+    """One launch for a ``[J, 2]`` key stack: stream ``i`` is
+    ``torch.equal`` to a solo launch on ``keys[i]`` and to the CPU path
+    (``prepare_draws`` + the plain version) on the same key."""
+    g = powerlaw_temporal_graph(**GRAPH)
+    tree = candidate_trees(get_motif("M5-3"))[0]
+    dev = g.device_arrays(cuda_device)
+    wts = preprocess(g, tree, 2000, dev=dev)
+    cdev = g.device_arrays("cpu")
+    cwts = preprocess(g, tree, 2000, dev=cdev)
+    schedule = build_schedule(tree)
+    keys = rng.fold_in(rng.PRNGKey(7), torch.arange(J) * 11 + 2)
+    args = (schedule, tree.root, tree.num_edges)
+    n = tree_sampler_keyed.launches
+    edges, window = tree_sampler_keyed(*args, dev, wts,
+                                       keys.to(cuda_device), K)
+    torch.cuda.synchronize()
+    assert tree_sampler_keyed.launches == n + 1
+    assert edges.shape == (J, K, tree.num_edges) and window.shape == (J, K)
+    cpu = tree_sampler_keyed(*args, cdev, cwts, keys, K)
+    assert torch.equal(edges.cpu(), cpu[0])
+    assert torch.equal(window.cpu(), cpu[1])
+    for i in range(J):
+        solo = tree_sampler_keyed(*args, dev, wts, keys[i].to(cuda_device),
+                                  K)
+        assert torch.equal(edges[i], solo[0])
+        assert torch.equal(window[i], solo[1])
+
+
+def test_card_cohort_equals_cpu(cuda_device):
+    """A tree cohort through ``estimate_many`` on the card equals the CPU
+    run field for field, with one sampler launch per chunk for all its
+    seed streams."""
+    from repro_torch import estimate_many
+    from repro_torch.core.engine import STATS
+    g = powerlaw_temporal_graph(**GRAPH)
+    jobs = [(m, 2000, 1024, s) for m in ("M5-2", "M5-3", "M5-4")
+            for s in (0, 1)]
+    n = tree_sampler_keyed.launches
+    STATS.reset()
+    card = estimate_many(g, jobs, chunk=256, device=cuda_device)
+    launches, windows = tree_sampler_keyed.launches - n, STATS.dispatches
+    cpu = estimate_many(g, jobs, chunk=256, device="cpu")
+    for a, b in zip(card, cpu):
+        for f in FIELDS + ("fused_jobs",):
+            assert getattr(a, f) == getattr(b, f), f
+    assert launches == windows * 1024 // 256
+
+
 # -- the LM serving path -------------------------------------------------
 FA_CUDA_CASES = [
     # (B, Sq, Skv, Hq, Hkv, D, causal, window, softcap): the six cases of

@@ -3,7 +3,8 @@
 * a fresh interpreter that imports ``repro_torch`` and every submodule
   has neither ``jax`` nor ``repro`` in ``sys.modules`` (a subprocess,
   because pytest workers already hold jax);
-* no source file of the port imports either;
+* no source file of the port, nor ``chip_smoke.py``, imports either, and
+  no source file of the port reads the environment;
 * the entry points default to the card and raise without one;
 * each kernel wrapper takes its plain version only for CPU tensors and
   raises for any device it has no kernel for — it never catches a
@@ -60,6 +61,33 @@ def test_sources_import_neither_jax_nor_repro(path):
     for name in _imports(path):
         root = name.split(".")[0]
         assert root not in ("jax", "jaxlib", "repro"), (path, name)
+
+
+def test_chip_smoke_imports_neither_jax_nor_repro():
+    """Every import of ``chip_smoke.py``, those inside its functions
+    included, is of the standard library, torch or the port."""
+    names = list(_imports(REPO / "chip_smoke.py"))
+    assert "repro_torch" in {n.split(".")[0] for n in names}
+    for name in names:
+        assert name.split(".")[0] not in ("jax", "jaxlib", "repro"), name
+
+
+_ENV_NAMES = ("environ", "environb", "getenv", "getenvb", "putenv",
+              "unsetenv")
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(PORT)))
+def test_sources_read_no_environment(path):
+    """No ``os.environ`` / ``os.getenv`` (or their imported names) in
+    the port: every setting arrives as an argument."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Attribute):
+            assert node.attr not in _ENV_NAMES, (path, node.lineno)
+        elif isinstance(node, ast.Name):
+            assert node.id not in _ENV_NAMES, (path, node.lineno)
+        elif isinstance(node, ast.ImportFrom) and node.module == "os":
+            assert not {a.name for a in node.names} & set(_ENV_NAMES), path
 
 
 def _small_graph():

@@ -1,0 +1,229 @@
+"""The port's NDJSON serve loop and CLI.
+
+The same request lines through both packages' ``serve_loop`` give equal
+response lines (``sampler_backend`` aside, and only the blocks the port
+has in ``stats``/``health``); the verbs the port does not have yet answer
+as documented.  The CLI takes comma lists, edge-list paths, ``--exact``,
+``--checkpoint`` and ``--serve``.
+"""
+from __future__ import annotations
+
+import io
+import json
+import os
+import re
+
+import pytest
+
+from repro.api import EstimateConfig as RConfig
+from repro.api import Session as RSession
+from repro.api import serve_loop as ref_serve_loop
+from repro.core.engine import STATS as RSTATS
+from repro.graphs import powerlaw_temporal_graph as rgraph
+from repro_torch import (count_exact, estimate, estimate_many, get_motif,
+                         powerlaw_temporal_graph, save_edge_list)
+from repro_torch.api import EstimateConfig, Session, serve_loop
+from repro_torch.core.engine import STATS
+from repro_torch.gateway import LineSource
+from repro_torch.launch import estimate as cli
+
+GRAPH = dict(n=150, m=2000, time_span=40000, seed=11)
+SPEC = "powerlaw:n=150,m=2000,time_span=40000,seed=11"
+TINY = dict(n=60, m=400, time_span=5000, seed=1)
+TINY_SPEC = "powerlaw:n=60,m=400,time_span=5000,seed=1"
+LINES = [
+    {"id": 1, "motif": "M5-3", "delta": 3000, "k": 1024},
+    {"id": 2, "motif": "M5-2", "delta": 3000, "k": 1024, "seed": 1},
+    {"id": 3, "motif": "0-1,1-2,2-0", "delta": 3000, "k": 512,
+     "target_rse": 1e-3, "k_max": 2048},
+    {"cmd": "health"},
+    "this is not json",
+    "",
+    {"id": 4, "motif": "no-such-motif", "delta": 3000, "k": 512},
+    {"id": 5, "motif": "M5-3", "delta": 3000},
+    {"id": 6, "motif": "M5-3", "delta": 3000, "k": 512,
+     "checkpoint_path": "x.json"},
+    {"id": 7, "motif": "M5-3", "delta": 3000, "k": 0},
+    {"id": 8, "motif": "M4-2", "delta": 3000, "k": 512,
+     "deadline_ms": 1e-6},
+    {"cmd": "stats"},
+    {"id": 9, "motif": "M5-4", "delta": 3000, "k": 512, "seed": 1},
+    {"cmd": "ingest", "edges": [[0, 1, 5]]},
+    {"cmd": "advance"},
+    {"cmd": "no-such-verb"},
+    {"cmd": "quit"},
+    {"id": 10, "motif": "M5-3", "delta": 3000, "k": 512},   # after quit
+]
+
+
+def _stdin(lines) -> io.StringIO:
+    return io.StringIO("".join((ln if isinstance(ln, str) else json.dumps(ln))
+                               + "\n" for ln in lines))
+
+
+def _serve(loop, session, lines):
+    out = io.StringIO()
+    served = loop(session, infile=_stdin(lines), outfile=out)
+    return served, [json.loads(ln) for ln in out.getvalue().splitlines()]
+
+
+@pytest.fixture(scope="module")
+def reference():
+    RSTATS.reset()
+    s = RSession(rgraph(**GRAPH), RConfig(chunk=256,
+                                          coalesce_window_s=3600.0))
+    return _serve(ref_serve_loop, s, LINES)
+
+
+@pytest.fixture(scope="module")
+def port():
+    STATS.reset()
+    s = Session(powerlaw_temporal_graph(**GRAPH),
+                EstimateConfig(chunk=256, coalesce_window_s=3600.0,
+                               device="cpu"))
+    return _serve(serve_loop, s, LINES)
+
+
+def _comparable(port_line: dict, ref_line: dict) -> tuple[dict, dict]:
+    """The port's line without ``sampler_backend``, against the reference
+    line's same keys (the port's ``stats``/``health`` carry no obs or
+    resilience block yet)."""
+    got = {k: v for k, v in port_line.items() if k != "sampler_backend"}
+    return got, {k: ref_line.get(k, "<missing>") for k in got}
+
+
+def test_same_number_of_lines_and_requests(reference, port):
+    assert port[0] == reference[0] == 5           # requests 1-3, 8, 9
+    assert len(port[1]) == len(reference[1])
+
+
+@pytest.mark.parametrize("i", range(16))
+def test_response_line_equals_reference(reference, port, i):
+    got, want = _comparable(port[1][i], reference[1][i])
+    assert got == want
+    if got.get("ok") and "id" in got:
+        assert port[1][i]["sampler_backend"] == "cpu"
+
+
+def test_responses_carry_the_integers_and_cohorts(port):
+    by_id = {ln["id"]: ln for ln in port[1] if ln.get("id") is not None}
+    assert by_id[1]["ok"] and by_id[2]["ok"] and by_id[9]["ok"]
+    assert by_id[1]["fused_jobs"] == 2 and by_id[1]["W"] > 0
+    assert by_id[3]["k"] > 512                         # adaptive growth
+    assert by_id[8]["degraded"] and by_id[8]["k_done"] == 0
+    kinds = {i: by_id[i]["error_kind"] for i in (4, 5, 6, 7)}
+    assert kinds == dict.fromkeys((4, 5, 6, 7), "bad_request")
+    assert [ln.get("cmd") for ln in port[1] if "cmd" in ln] == [
+        "health", "stats", "quit"]
+    errors = [ln["error"] for ln in port[1] if "id" not in ln
+              and not ln.get("ok")]
+    assert errors[0].startswith("bad json")
+    assert errors[1] == "cmd 'ingest' needs stream mode (--serve --stream)"
+    assert errors[3] == "unknown cmd 'no-such-verb'"
+
+
+def _port_session(**kw):
+    return Session(powerlaw_temporal_graph(**TINY),
+                   EstimateConfig(chunk=64, device="cpu", **kw))
+
+
+@pytest.mark.parametrize("cmd", ["metrics", "trace", "profile"])
+def test_telemetry_verbs_wait_for_their_slice(cmd):
+    _, lines = _serve(serve_loop, _port_session(), [{"cmd": cmd}])
+    assert lines == [{"ok": False, "error": f"unknown cmd {cmd!r}"}]
+
+
+def test_witness_requests_answer_bad_request():
+    _, lines = _serve(serve_loop, _port_session(), [
+        {"id": 1, "motif": "M4-2", "delta": 500, "k": 64, "witnesses": 2}])
+    assert lines[0]["ok"] is False and lines[0]["id"] == 1
+    assert lines[0]["error_kind"] == "bad_request"
+    assert "witnesses slice" in lines[0]["error"]
+
+
+def test_count_closed_window_drains_mid_stream():
+    s = _port_session(coalesce_window_s=3600.0, coalesce_max_requests=2)
+    req = [{"id": i, "motif": "M4-2", "delta": 500, "k": 64, "seed": i}
+           for i in range(3)]
+    served, lines = _serve(serve_loop, s, req + [{"cmd": "stats"}])
+    assert served == 3 and [ln.get("id") for ln in lines[:3]] == [0, 1, 2]
+    assert lines[3]["drains"] == 2 and lines[3]["completed"] == 3
+
+
+def test_line_source_deadlines_on_a_pipe():
+    r, w = os.pipe()
+    with os.fdopen(r, "rb", buffering=0) as rf:
+        src = LineSource(rf)
+        assert src.readline(0.0) is None               # idle fd
+        os.write(w, b'{"a": 1}\n{"b"')
+        assert src.readline(0.0) == '{"a": 1}\n'       # buffered line
+        assert src.readline(0.01) is None              # partial line
+        os.write(w, b': 2}\n')
+        os.close(w)
+        assert src.readline(None) == '{"b": 2}\n'
+        assert src.readline(None) == ""                # EOF
+
+
+def _strip_times(line: str) -> str:
+    return re.sub(r"\(pre [0-9.]+s \+ samp [0-9.]+s\)", "", line)
+
+
+def test_cli_comma_lists_run_estimate_many(capsys):
+    cli.main(["--graph", SPEC, "--motif", "M5-2,M5-3", "--delta",
+              "3000,2000", "--k", "512", "--chunk", "256", "--device",
+              "cpu"])
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("delta=")]
+    want = estimate_many(powerlaw_temporal_graph(**GRAPH),
+                         [(m, d, 512) for m in ("M5-2", "M5-3")
+                          for d in (3000, 2000)], chunk=256, device="cpu")
+    assert [_strip_times(ln) for ln in lines] == [
+        _strip_times(f"delta={r.delta}  fused={r.fused_jobs}  "
+                     f"{r.summary()}") for r in want]
+
+
+@pytest.mark.parametrize("suffix", [".txt", ".txt.gz", ".npz"])
+def test_cli_reads_an_edge_list_and_runs_the_exact_oracle(tmp_path, capsys,
+                                                          suffix):
+    g = powerlaw_temporal_graph(**TINY)
+    path = str(tmp_path / f"g{suffix}")
+    save_edge_list(g, path)
+    cli.main(["--graph", path, "--motif", "M5-3", "--delta", "500",
+              "--k", "256", "--chunk", "64", "--exact", "--device", "cpu"])
+    out = capsys.readouterr().out.splitlines()
+    want = estimate(g, get_motif("M5-3"), 500, 256, chunk=64, device="cpu")
+    summary = next(ln for ln in out if ln.startswith("M5-3: C^="))
+    assert _strip_times(summary) == _strip_times(want.summary())
+    exact = count_exact(g, get_motif("M5-3"), 500)
+    err = abs(want.estimate - exact) / max(exact, 1)
+    assert f"  exact={exact}  error={100 * err:.2f}%" in out
+
+
+def test_cli_checkpoint_resumes(tmp_path, capsys):
+    ck = str(tmp_path / "ck.json")
+    base = ["--graph", TINY_SPEC, "--motif", "M4-2", "--delta", "500",
+            "--chunk", "64", "--seed", "2", "--device", "cpu",
+            "--checkpoint", ck]
+    cli.main(base + ["--k", "128"])
+    assert json.load(open(ck))["chunks_done"] == 2
+    cli.main(base + ["--k", "256"])
+    out = capsys.readouterr().out.splitlines()
+    assert json.load(open(ck))["chunks_done"] == 4
+    want = estimate(powerlaw_temporal_graph(**TINY), get_motif("M4-2"), 500,
+                    256, seed=2, chunk=64, device="cpu")
+    summary = [ln for ln in out if ln.startswith("M4-2: C^=")][-1]
+    assert _strip_times(summary) == _strip_times(want.summary())
+
+
+def test_cli_serves_ndjson(monkeypatch, capsys):
+    req = [{"id": 1, "motif": "M4-2", "delta": 500, "k": 128},
+           {"cmd": "quit"}]
+    monkeypatch.setattr("sys.stdin", _stdin(req))
+    cli.main(["--graph", TINY_SPEC, "--serve", "--chunk", "64",
+              "--coalesce-window", "60", "--device", "cpu"])
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    want = estimate(powerlaw_temporal_graph(**TINY), get_motif("M4-2"), 500,
+                    128, chunk=64, device="cpu")
+    assert lines[0]["ok"] and lines[0]["estimate"] == want.estimate
+    assert lines[0]["W"] == want.W and lines[0]["valid"] == want.valid
+    assert lines[1] == {"ok": True, "cmd": "quit", "served": 1}
