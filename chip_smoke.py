@@ -77,6 +77,13 @@ COHORT, COHORT_SEEDS = ("M5-2", "M5-3", "M5-4"), (0, 1)
 # takes seconds there (count_exact: 6 s and 5 s on a CPU core)
 ORACLE_GRAPH = "powerlaw:n=20000,m=200000,alpha=2.1,time_span=5120000,seed=0"
 ORACLE_CASES = (("M4-2", 3600), ("M5-2", 3600))
+# the live-stream phases' standing queries: (motif, delta, k, seed,
+# witnesses) on SMALL_GRAPH in 4 batches with horizon 20000 (card against
+# CPU); (motif, delta, seed, witnesses) at k = min(STREAM_K, --k) on the
+# full graph in 8 batches with horizon span / 4 and a WAL
+STREAM_SMALL = (("M5-3", 3000, 1024, 0, 0), ("M4-2", 3000, 512, 3, 8))
+STREAM_QUERIES = (("M5-3", 3600, 0, 0), ("M4-2", 3600, 0, 8))
+STREAM_K, STREAM_BATCHES, STREAM_RECOVER_AT = 1 << 18, 8, 5
 FIELDS = ("estimate", "W", "k", "cnt2_sum", "valid", "fail_vmap",
           "fail_delta", "fail_order", "overflow", "tree_edges")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
@@ -865,6 +872,307 @@ def phase_oracle(chunk: int, k: int) -> None:
                   abs(res.estimate - exact) / max(exact, 1),
               "valid": res.valid, "W": res.W, "exact_s": exact_s,
               "estimate_s": res.tree_select_s + res.sampling_s})
+
+
+def stream_rows(er) -> list:
+    """An epoch's comparable record: the epoch's numbers and each
+    standing query's integer fields and witness tuples."""
+    ep = er.epoch
+    return [(ep.index, ep.m_real, ep.n_real, ep.evicted, ep.buckets)] + [
+        (qid, *(getattr(r, f) for f in FIELDS), r.witnesses)
+        for qid, r in sorted(er.results.items())]
+
+
+def phase_stream_small() -> None:
+    """Card against CPU on a small live stream: ``SMALL_GRAPH``'s edges
+    in 4 batches, horizon 20000, M5-3 and M4-2 (with witnesses) standing;
+    every epoch's integers and witness tuples equal."""
+    import numpy as np
+    from repro_torch import EstimateConfig
+    from repro_torch.launch.estimate import parse_graph
+    from repro_torch.stream import StandingQuery, StreamingSession
+    t_phase = time.perf_counter()
+    g = parse_graph(SMALL_GRAPH)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        ss = StreamingSession(config=EstimateConfig(chunk=256, device=device),
+                              horizon=20000)
+        for m, d, k, seed, wit in STREAM_SMALL:
+            ss.subscribe(StandingQuery(m, d, k, seed=seed, witnesses=wit))
+        rows = []
+        for idx in np.array_split(np.arange(g.m), 4):
+            ss.ingest(g.src[idx], g.dst[idx], g.t[idx])
+            rows.append(stream_rows(ss.advance()))
+        ss.close()
+        runs[device] = rows
+    require(runs["cuda"] == runs["cpu"], "stream_small: card != CPU")
+    wit = [r[2][-1] for r in runs["cuda"]]
+    require(all(wit), "stream_small: an epoch without witnesses")
+    emit({"phase": "stream_small", "equal": True, "epochs": [
+        {"m_real": r[0][1], "buckets": list(r[0][4]), "evicted": r[0][3],
+         "cnt2_sum": [q[4] for q in r[1:]], "witnesses": len(r[2][-1])}
+        for r in runs["cuda"]], "phase_s": time.perf_counter() - t_phase})
+
+
+def padded_kernel_checks(graph, queries, chunk: int) -> dict:
+    """Both TIMEST kernels against their plain versions on one padded
+    epoch snapshot, at the shapes the stream path gives them: every
+    dep-sum of every candidate tree the standing queries' planner
+    computes, and one chunk of each tree through ``sampler_case``, whose
+    edges must all be real (``< m_real``) and whose windows must lie in
+    the real ``[0, q)``.  Returns the check counts and each kernel's
+    largest difference."""
+    import torch
+    from repro_torch import get_motif
+    from repro_torch.core import rng
+    from repro_torch.core.spanning_tree import candidate_trees, tree_signature
+    from repro_torch.core.weights import preprocess
+    from repro_torch.kernels.interval_weight.ops import dep_sum, kernel_arrays
+    from repro_torch.kernels.interval_weight.ref import dep_sum_ref
+    dev = graph.device_arrays("cuda")
+    m_real = graph.live_m
+    trees = {}
+    for q in queries:
+        for t in candidate_trees(get_motif(q.motif), n_candidates=3,
+                                 roots_per_tree=2):
+            trees.setdefault((tree_signature(t), q.delta), t)
+    out = dict(m=graph.m, m_real=m_real, trees=len(trees), dep_sums=0,
+               sampler_chunks=0, dep_sum_err=0, sampler_err=0)
+    for (_, delta), tree in trees.items():
+        wts = preprocess(graph, tree, delta, dev=dev)
+        require(wts.q_pad >= wts.q, "window arrays shorter than q")
+        for s in tree.topo_down:
+            for d in tree.deps[s]:
+                c = d.child
+                ps_csr = (wts.ps_acc_own[c], wts.ps_acc_prev[c])
+                ps_pair = (wts.ps_pair_own[c], wts.ps_pair_prev[c])
+                arrays = kernel_arrays(dev, d)
+                for window in ("own", "prev"):
+                    args = (dev, d, window, wts.delta, wts.wd, ps_csr,
+                            ps_pair)
+                    got = dep_sum(*args, arrays)
+                    want = dep_sum_ref(*args)
+                    torch.cuda.synchronize()
+                    require(torch.equal(got, want), f"dep_sum kernel "
+                            f"differs from its plain version on a padded "
+                            f"snapshot (m {graph.m}, child {c}, {window})")
+                    out["dep_sums"] += 1
+                    out["dep_sum_err"] = max(out["dep_sum_err"], int(
+                        (got - want).abs().max()))
+        key = rng.fold_in(rng.PRNGKey(0), 0).cuda()
+        e_k, w_k, err = sampler_case(dev, wts, tree, chunk, key)
+        require(int(e_k.max()) < m_real and int(w_k.max()) < wts.q,
+                f"the sampler drew a pad edge or window on a padded "
+                f"snapshot (m {graph.m}, m_real {m_real}, q {wts.q})")
+        out["sampler_chunks"] += 1
+        out["sampler_err"] = max(out["sampler_err"], err)
+        del wts
+    del dev
+    torch.cuda.empty_cache()
+    return out
+
+
+def unpadded(g):
+    """A padded snapshot's real edges, rebuilt: the retained graph as the
+    store built it before padding."""
+    from repro_torch import TemporalGraph
+    m = g.live_m
+    return TemporalGraph.from_edges(g.src[:m], g.dst[:m], g.t[:m])
+
+
+def phase_stream(g, chunk: int, k: int) -> dict:
+    """The live stream at full size: ``g``'s edges written as ``.npz``,
+    replayed by ``replay_epochs`` in ``STREAM_BATCHES`` batches (one
+    epoch each) with horizon ``time_span // 4`` and a WAL, M5-3 and M4-2
+    (8 witnesses) standing.  Launch counters are set to 0 before the
+    replay and read after it.  Requires (a) epochs 0 and 7 equal to a
+    cold ``estimate()`` on the padded snapshot, epoch 7 also on the
+    unpadded one; (b) every witness a real edge tuple satisfying its
+    motif; (c) a store recovered from the WAL copied after epoch
+    ``STREAM_RECOVER_AT``, fed the next batch, equal to the live store's
+    next snapshot and M5-3 estimate; (d) both kernels launched, the
+    sampler once per cohort chunk plus once per witness re-draw; (e) the
+    card's allocated memory back within 64 MB after ``close()``; (f) on
+    the snapshots of epochs 0 and 7 (m buckets 2^20 and 2^21), both
+    kernels equal to their plain versions (``padded_kernel_checks``).
+    Returns the launches and each kernel's largest difference there."""
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch import EstimateConfig, estimate, get_motif
+    from repro_torch.core.engine import STATS
+    from repro_torch.kernels.interval_weight.ops import dep_sum
+    from repro_torch.kernels.tree_sampler.ops import tree_sampler_keyed
+    from repro_torch.stream import (StandingQuery, StreamingSession,
+                                    StreamStore, replay_epochs)
+    from repro_torch.testing import witness_edge_ids
+    t_phase = time.perf_counter()
+    k = min(STREAM_K, k)
+    horizon = g.time_span // 4
+    batch = -(-g.m // STREAM_BATCHES)
+    n_chunks = -(-k // chunk)
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    with tempfile.TemporaryDirectory() as tmp:
+        edges, wal = f"{tmp}/edges.npz", f"{tmp}/stream.wal"
+        np.savez(edges, src=g.src, dst=g.dst, t=g.t)
+        ss = StreamingSession(StreamStore(horizon=horizon, wal=wal),
+                              EstimateConfig(chunk=chunk, device="cuda"))
+        queries = [StandingQuery(m, d, k, seed=s, witnesses=w)
+                   for m, d, s, w in STREAM_QUERIES]
+        for q in queries:
+            ss.subscribe(q)
+        kept, epochs = {}, []
+        reset_counters(dep_sum, tree_sampler_keyed)
+        STATS.reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        wit_s = 0.0
+        for er in replay_epochs(ss, edges, batch_size=batch):
+            ep = er.epoch
+            peak = torch.cuda.max_memory_allocated()
+            drawn = sum(r.k for r in er.results.values())
+            # the witness windows' share of estimate_s (engine timer)
+            wit_s, ep_wit_s = STATS.witness_s, STATS.witness_s - wit_s
+            epochs.append({
+                "epoch": ep.index, "m_real": ep.m_real,
+                "buckets": list(ep.buckets), "evicted": ep.evicted,
+                "snapshot_s": ep.snapshot_s, "advance_s": er.advance_s,
+                "estimate_s": er.estimate_s, "witness_s": ep_wit_s,
+                "witness_share": ep_wit_s / er.estimate_s,
+                "samples_per_s": drawn / er.estimate_s,
+                "peak_mem_bytes": peak,
+                "cnt2_sum": [r.cnt2_sum for _, r in sorted(
+                    er.results.items())]})
+            for qid, q in enumerate(queries):          # (b), on the host
+                res = er.results[qid]
+                require(res.W > 0 and res.k == n_chunks * chunk,
+                        f"stream epoch {ep.index}: {q.label} W {res.W}, "
+                        f"k {res.k}")
+                require(len(res.witnesses or ()) == q.witnesses,
+                        f"stream epoch {ep.index}: {q.label} has "
+                        f"{len(res.witnesses or ())} witnesses")
+                for entry in res.witnesses or ():
+                    witness_edge_ids(ep.graph, get_motif(q.motif),
+                                     res.tree_edges, q.delta, entry)
+            if ep.index in (0, STREAM_RECOVER_AT + 1, STREAM_BATCHES - 1):
+                kept[ep.index] = er
+            if ep.index == STREAM_RECOVER_AT:
+                shutil.copy(wal, f"{tmp}/recover.wal")
+            torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        stream_s = time.perf_counter() - t0
+        launches = dict(interval_weight=dep_sum.launches,
+                        tree_sampler=tree_sampler_keyed.launches)
+        redraws = STATS.witness_chunks
+        stats = {f: getattr(STATS, f) for f in (
+            "dispatches", "tree_cohorts", "witness_dispatches",
+            "witness_chunks", "witness_s")}
+        wal_records = ss.store.wal.records
+        ss.close()
+        ss.store.wal.close()
+        del ss
+        gc.collect()
+        torch.cuda.synchronize()
+        mem_closed = torch.cuda.memory_allocated()
+
+        # (d) one sampler launch per cohort chunk, one per witness re-draw
+        require(len(epochs) == STREAM_BATCHES, f"{len(epochs)} epochs")
+        cohorts = (1 if kept[0].results[0].fused_jobs == len(queries)
+                   else len(queries))
+        want = dict(interval_weight=STREAM_BATCHES * dep_sums_of(
+                        [q.motif for q in queries]),
+                    tree_sampler=STREAM_BATCHES * (cohorts + 1) * n_chunks)
+        require(launches == want
+                and redraws == STREAM_BATCHES * n_chunks,
+                f"stream launches {launches}, witness re-draws {redraws}; "
+                f"want {want}, one dep-sum launch per dep-sum and one "
+                "sampler launch per cohort chunk and per re-drawn chunk")
+        # (e)
+        require(abs(mem_closed - mem0) <= 64 << 20, f"allocated "
+                f"{mem_closed} bytes after close(), {mem0} before")
+
+        # (a) cold estimates on the padded and the unpadded snapshots
+        cold = []
+        for idx in (0, STREAM_BATCHES - 1):
+            er = kept[idx]
+            graphs = [er.epoch.graph] + (
+                [unpadded(er.epoch.graph)] if idx else [])
+            for graph in graphs:
+                for qid, q in enumerate(queries):
+                    res = estimate(graph, get_motif(q.motif), q.delta, k,
+                                   seed=q.seed, chunk=chunk, device="cuda")
+                    require(same_result(res, er.results[qid]),
+                            f"stream epoch {idx}: {q.label} differs from "
+                            f"a cold estimate on the "
+                            f"{'padded' if graph.m_real else 'unpadded'} "
+                            "snapshot")
+                    cold.append([idx, q.label, graph.m, res.cnt2_sum])
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        # (f) both kernels against their plain versions on the kept
+        # epochs' padded snapshots, at the 2^20 and 2^21 buckets
+        padded = {idx: padded_kernel_checks(kept[idx].epoch.graph, queries,
+                                            chunk)
+                  for idx in (0, STREAM_BATCHES - 1)}
+
+        # (c) recovery from the WAL copied after STREAM_RECOVER_AT
+        t0 = time.perf_counter()
+        rec = StreamStore.recover(f"{tmp}/recover.wal", horizon=horizon)
+        recover_s = time.perf_counter() - t0
+        nxt = STREAM_RECOVER_AT + 1
+        z = np.load(edges)
+        sl = slice(nxt * batch, (nxt + 1) * batch)
+        rec.ingest(z["src"][sl], z["dst"][sl], z["t"][sl])
+        ep = rec.advance()
+        rec.wal.close()
+        live = kept[nxt]
+        require(ep.index == nxt and same_graph(ep.graph, live.epoch.graph),
+                f"the recovered store's snapshot {ep.index} differs from "
+                "the live store's")
+        m53 = queries[0]
+        res = estimate(ep.graph, get_motif(m53.motif), m53.delta, k,
+                       seed=m53.seed, chunk=chunk, device="cuda")
+        require(same_result(res, live.results[0]), "the recovered store's "
+                "M5-3 estimate differs from the live store's")
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "stream", "graph_m": g.m, "batch": batch,
+          "horizon": horizon, "k": k, "chunk": chunk,
+          "queries": [list(q) for q in STREAM_QUERIES],
+          "epochs": epochs, "stream_s": stream_s,
+          "witness_share": stats["witness_s"] / sum(
+              e["estimate_s"] for e in epochs),
+          "launches": launches, "witness_redraws": redraws,
+          "engine_stats": stats, "wal_records": wal_records,
+          "cold_equal": cold, "recovered_equal_live": True,
+          "padded_kernels": padded,
+          "recover_s": recover_s, "mem_before": mem0,
+          "mem_after_close": mem_closed,
+          "phase_s": time.perf_counter() - t_phase})
+    return launches, dict(
+        interval_weight=max(p["dep_sum_err"] for p in padded.values()),
+        tree_sampler=max(p["sampler_err"] for p in padded.values()))
+
+
+def same_graph(a, b) -> bool:
+    """Two snapshots equal array for array."""
+    import dataclasses
+
+    import numpy as np
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, np.ndarray):
+            if x.dtype != y.dtype or not np.array_equal(x, y):
+                return False
+        elif x != y:
+            return False
+    return True
 
 
 def phase_breakdown(g, motif_name: str, delta: int, chunk: int,
@@ -2046,10 +2354,18 @@ def main() -> None:
     recs[1].update(cohort_streams=len(COHORT_SEEDS),
                    launches_per_cohort_chunk=service["tree_sampler"]
                    / -(-args.k // args.chunk))
-    del g, full
+    del full
     gc.collect()
     torch.cuda.empty_cache()
     phase_oracle(args.chunk, args.k)
+    phase_stream_small()
+    stream, padded_err = phase_stream(g, args.chunk, args.k)
+    for rec in recs:
+        rec["launches_stream"] = stream[rec["name"]]
+        rec["max_abs_err_padded"] = padded_err[rec["name"]]
+    del g
+    gc.collect()
+    torch.cuda.empty_cache()
 
     fa, fa_simt = phase_flash_attention()
     torch.cuda.empty_cache()
@@ -2072,7 +2388,8 @@ def main() -> None:
     eb["launches"] = phase_recsys_full()
     recs += [fa, fa_simt, sm, sm_simt, eb]
     require(all(r["launches"] > 0 and r.get("launches_service", 1) > 0
-                for r in recs), "a kernel was launched no time on its path")
+                and r.get("launches_stream", 1) > 0 for r in recs),
+            "a kernel was launched no time on its path")
     emit({"phase": "total", "seconds": time.perf_counter() - T_START})
     emit({"kernels": recs})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -14,21 +14,35 @@ Request lines::
 
 Optional fields: ``id`` (echoed back), ``seed``, ``target_rse``/``k_max``
 (adaptive budgets), ``deadline_ms`` (an expired request answers ``ok:
-true`` with ``degraded: true``), ``witnesses`` (refused with ``error_kind
-bad_request`` until the port's witnesses slice).  Unknown fields are
-rejected (``checkpoint_path`` stays CLI/library-only: a request line
-must not name server-side files to overwrite).
+true`` with ``degraded: true``), ``witnesses`` (up to that many accepted
+full-match edge tuples, answered as ``"witnesses": [{"edges": [[src,
+dst, t], ...], "cnt": ...}, ...]``).  Unknown fields are rejected
+(``checkpoint_path`` stays CLI/library-only: a request line must not
+name server-side files to overwrite).
 
 Control lines: ``{"cmd": "stats"}`` (session counters plus the
 ``engine`` block of process-wide tree-cohort counters), ``{"cmd":
 "health"}`` (answered at once, without draining: mode, pending/served
-counts and the same ``engine`` block), ``{"cmd": "quit"}`` (drain +
-exit; EOF does the same).  The streaming verbs (``ingest``,
-``advance``, ``subscribe``, ``unsubscribe``) answer the reference's
-"needs stream mode" error: the port has no stream mode yet.  The
-telemetry verbs ``metrics``, ``trace`` and ``profile`` answer ``unknown
-cmd`` until the port's obs slice; ``health`` and ``stats`` carry no
-``obs`` or ``resilience`` block until then.
+counts, the same ``engine`` block, and in stream mode the current epoch
+and the WAL position), ``{"cmd": "quit"}`` (drain + exit; EOF does the
+same).  The telemetry verbs ``metrics``, ``trace`` and ``profile``
+answer ``unknown cmd`` until the port's obs slice; ``health`` and
+``stats`` carry no ``obs`` or ``resilience`` block until then.
+
+Streaming verbs (``--serve --stream``; ``serve_loop(None,
+stream=...)``), the reference's::
+
+    {"cmd": "subscribe", "motif": "M5-3", "delta": 4000, "k": 16384}
+    {"cmd": "ingest", "edges": [[0, 1, 17], [1, 2, 403], ...]}
+    {"cmd": "advance"}
+    {"cmd": "unsubscribe", "sub": 0}
+
+``advance`` answers one line per subscription (``{"sub": N, "epoch": e,
+"ok": true, "estimate": ...}``, in subscription order) and then an
+epoch summary line; each standing estimate equals a cold ``estimate()``
+on that epoch's snapshot.  One-shot request lines are served against
+the current epoch (an error until the first ``advance``).  In plain
+mode the stream verbs answer "needs stream mode".
 
 Responses (one line each, in request order within a window)::
 
@@ -53,9 +67,17 @@ import math
 import sys
 from typing import IO
 
+import numpy as np
+
 from ..gateway.io import LineSource
+from ..resilience import STATS as RSTATS
 from ..resilience import classify, error_payload
 from .session import Handle, Request, Session
+
+
+def _wire_witnesses(res) -> list:
+    return [dict(edges=[list(e) for e in w["edges"]], cnt=w["cnt"])
+            for w in res.witnesses]
 
 
 def _response(rid, handle: Handle) -> dict:
@@ -71,6 +93,8 @@ def _response(rid, handle: Handle) -> dict:
     if res.degraded:
         d.update(degraded=True, degrade_reason=res.degrade_reason,
                  k_done=res.k)
+    if res.witnesses is not None:
+        d.update(witnesses=_wire_witnesses(res))
     return d
 
 
@@ -112,33 +136,105 @@ def _engine_stats() -> dict:
                 witness_dispatches=ESTATS.witness_dispatches)
 
 
-def _stats(session: Session) -> dict:
-    s = session.stats
-    return dict(ok=True, cmd="stats", submitted=s.submitted,
-                completed=s.completed, drains=s.drains,
-                dispatches=s.dispatches, adaptive_rounds=s.adaptive_rounds,
-                preprocess_calls=session.planner.preprocess_calls,
-                preprocess_hits=session.planner.preprocess_hits,
-                engine=_engine_stats())
+def _stats(session: Session | None, stream=None) -> dict:
+    d = dict(ok=True, cmd="stats")
+    if session is not None:
+        s = session.stats
+        d.update(submitted=s.submitted, completed=s.completed,
+                 drains=s.drains, dispatches=s.dispatches,
+                 adaptive_rounds=s.adaptive_rounds,
+                 preprocess_calls=session.planner.preprocess_calls,
+                 preprocess_hits=session.planner.preprocess_hits)
+    if stream is not None:
+        st, ss = stream.store.stats, stream.stats
+        d.update(epochs=ss.epochs, subscriptions=len(stream.queries),
+                 queries_run=ss.queries_run, ingested=st.ingested,
+                 buffered=stream.store.buffered, evicted=st.evicted,
+                 dropped=st.dropped, compactions=st.compactions)
+    d.update(engine=_engine_stats())
+    return d
 
 
-def _health(n_pending: int, served: int) -> dict:
+def _health(stream, n_pending: int, served: int) -> dict:
     """The ``health`` verb's payload, answered without draining."""
-    return dict(ok=True, cmd="health", mode="plain", pending=n_pending,
-                served=served, engine=_engine_stats())
+    d = dict(ok=True, cmd="health",
+             mode="plain" if stream is None else "stream",
+             pending=n_pending, served=served, engine=_engine_stats())
+    if stream is not None:
+        st = stream.store
+        d.update(epoch=st.epoch, buffered=st.buffered)
+        wal = st.wal
+        if wal is not None:
+            d.update(wal=dict(path=wal.path, records=wal.records,
+                              offset=wal.offset))
+    return d
 
 
-def serve_loop(session: Session, infile: IO = None,
-               outfile: IO = None) -> int:
+_SUBSCRIBE_FIELDS = frozenset(
+    ("cmd", "motif", "delta", "k", "seed", "target_rse", "k_max", "name",
+     "witnesses"))
+
+
+def _parse_ingest(obj: dict):
+    edges = obj.get("edges")
+    if not isinstance(edges, list) or not edges:
+        raise ValueError('ingest needs "edges": [[src, dst, t], ...]')
+    a = np.asarray(edges, dtype=np.int64)
+    if a.ndim != 2 or a.shape[1] != 3:
+        raise ValueError(f"edges must be [N, 3] int triples, got "
+                         f"shape {a.shape}")
+    return a[:, 0], a[:, 1], a[:, 2]
+
+
+def _parse_subscribe(obj: dict):
+    unknown = set(obj) - _SUBSCRIBE_FIELDS
+    if unknown:
+        raise ValueError(f"unknown subscribe field(s) {sorted(unknown)}; "
+                         f"accepted: {sorted(_SUBSCRIBE_FIELDS)}")
+    from ..stream import StandingQuery
+    return StandingQuery(
+        motif=str(obj["motif"]), delta=int(obj["delta"]), k=int(obj["k"]),
+        seed=int(obj.get("seed") or 0),
+        target_rse=(None if obj.get("target_rse") is None
+                    else float(obj["target_rse"])),
+        k_max=None if obj.get("k_max") is None else int(obj["k_max"]),
+        name=None if obj.get("name") is None else str(obj["name"]),
+        witnesses=int(obj.get("witnesses") or 0))
+
+
+def _sub_response(qid: int, query, epoch_idx: int, res) -> dict:
+    rse = res.rse
+    d = dict(sub=qid, epoch=epoch_idx, ok=True, name=query.label,
+             estimate=res.estimate, W=res.W, k=res.k, valid=res.valid,
+             rse=None if rse is None or math.isinf(rse) else rse,
+             motif=res.motif, delta=res.delta,
+             sampler_backend=res.sampler_backend,
+             fused_jobs=res.fused_jobs)
+    if res.witnesses is not None:
+        d.update(witnesses=_wire_witnesses(res))
+    return d
+
+
+def serve_loop(session: Session | None, infile: IO = None,
+               outfile: IO = None, stream=None) -> int:
     """Run the NDJSON request/response loop until EOF or ``quit``.
 
-    Returns the number of estimation requests answered.
+    ``stream`` (a ``repro_torch.stream.StreamingSession``) enables the
+    streaming verbs; the resident session is then the stream's current
+    epoch's (swapped on every ``advance``) and ``session`` must be None.
+    Returns the number of estimation requests answered (standing-query
+    epoch responses included).
     """
-    cfg = session.config
+    if (session is None) == (stream is None):
+        raise ValueError("serve_loop needs exactly one of session/stream")
+    cfg = session.config if stream is None else stream.config
     src = LineSource(sys.stdin if infile is None else infile)
     out = sys.stdout if outfile is None else outfile
     pending: list[tuple] = []          # (id, Handle)
     served = 0
+
+    def cur_session() -> Session | None:
+        return session if stream is None else stream.session
 
     def emit(obj: dict) -> None:
         try:
@@ -146,15 +242,19 @@ def serve_loop(session: Session, infile: IO = None,
             out.flush()
         except Exception as e:
             # a client that hung up mid-response must not kill the server
+            RSTATS.emit_failures += 1
             sys.stderr.write(f"serve: response write failed "
                              f"({classify(e)}): {e}\n")
 
     def drain() -> None:
         nonlocal served
+        s = cur_session()
         try:
-            session.flush()
+            if s is not None:
+                s.flush()
         except Exception as e:   # the server stays up; each failed
             # handle answers ok:false below with the classified kind
+            RSTATS.drain_failures += 1
             sys.stderr.write(f"serve: window drain failed "
                              f"({classify(e)}): {e}\n")
         for rid, h in pending:
@@ -165,11 +265,51 @@ def serve_loop(session: Session, infile: IO = None,
             served += 1
         pending.clear()
 
+    def do_advance() -> None:
+        # drain first: pending handles belong to the OLD epoch's session
+        nonlocal served
+        drain()
+        try:
+            er = stream.advance()
+        except Exception as e:           # noqa: BLE001 — e.g. empty stream
+            emit(dict(ok=False, cmd="advance", **error_payload(e)))
+            return
+        for qid in sorted(er.results):
+            emit(_sub_response(qid, stream.queries[qid], er.epoch.index,
+                               er.results[qid]))
+            served += 1
+        ep = er.epoch
+        emit(dict(ok=True, cmd="advance", epoch=ep.index, m=ep.m_real,
+                  n=ep.n_real, t_lo=ep.t_lo, t_hi=ep.t_hi,
+                  evicted=ep.evicted, buckets=list(ep.buckets),
+                  queries=len(er.results),
+                  advance_s=round(er.advance_s, 6)))
+
+    def do_stream_verb(cmd: str, obj: dict) -> None:
+        try:
+            if cmd == "ingest":
+                esrc, edst, et = _parse_ingest(obj)
+                n_in = stream.ingest(esrc, edst, et)
+                emit(dict(ok=True, cmd="ingest", ingested=n_in,
+                          dropped=len(esrc) - n_in,
+                          buffered=stream.store.buffered))
+            elif cmd == "subscribe":
+                q = _parse_subscribe(obj)
+                emit(dict(ok=True, cmd="subscribe",
+                          sub=stream.subscribe(q), name=q.label))
+            else:
+                q = stream.unsubscribe(int(obj["sub"]))
+                emit(dict(ok=True, cmd="unsubscribe", sub=int(obj["sub"]),
+                          name=q.label))
+        except Exception as e:           # noqa: BLE001 — server stays up
+            emit(dict(ok=False, cmd=cmd, **error_payload(e)))
+
     quit_seen = False
     while not quit_seen:
         # block for the window's first request; afterwards poll with the
         # window's remaining lifetime so a quiet client closes it
-        age = session.window_age()
+        s = cur_session()
+        age = s.window_age() if s is not None else None
         if pending and age is None:     # session auto-drained (count-closed)
             drain()
             continue
@@ -198,12 +338,16 @@ def serve_loop(session: Session, infile: IO = None,
             quit_seen = True
         elif cmd == "stats":
             drain()                     # deterministic ordering
-            emit(_stats(session))
+            emit(_stats(cur_session(), stream))
         elif cmd == "health":
-            emit(_health(len(pending), served))
-        elif cmd in _STREAM_VERBS:
+            emit(_health(stream, len(pending), served))
+        elif cmd in _STREAM_VERBS and stream is None:
             emit(dict(ok=False, error=f"cmd {cmd!r} needs stream mode "
                                       "(--serve --stream)"))
+        elif cmd == "advance":
+            do_advance()
+        elif cmd in _STREAM_VERBS:
+            do_stream_verb(cmd, obj)
         elif cmd is not None:
             emit(dict(ok=False, error=f"unknown cmd {cmd!r}"))
         else:
@@ -215,8 +359,12 @@ def serve_loop(session: Session, infile: IO = None,
                 if isinstance(req.motif, str):
                     from ..core.motif import get_motif
                     get_motif(req.motif)
-                pending.append((rid, session.submit(req)))
-                if session.window_age() is None:    # count-closed mid-add
+                s = cur_session()
+                if s is None:
+                    raise RuntimeError("no epoch materialized yet — "
+                                       "send ingest + advance first")
+                pending.append((rid, s.submit(req)))
+                if s.window_age() is None:          # count-closed mid-add
                     drain()
             except Exception as e:       # noqa: BLE001
                 emit(dict(id=rid, ok=False, **error_payload(e)))

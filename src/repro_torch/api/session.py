@@ -27,8 +27,13 @@ standard error over checkpoint windows meets the target or ``k_max`` is
 hit; growth rounds RESUME (``EngineJob.resume``) and never redraw a
 chunk.  Deadlines use ``time.monotonic``.
 
-Not here yet: witnesses (``Request.witnesses > 0`` is refused), the mesh
-and obs tracing.
+Witnesses: ``Request.witnesses = n`` asks for up to ``n`` accepted
+full-match edge tuples beside the count; the handle merges the engine's
+reservoir across adaptive rounds (least priority per edge-id tuple), so
+an adaptive result carries the witnesses of one uninterrupted run at its
+final budget.
+
+Not here yet: the mesh and obs tracing.
 """
 from __future__ import annotations
 
@@ -38,12 +43,12 @@ from dataclasses import dataclass
 from typing import Iterator, Sequence
 
 from ..core.batch import BatchPlanner
+from ..core.engine import witness_entries
 from ..core.estimator import EstimateResult
 from ..core.graph import TemporalGraph
 from ..core.motif import TemporalMotif, get_motif
 from ..core.spanning_tree import SpanningTree
 from ..core.weights import Weights
-from ..resilience import BadRequestError
 from .config import EstimateConfig
 
 #: reservoir-width ceiling for ``Request.witnesses`` (the reference's)
@@ -67,8 +72,12 @@ class Request:
     checkpoint window and ``result()`` returns a partial marked
     ``degraded=True`` — never an error.
 
-    ``witnesses`` takes the reference's range, but the port has no
-    witness capture yet: a positive value raises ``BadRequestError``.
+    ``witnesses=n`` asks for up to ``n`` accepted full-match edge tuples
+    alongside the count (``EstimateResult.witnesses``; each per-window
+    :class:`Progress` snapshot carries the running top ``n``).  Witness
+    capture re-draws the chunks the estimate counted (same keys,
+    priorities from ``(seed, chunk, position)`` alone), so the count
+    stays bit-identical and the witnesses are cohort-invariant.
 
     ``tree``/``wts`` are the injection seam the ``estimate()`` shim
     uses: a fixed spanning tree skips Alg. 7, precomputed ``Weights``
@@ -102,10 +111,6 @@ class Request:
         if not 0 <= self.witnesses <= MAX_WITNESSES:
             raise ValueError(f"witnesses must be in [0, {MAX_WITNESSES}], "
                              f"got {self.witnesses}")
-        if self.witnesses:
-            raise BadRequestError(
-                "witnesses are not in the PyTorch port yet: they arrive "
-                "with its witnesses slice")
 
 
 @dataclass(frozen=True)
@@ -117,6 +122,8 @@ class Progress:
     cnt2_sum: int      # cumulative count accumulator
     estimate: float    # W * cnt2_sum / (2 * k_done)
     rse: float         # batch-means RSE over windows so far (inf if < 2)
+    # running top-n witness entries (None unless Request.witnesses > 0)
+    witnesses: tuple | None = None
 
 
 @dataclass
@@ -145,6 +152,9 @@ class Handle:
         self._error: BaseException | None = None
         self._progress: list[Progress] = []
         self._windows: list[tuple[int, int]] = []   # (S_i, k_i) batches
+        # witness reservoir merged across adaptive rounds (least priority
+        # per edge-id tuple: the union equals one uninterrupted run's)
+        self._wit: dict = {}
         # resolved lazily at first drain
         self._motif: TemporalMotif | None = None
         self._tree: SpanningTree | None = None
@@ -205,9 +215,17 @@ class Handle:
         k_done = (j0 + n) * chunk
         W = int(job.wts.W_total)
         cnt2 = int(job.acc["cnt2"])
+        wit = None
+        if job.witnesses:
+            for eid_row, e in job.wit.items():
+                cur = self._wit.get(eid_row)
+                if cur is None or e["prio"] < cur["prio"]:
+                    self._wit[eid_row] = e
+            wit = witness_entries(self._wit, job.witnesses)
         self._progress.append(Progress(
             window=len(self._progress), k_done=k_done, cnt2_sum=cnt2,
-            estimate=W * cnt2 / (2.0 * k_done), rse=self._current_rse()))
+            estimate=W * cnt2 / (2.0 * k_done), rse=self._current_rse(),
+            witnesses=wit))
 
     def _current_rse(self) -> float:
         if self._wts is not None and int(self._wts.W_total) == 0:
@@ -390,7 +408,7 @@ class Session:
                 seed=int(cfg.seed if req.seed is None else req.seed),
                 tree=h._tree, wts=h._wts,
                 checkpoint_path=req.checkpoint_path, resume=h._resume,
-                deadline_t=h._deadline_t)
+                deadline_t=h._deadline_t, witnesses=int(req.witnesses))
             job.tree_select_s = h._tree_select_s
             job.preprocess_s = h._preprocess_s
             handles.append(h)
@@ -406,6 +424,10 @@ class Session:
         still_growing: list[Handle] = []
         for h, job, res in zip(handles, jobs, results):
             res.rse = h._current_rse()
+            if h.request.witnesses:
+                # the engine result covers this round alone; answer with
+                # the handle's cross-round merged reservoir
+                res.witnesses = witness_entries(h._wit, h.request.witnesses)
             h._result = res
             if res.degraded:
                 # the engine stopped this job at its deadline: its

@@ -23,9 +23,16 @@ Checkpoints are the reference's JSON ``{motif, delta, seed, chunk,
 tree_edges, chunks_done, acc}``, written atomically, matched by the same
 predicate and ignored when torn: files cross between the two packages.
 
+Witnesses (``EngineJob.witnesses > 0``): after each counted window the
+job's witness window re-draws the same chunks with the same keys
+(``sampler.make_witness_fn``; on the card a second sampler launch per
+chunk), keeps the window's top ``n_wit`` accepted matches by
+deterministic priority and merges them into ``job.wit``, keyed by the
+edge-id tuple.  A job without witnesses never re-draws.
+
 Not here (the reference's, to come with later slices of the port): the
-mesh, the retry ladder and its degradation rungs, witnesses, obs spans
-and the compiled-program LRU (nothing is compiled).  The reference pads
+mesh, the retry ladder and its degradation rungs, obs spans and the
+compiled-program LRU (nothing is compiled).  The reference pads
 a cohort's stream rows to the group's width only to avoid a retrace;
 the port does not pad.
 """
@@ -43,7 +50,8 @@ from ..resilience import atomic_write_json
 from . import rng
 from .estimator import ACC_KEYS, EstimateResult, unbias_estimate
 from .motif import TemporalMotif
-from .sampler import make_batched_sample_fn, make_cohort_count_fn
+from .sampler import (WITNESS_SENTINEL, make_batched_sample_fn,
+                      make_cohort_count_fn, make_witness_fn)
 from .spanning_tree import SpanningTree, tree_signature
 from .weights import Weights
 
@@ -72,6 +80,52 @@ def make_engine_window_fn(trees, chunk: int, Lmax: int, device):
             out = cc_fn(dev, wts, bs_fn(dev, wts, keys[i]))
             sums += torch.stack([out[kk] for kk in ACC_KEYS])
         return dict(zip(ACC_KEYS, sums.tolist()))
+
+    return window
+
+
+_WIT_KEYS = ("prio", "eids", "src", "dst", "t", "cnt2")
+
+
+def _witness_width(n: int) -> int:
+    """The reservoir width the reference compiles for ``witnesses=n``: a
+    power of two, floor 4 (the host trims back to ``n``).  Kept so the
+    window's top rows are the reference's."""
+    return max(4, 1 << (int(n) - 1).bit_length())
+
+
+def make_witness_window_fn(tree, chunk: int, Lmax: int, n_wit: int, device):
+    """``fn(dev, wts, base_key, j0, n, seed) -> dict``: scan chunks
+    ``j0 .. j0+n-1`` merging each chunk's witness reservoir
+    (``sampler.make_witness_fn``) into the window's top ``n_wit``.
+
+    Chunk ``j`` re-draws from ``fold_in(base_key, j)``, the key the
+    counting path used, so witnesses come from the instances the
+    estimate counted.  The merge is a stable sort of the carry followed
+    by the chunk's rows, as the reference's scan, so the window's top
+    ``n_wit`` is the reference's row for row.
+    """
+    w_fn = make_witness_fn(tree, chunk, device, Lmax=Lmax, n_wit=n_wit)
+    S = tree.num_edges
+    device = torch.device(device)
+
+    def window(dev, wts, base_key, j0, n, seed):
+        keys = rng.fold_in(base_key, torch.arange(j0, j0 + n)).to(device)
+        carry = dict(prio=torch.full((n_wit,), WITNESS_SENTINEL,
+                                     dtype=torch.int64, device=device),
+                     **{kk: torch.zeros((n_wit, S), dtype=torch.int64,
+                                        device=device)
+                        for kk in ("eids", "src", "dst", "t")},
+                     cnt2=torch.zeros(n_wit, dtype=torch.int64,
+                                      device=device))
+        for i in range(n):
+            out = w_fn(dev, wts, keys[i], j0 + i, seed)
+            prio = torch.cat([carry["prio"], out["prio"]])
+            order = torch.argsort(prio, stable=True)[:n_wit]
+            carry = {kk: torch.cat([carry[kk], out[kk]])[order]
+                     for kk in _WIT_KEYS}
+            STATS.witness_chunks += 1
+        return carry
 
     return window
 
@@ -107,6 +161,13 @@ class EngineJob:
     # job stops at its last completed checkpoint window and returns a
     # partial result marked ``degraded`` (never an error)
     deadline_t: float | None = None
+    # witness capture: keep up to this many accepted full-match edge
+    # tuples (deterministic reservoir, ``sampler.witness_priority``).
+    # 0 = no witness window at all (the count path never pays for it).
+    witnesses: int = 0
+    # merged witness reservoir, keyed by the edge-id tuple: the same
+    # match sampled in several chunks collapses to its best priority
+    wit: dict = field(default_factory=dict)
     # resolved by plan_jobs
     backend: str = ""
     fallback_reason: str = ""
@@ -160,7 +221,12 @@ class EngineStats:
     ``tree_cohorts``        cohort windows dispatched
     ``cohort_motif_lanes``  distinct motif lanes over those windows
     ``samples_shared``      samples consumed without being redrawn
-    ``witness_dispatches``  witness windows (none until witnesses land)
+    ``witness_dispatches``  witness windows run
+    ``witness_chunks``      chunks re-drawn by witness windows (the
+                            port's own: on the card one sampler launch
+                            each, apart from the counting path's)
+    ``witness_s``           wall seconds in witness windows, device
+                            synced (the port's own)
     """
 
     dispatches: int = 0
@@ -170,10 +236,12 @@ class EngineStats:
     cohort_motif_lanes: int = 0
     samples_shared: int = 0
     witness_dispatches: int = 0
+    witness_chunks: int = 0
+    witness_s: float = 0.0
 
     def reset(self) -> None:
         for f in fields(self):
-            setattr(self, f.name, 0)
+            setattr(self, f.name, f.default)
 
     @property
     def motifs_per_cohort(self) -> float:
@@ -220,6 +288,47 @@ def _write_checkpoint(job: EngineJob, chunk: int) -> None:
         dict(motif=job.motif.name, delta=job.delta, seed=job.seed,
              chunk=chunk, tree_edges=list(job.tree.edge_ids),
              chunks_done=job.cursor, acc=job.acc))
+
+
+def _run_witness_window(fn, plan, group, job, j0, n) -> None:
+    """Run one job's witness window ``fn`` (``make_witness_window_fn``,
+    built once per job) over a counted window and merge its top rows
+    into ``job.wit``.
+
+    ``job.wit`` keeps every per-window survivor at its best (smallest)
+    priority and is never trimmed here, so an adaptive run split into
+    resume rounds merges to the same set as one uninterrupted run.
+    """
+    t0 = time.perf_counter()
+    out = fn(plan.dev, group.wts, job.base_key, j0, n, job.seed)
+    out = {kk: out[kk].tolist() for kk in _WIT_KEYS}
+    STATS.witness_s += time.perf_counter() - t0
+    STATS.witness_dispatches += 1
+    width = len(out["prio"])
+    # present edges in motif (pi) order, not tree-local order
+    rank_order = sorted(range(job.tree.num_edges),
+                        key=lambda s: job.tree.edge_ids[s])
+    for i in range(width):
+        p = out["prio"][i]
+        if p >= WITNESS_SENTINEL:
+            break                      # sorted: the rest are padding
+        eid_row = tuple(out["eids"][i])
+        cur = job.wit.get(eid_row)
+        if cur is None or p < cur["prio"]:
+            job.wit[eid_row] = dict(
+                prio=p, cnt=out["cnt2"][i],
+                edges=tuple((out["src"][i][s], out["dst"][i][s],
+                             out["t"][i][s]) for s in rank_order))
+
+
+def witness_entries(wit: dict, n: int) -> tuple:
+    """A merged witness reservoir as the public payload: up to ``n``
+    entries ordered by reservoir priority, each ``{"edges": ((src, dst,
+    t), ...), "cnt": ..., "prio": ...}`` with the tree's edges in motif
+    (pi) order (the reference's format; JSON-safe)."""
+    top = sorted(wit.values(), key=lambda e: e["prio"])[:max(0, int(n))]
+    return tuple(dict(edges=e["edges"], cnt=e["cnt"], prio=e["prio"])
+                 for e in top)
 
 
 def plan_jobs(jobs, *, dev: dict, chunk: int = 8192, Lmax: int = 16,
@@ -305,6 +414,11 @@ def run_plan(plan: ExecutionPlan, on_window=None) -> list[EstimateResult]:
     for group in plan.groups:
         window_fn = make_engine_window_fn(group.lane_trees, plan.chunk,
                                           plan.Lmax, device)
+        witness_fns = {
+            id(job): make_witness_window_fn(
+                job.tree, plan.chunk, plan.Lmax,
+                _witness_width(job.witnesses), device)
+            for job in group.jobs if job.witnesses}
         active = [j for j in group.jobs if j.cursor < j.n_chunks]
         while active:
             active = _mark_deadline_expired(active, plan.chunk)
@@ -341,6 +455,9 @@ def run_plan(plan: ExecutionPlan, on_window=None) -> list[EstimateResult]:
                         job.acc[kk] += wsums[kk]
                     job.cursor = j0 + n
                     job.sampling_s += dt
+                    if job.witnesses:
+                        _run_witness_window(witness_fns[id(job)], plan,
+                                            group, job, j0, n)
                     if job.checkpoint_path:
                         _write_checkpoint(job, plan.chunk)
                     if on_window is not None:
@@ -362,5 +479,7 @@ def run_plan(plan: ExecutionPlan, on_window=None) -> list[EstimateResult]:
             preprocess_s=job.preprocess_s, sampling_s=job.sampling_s,
             tree_select_s=job.tree_select_s, sampler_backend=job.backend,
             fallback_reason=job.fallback_reason, fused_jobs=job.group_size,
-            degraded=job.degraded, degrade_reason=job.degrade_reason))
+            degraded=job.degraded, degrade_reason=job.degrade_reason,
+            witnesses=(witness_entries(job.wit, job.witnesses)
+                       if job.witnesses else None)))
     return results

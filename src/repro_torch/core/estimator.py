@@ -72,6 +72,10 @@ class EstimateResult:
     # window, ``k`` reports the samples actually drawn (never an error)
     degraded: bool = False
     degrade_reason: str = ""
+    # up to ``Request.witnesses`` accepted full-match edge tuples from the
+    # deterministic reservoir (``engine.witness_entries`` format); None
+    # when the request did not ask for witnesses
+    witnesses: tuple | None = None
 
     @property
     def valid_rate(self) -> float:

@@ -20,6 +20,12 @@ scores it against every member motif: ``make_batched_sample_fn`` takes
 the chunk keys of J streams at once (one kernel launch for all of
 them), and ``make_cohort_count_fn`` runs each lane motif's own count fn
 over the same ``[J, K]`` samples.
+
+Witness capture (``make_witness_fn``) re-draws a counted chunk with the
+counting path's key (on the card a second launch of the sampler kernel)
+and keeps its accepted samples of least ``witness_priority``, a
+splitmix64 hash of ``(seed, chunk, position)`` computed bit for bit as
+the reference computes it in uint64.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ import torch
 
 from ..kernels.tree_sampler.ops import build_schedule, tree_sampler_keyed
 from .estimator import ACC_KEYS
+from .rng import _join64
 from .spanning_tree import SpanningTree
 from .validate import make_count_fn
 
@@ -109,5 +116,119 @@ def make_cohort_count_fn(lane_trees, K: int, Lmax: int = 16,
                                                          dtype=torch.int64)
                                 for o in outs], dim=1)
                 for k in keys}
+
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# witness extraction: deterministic per-chunk reservoir over accepted matches
+# ---------------------------------------------------------------------------
+#: int64 priority sentinel meaning "no accepted match in this slot":
+#: reservoir rows carrying it are padding the host drops.
+WITNESS_SENTINEL = (1 << 63) - 1
+
+_M32 = 0xFFFFFFFF
+_M64 = (1 << 64) - 1
+
+
+def _words(x: torch.Tensor) -> tuple:
+    """A uint64 bit pattern held in int64 -> its two uint32 words."""
+    return (x >> 32) & _M32, x & _M32
+
+
+def _add_const(hi, lo, c: int) -> tuple:
+    """``(hi, lo) + c`` mod 2^64, on words (no sum reaches 2^34)."""
+    lo = lo + (c & _M32)
+    hi = (hi + (c >> 32) + (lo >> 32)) & _M32
+    return hi, lo & _M32
+
+
+def _shr(hi, lo, r: int) -> tuple:
+    """Logical ``(hi, lo) >> r`` for ``0 < r < 32``."""
+    return hi >> r, (lo >> r) | ((hi & ((1 << r) - 1)) << (32 - r))
+
+
+def _mul_const(hi, lo, c: int) -> tuple:
+    """``(hi, lo) * c`` mod 2^64, on 16-bit pieces so that no partial
+    product reaches 2^63."""
+    ch, cl = c >> 32, c & _M32
+    a1, a0 = lo >> 16, lo & 0xFFFF
+    b1, b0 = cl >> 16, cl & 0xFFFF
+    mid = a1 * b0 + a0 * b1                         # < 2^33
+    low = a0 * b0 + ((mid & 0xFFFF) << 16)           # < 2^33
+    carry = a1 * b1 + (mid >> 16) + (low >> 32)      # hi word of lo * cl
+
+    def mul_lo32(x, y: int):                         # (x * y) mod 2^32
+        return (x * (y & 0xFFFF) + (((x * (y >> 16)) & 0xFFFF) << 16)) & _M32
+
+    hi = (carry + mul_lo32(hi, cl) + mul_lo32(lo, ch)) & _M32
+    return hi, low & _M32
+
+
+def splitmix64(x: torch.Tensor) -> torch.Tensor:
+    """The splitmix64 finalizer over int64 tensors holding uint64 bit
+    patterns: the same bijective hash as the reference's device
+    ``splitmix64`` (uint64 lanes) and ``resilience.retry._splitmix64``,
+    on 32-bit words with no signed wrap-around."""
+    hi, lo = _add_const(*_words(x), 0x9E3779B97F4A7C15)
+    for r, c in ((30, 0xBF58476D1CE4E5B9), (27, 0x94D049BB133111EB)):
+        sh, sl = _shr(hi, lo, r)
+        hi, lo = _mul_const(hi ^ sh, lo ^ sl, c)
+    sh, sl = _shr(hi, lo, 31)
+    return _join64(hi ^ sh, lo ^ sl)
+
+
+def _as_u64(v, device) -> torch.Tensor:
+    """A Python int taken mod 2^64, as its int64 bit pattern."""
+    v = int(v) & _M64
+    return torch.tensor(v - (1 << 64) if v >> 63 else v, dtype=torch.int64,
+                        device=device)
+
+
+def witness_priority(seed: int, j: int, K: int, device="cpu"
+                     ) -> torch.Tensor:
+    """Reservoir priorities for chunk ``j``: one int64 in
+    ``[0, WITNESS_SENTINEL)`` per sample position, a pure function of
+    ``(seed, chunk, position)`` (never the motif, cohort lane or device),
+    equal to the reference's."""
+    base = splitmix64(_as_u64(seed, device)
+                      ^ splitmix64(_as_u64(j, device)))
+    h = splitmix64(base ^ torch.arange(K, dtype=torch.int64, device=device))
+    hi, lo = _shr(*_words(h), 1)
+    return torch.clamp(_join64(hi, lo), max=WITNESS_SENTINEL - 1)
+
+
+def make_witness_fn(tree: SpanningTree, K: int, device, Lmax: int = 16,
+                    n_wit: int = 8):
+    """``fn(dev, wts, key, j, seed) -> dict``: the chunk's top-``n_wit``
+    accepted full-match witnesses by deterministic reservoir priority.
+
+    The caller passes the SAME ``fold_in(base_key, j)`` key the counting
+    path used for chunk ``j``, so the re-draw (on the card a second
+    launch of the sampler kernel) gives exactly the instances the
+    estimate counted; the count path is never touched.  Samples are
+    scored with the tree's own count fn; of the accepted ones (``valid &
+    ~overflow & cnt2 > 0``) the ``n_wit`` of least ``witness_priority``
+    survive, rejected slots get the sentinel (a stable sort, as jax's).
+
+    Returns ``prio [n]``, ``eids [n, S]`` (graph edge ids, tree-local
+    order), ``src``/``dst``/``t [n, S]`` (gathered on the device, so the
+    host pulls ``n_wit`` rows) and ``cnt2 [n]``, all int64.
+    """
+    s_fn = make_sample_fn(tree, K, device)
+    c_fn = make_count_fn(tree, K, Lmax=Lmax)
+
+    def fn(dev, wts, key, j, seed):
+        samples = s_fn(dev, wts, key)
+        out = c_fn(dev, wts, samples)
+        accepted = out["valid"] & ~out["overflow"] & (out["cnt2"] > 0)
+        on = samples["edges"].device
+        prio = torch.where(accepted, witness_priority(seed, j, K, on),
+                           WITNESS_SENTINEL)
+        order = torch.argsort(prio, stable=True)[:n_wit]
+        E = samples["edges"][order]                     # [n_wit, S]
+        return dict(prio=prio[order], eids=E, src=dev["src"][E].long(),
+                    dst=dev["dst"][E].long(), t=dev["t"][E].long(),
+                    cnt2=out["cnt2"][order].long())
 
     return fn

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..kernels.interval_weight.ops import dep_sum, kernel_arrays
-from .graph import TemporalGraph
+from .graph import TemporalGraph, pad_bucket
 from .spanning_tree import OUT, SpanningTree
 
 
@@ -39,7 +39,7 @@ class Weights:
     tree: SpanningTree
     delta: int
     wd: int                    # window stride (== delta; C3-off: span + 1)
-    q: int                     # window count
+    q: int                     # real window count (<= q_pad)
     use_c2: bool
     w_own: torch.Tensor        # [S, m] int64
     w_prev: torch.Tensor       # [S, m] int64
@@ -48,14 +48,19 @@ class Weights:
     ps_pair_own: torch.Tensor  # [S, m+1]
     ps_pair_prev: torch.Tensor  # [S, m+1]
     W_total: torch.Tensor      # 0-d int64
-    ps_win: torch.Tensor       # [q+1] exclusive prefix of window totals
-    win_lo: torch.Tensor       # [q] first edge id with t >= i*wd
-    win_mid: torch.Tensor      # [q] first edge id with t >= (i+1)*wd
-    win_hi: torch.Tensor       # [q] first edge id with t >= (i+2)*wd
+    ps_win: torch.Tensor       # [q_pad+1] exclusive prefix of window totals
+    win_lo: torch.Tensor       # [q_pad] first edge id with t >= i*wd
+    win_mid: torch.Tensor      # [q_pad] first edge id with t >= (i+1)*wd
+    win_hi: torch.Tensor       # [q_pad] first edge id with t >= (i+2)*wd
 
     @property
     def W_win(self) -> torch.Tensor:
         return self.ps_win[1:] - self.ps_win[:-1]
+
+    @property
+    def q_pad(self) -> int:
+        """Window-array length (>= q; == q on unpadded graphs)."""
+        return int(self.ps_win.shape[0]) - 1
 
 
 ARRAY_FIELDS = ("w_own", "w_prev", "ps_acc_own", "ps_acc_prev",
@@ -98,19 +103,20 @@ def num_windows(time_span: int, wd: int) -> int:
 
 
 def make_preprocess_fn(tree: SpanningTree, use_c2: bool = True):
-    """Build ``fn(dev, delta, wd, q) -> weight dict``.
+    """Build ``fn(dev, delta, wd, q, q_pad=None) -> weight dict``.
 
     ``wd`` is the window stride (Constraint 3): ``wd == delta`` normally,
     ``wd > time_span`` collapses to a single window (C3 disabled).
     ``use_c2=False`` drops the ``\\ El`` exclusion (Constraint 2
-    disabled).  The arrays live on the device of ``dev``.
+    disabled).  The window arrays get ``q_pad`` entries (``q`` when not
+    given).  The arrays live on the device of ``dev``.
     """
     S = tree.num_edges
     order = list(reversed(tree.topo_down))   # children before parents
     alpha_of = access_alpha(tree)
     root = tree.root
 
-    def fn(dev, delta, wd, q):
+    def fn(dev, delta, wd, q, q_pad=None):
         delta, wd, q = int(delta), int(wd), int(q)
         t = dev["t"]
         m = t.shape[0]
@@ -157,21 +163,27 @@ def make_preprocess_fn(tree: SpanningTree, use_c2: bool = True):
             ps_acc_prev=torch.stack([a[1] for a in acc]),
             ps_pair_own=torch.stack([p[0] for p in pair]),
             ps_pair_prev=torch.stack([p[1] for p in pair]))
-        out.update(window_totals(t, ps_root[0], ps_root[1], wd, q))
+        out.update(window_totals(t, ps_root[0], ps_root[1], wd, q,
+                                 q if q_pad is None else int(q_pad)))
         out["W_total"] = out["ps_win"][-1]
         return out
 
     return fn
 
 
-def window_totals(t, ps_root_own, ps_root_prev, wd: int, q: int) -> dict:
-    """Per-window totals (Claim 4.10 restricted to window i)."""
-    iarr = torch.arange(q, dtype=torch.int64, device=t.device)
+def window_totals(t, ps_root_own, ps_root_prev, wd: int, q: int,
+                  q_pad: int) -> dict:
+    """Per-window totals (Claim 4.10 restricted to window i) over
+    ``q_pad >= q`` window slots: slots ``>= q`` get ``W_i = 0``, so
+    ``ps_win`` is flat across them and the window draw never lands
+    there."""
+    iarr = torch.arange(q_pad, dtype=torch.int64, device=t.device)
     win_lo = torch.searchsorted(t, iarr * wd, side="left")
     win_mid = torch.searchsorted(t, (iarr + 1) * wd, side="left")
     win_hi = torch.searchsorted(t, (iarr + 2) * wd, side="left")
     W_i = ((ps_root_own[win_mid] - ps_root_own[win_lo])
            + (ps_root_prev[win_hi] - ps_root_prev[win_mid]))
+    W_i = torch.where(iarr < q, W_i, 0)
     return dict(ps_win=_excl(W_i), win_lo=win_lo, win_mid=win_mid,
                 win_hi=win_hi)
 
@@ -188,6 +200,8 @@ def preprocess(g: TemporalGraph, tree: SpanningTree, delta: int,
         dev = g.device_arrays(device)
     wd = int(delta) if use_c3 else int(g.time_span) + 1
     q = num_windows(g.time_span, wd)
-    out = make_preprocess_fn(tree, use_c2=use_c2)(dev, delta, wd, q)
+    # a padded snapshot buckets its window arrays too, as the reference's
+    q_pad = pad_bucket(q) if g.pad_windows else q
+    out = make_preprocess_fn(tree, use_c2=use_c2)(dev, delta, wd, q, q_pad)
     return Weights(tree=tree, delta=int(delta), wd=wd, q=q, use_c2=use_c2,
                    **out)

@@ -133,6 +133,13 @@ def _check_inputs(schedule, S, dev, wts, device, extra):
                              f"{device}, got {v.dtype} on {v.device}")
     if wts.ps_acc_own.shape != (S, m + 1):
         raise ValueError("tree_sampler: prefixes must be [S, m+1]")
+    # a padded snapshot's window arrays hold q_pad >= q slots; the
+    # searches stay inside the real [0, q)
+    if not (1 <= wts.q <= wts.q_pad and all(
+            getattr(wts, n).shape == (wts.q_pad,)
+            for n in ("win_lo", "win_mid", "win_hi"))):
+        raise ValueError("tree_sampler: window arrays must hold "
+                         "q_pad >= q >= 1 slots")
     if len(schedule) > MAX_STEPS or len(schedule) != S - 1:
         raise ValueError(f"tree_sampler: a tree of {S} edges needs "
                          f"{S - 1} <= {MAX_STEPS} schedule steps")

@@ -48,7 +48,9 @@ def tree_sampler_ref(schedule, root: int, S: int, dev: dict, wts, x, uhi,
     it = bisect_iters(m)
     delta, wd, q = wts.delta, wts.wd, wts.q
     K = x.shape[0]
-    itq = bisect_iters(q)
+    # trip count from the window-array length, as the reference's: the
+    # search runs over the real [0, q) (pad windows have W_i = 0)
+    itq = bisect_iters(wts.q_pad)
 
     # -- 1. window -------------------------------------------------------
     zeros = torch.zeros(K, dtype=torch.int64, device=x.device)

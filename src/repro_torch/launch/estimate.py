@@ -25,6 +25,15 @@ protocol is ``repro_torch.api.serve``):
       | PYTHONPATH=src python -m repro_torch.launch.estimate \\
           --graph powerlaw:n=150,m=2000,time_span=40000,seed=11 \\
           --serve --chunk 256 --device cpu
+
+Live streams: ``--serve --stream`` starts on an EMPTY graph and takes
+the ``subscribe`` / ``ingest`` / ``advance`` / ``unsubscribe`` verbs
+(``--graph`` is ignored); ``--wal PATH`` logs the ingest/advance history
+and recovers it on restart; ``--horizon`` is the sliding retention.
+``--stream-replay FILE`` replays an edge-list file as a stream in
+``--replay-batch`` batches, advancing an epoch every ``--advance-every``
+batches and re-estimating the ``--motif`` x ``--delta`` standing queries
+per epoch.
 """
 from __future__ import annotations
 
@@ -87,12 +96,99 @@ def main(argv=None) -> None:
                          "concurrent requests can fuse")
     ap.add_argument("--coalesce-max", type=int, default=64,
                     help="serve: max requests per submit window")
+    ap.add_argument("--stream", action="store_true",
+                    help="with --serve: start on an EMPTY live graph and "
+                         "accept ingest/advance/subscribe verbs "
+                         "(repro_torch.stream; --graph is ignored)")
+    ap.add_argument("--stream-replay", default=None, metavar="FILE",
+                    help="replay an edge-list file (text/.gz/.npz) as a "
+                         "live stream: ingest in batches, advance epochs, "
+                         "re-estimate the --motif x --delta standing "
+                         "queries per epoch")
+    ap.add_argument("--horizon", type=int, default=None,
+                    help="stream: sliding retention window in time units "
+                         "(edges older than newest-t minus horizon are "
+                         "evicted at compaction; default: keep all)")
+    ap.add_argument("--replay-batch", type=int, default=65536,
+                    help="stream replay: edges per ingest batch")
+    ap.add_argument("--advance-every", type=int, default=1,
+                    help="stream replay: ingest batches per epoch advance")
+    ap.add_argument("--wal", default=None, metavar="PATH",
+                    help="with --serve --stream: crash-safe write-ahead "
+                         "log; ingest/advance history is fsynced to PATH "
+                         "and replayed on restart (torn tail truncated)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default: the hand-written kernels) or cpu "
                          "(their plain torch versions)")
     args = ap.parse_args(argv)
+    if args.stream and not args.serve:
+        ap.error("--stream requires --serve (for offline replay use "
+                 "--stream-replay FILE)")
+    if args.horizon is not None and not (args.stream or args.stream_replay):
+        ap.error("--horizon only applies to stream modes (--serve --stream "
+                 "or --stream-replay)")
+    if args.wal is not None and not (args.serve and args.stream):
+        ap.error("--wal requires --serve --stream (the WAL logs the live "
+                 "ingest/advance history)")
 
     from ..api import EstimateConfig
+    # an inline motif spec contains commas itself: a --motif that parses
+    # as ONE spec is a single motif, not a comma list
+    motifs = ([args.motif] if is_motif_spec(args.motif)
+              else args.motif.split(","))
+    deltas = [int(d) for d in str(args.delta).split(",")]
+
+    if args.serve and args.stream:
+        from ..api import serve_loop
+        from ..stream import StreamingSession, StreamStore
+        # the device is checked before the WAL is opened or recovered
+        cfg = EstimateConfig(chunk=args.chunk, seed=args.seed,
+                             coalesce_window_s=args.coalesce_window,
+                             coalesce_max_requests=args.coalesce_max,
+                             device=args.device).resolve()
+        if args.wal is not None:
+            store = StreamStore.recover(args.wal, horizon=args.horizon)
+            print(f"WAL {args.wal}: recovered epoch={store.epoch} "
+                  f"buffered={store.buffered} "
+                  f"ingested={store.stats.ingested}",
+                  file=sys.stderr, flush=True)
+            ss_kw = dict(store=store)
+        else:
+            ss_kw = dict(horizon=args.horizon)
+        with StreamingSession(config=cfg, **ss_kw) as ss:
+            print(f"serving LIVE stream  horizon={args.horizon}  "
+                  f"wal={args.wal}  device={args.device}",
+                  file=sys.stderr, flush=True)
+            served = serve_loop(None, stream=ss)
+        print(f"served {served} responses", file=sys.stderr)
+        return
+
+    if args.stream_replay:
+        from ..stream import StandingQuery, StreamingSession, replay_epochs
+        cfg = EstimateConfig(chunk=args.chunk, seed=args.seed,
+                             device=args.device)
+        with StreamingSession(config=cfg, horizon=args.horizon) as ss:
+            qids = {ss.subscribe(StandingQuery(m, d, args.k,
+                                               seed=args.seed)): (m, d)
+                    for m in motifs for d in deltas}
+            print(f"replaying {args.stream_replay}  horizon={args.horizon}  "
+                  f"batch={args.replay_batch}  queries={len(qids)}")
+            for er in replay_epochs(ss, args.stream_replay,
+                                    batch_size=args.replay_batch,
+                                    advance_every=args.advance_every):
+                ep = er.epoch
+                print(f"epoch {ep.index}: m={ep.m_real} n={ep.n_real} "
+                      f"t=[{ep.t_lo},{ep.t_hi}] evicted={ep.evicted} "
+                      f"buckets={ep.buckets} ({er.advance_s:.2f}s)")
+                for qid in sorted(er.results):
+                    res = er.results[qid]
+                    rse = res.rse
+                    print(f"  {qids[qid][0]:12s} delta={qids[qid][1]:<8d} "
+                          f"C^={res.estimate:12.4g}  "
+                          f"rse={'inf' if rse is None else f'{rse:.3f}'}  "
+                          f"k={res.k}")
+        return
+
     g = parse_graph(args.graph)
 
     if args.serve:
@@ -110,11 +206,6 @@ def main(argv=None) -> None:
         print(f"served {served} requests", file=sys.stderr)
         return
 
-    # an inline motif spec contains commas itself: a --motif that parses
-    # as ONE spec is a single motif, not a comma list
-    motifs = ([args.motif] if is_motif_spec(args.motif)
-              else args.motif.split(","))
-    deltas = [int(d) for d in str(args.delta).split(",")]
     print(f"graph: n={g.n} m={g.m} span={g.time_span}  "
           f"motifs={motifs} deltas={deltas}  k={args.k}  "
           f"device={args.device}")

@@ -1,7 +1,8 @@
-"""Card against CPU on the smoke configs, on the same numpy weights.
+"""Card against CPU on the smoke configs, on the same numpy weights, and
+a host check of TIMEST witnesses.
 
-Shared by the ``cuda``-marked tests (``tests/test_torch_cuda.py``) and
-``chip_smoke.py``.  Each run goes once through the plain versions of
+Shared by the ``cuda``-marked tests (``tests/test_torch_cuda.py``), the
+CPU tests and ``chip_smoke.py``.  Each run goes once through the plain versions of
 the kernels (CPU tensors) and once through the CUDA kernels, f32
 without TF32; ``compare`` holds the two runs' outputs within one
 tolerance.
@@ -27,6 +28,34 @@ from .kernels.segment_matmul.ops import segment_matmul
 from .models import moe, recsys
 from .models.convert import (lm_from_numpy, numpy_params,
                              numpy_recsys_params, recsys_from_numpy)
+
+def witness_edge_ids(g, motif, tree_edges, delta: int, entry: dict) -> list:
+    """The graph edge ids of one witness entry (``engine.witness_entries``
+    format: the tree's edges as ``(src, dst, t)`` in motif pi order),
+    checked on the host against the motif.  Raises ``AssertionError``
+    unless every edge is a real edge of ``g`` (id below ``g.live_m``),
+    the vertex map is one-to-one and follows the motif's edges, the
+    times rise strictly in pi order and span at most ``delta``."""
+    ranks = sorted(tree_edges)
+    edges = entry["edges"]
+    assert len(edges) == len(ranks) and entry["cnt"] > 0, entry
+    phi: dict = {}
+    eids = []
+    for r, (u, v, t) in zip(ranks, edges):
+        x, y = motif.edges[r]
+        for a, b in ((x, u), (y, v)):
+            assert phi.setdefault(a, b) == b, f"vertex map breaks: {entry}"
+        lo, hi = np.searchsorted(g.t, [t, t + 1])
+        hit = [e for e in range(lo, hi) if g.src[e] == u and g.dst[e] == v]
+        assert len(hit) == 1, f"({u}, {v}, {t}) is not one edge of the graph"
+        eids.append(hit[0])
+    assert len(set(phi.values())) == len(phi), f"vertex map not 1-1: {entry}"
+    times = [t for _, _, t in edges]
+    assert all(a < b for a, b in zip(times, times[1:])), f"order: {entry}"
+    assert times[-1] - times[0] <= delta, f"delta: {entry}"
+    assert max(eids) < g.live_m, f"a pad edge in {entry}"
+    return eids
+
 
 # a route of the card run may differ from the CPU run's only where the
 # k-th and (k+1)-th router probabilities are this close (bf16 near ties)

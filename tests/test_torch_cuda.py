@@ -148,6 +148,77 @@ def test_card_cohort_equals_cpu(cuda_device):
     assert launches == windows * 1024 // 256
 
 
+# -- padded epoch snapshots and witnesses ---------------------------------
+@pytest.mark.parametrize("motif", ["M5-3", "M4-2"])
+@pytest.mark.parametrize("m_floor", [8192, 1 << 16])
+def test_kernels_on_a_padded_snapshot(cuda_device, motif, m_floor):
+    """On a padded snapshot (two pad vertices with long equal-time
+    segments, a flat prefix suffix, bucketed windows; at the larger floor
+    nine edges in ten are pads)
+    every dep-sum equals its plain version, and the keyed sampler equals
+    its plain version and never returns an edge id >= m_real."""
+    from repro_torch.core.graph import pad_snapshot
+    g = pad_snapshot(powerlaw_temporal_graph(**GRAPH), m_floor=m_floor)
+    tree = candidate_trees(get_motif(motif))[0]
+    dev = g.device_arrays(cuda_device)
+    wts = preprocess(g, tree, 2000, dev=dev)
+    assert wts.q_pad > wts.q and g.m > g.live_m
+    for s in tree.topo_down:
+        for d in tree.deps[s]:
+            c = d.child
+            args = (dev, d, None, wts.delta, wts.wd,
+                    (wts.ps_acc_own[c], wts.ps_acc_prev[c]),
+                    (wts.ps_pair_own[c], wts.ps_pair_prev[c]))
+            for window in ("own", "prev"):
+                a = args[:2] + (window,) + args[3:]
+                assert torch.equal(dep_sum(*a), dep_sum_ref(*a))
+    schedule = build_schedule(tree)
+    args = (schedule, tree.root, tree.num_edges, dev, wts)
+    for seed in range(3):
+        key = rng.fold_in(rng.PRNGKey(seed), 1).to(cuda_device)
+        want = tree_sampler_ref(*args, *prepare_draws(tree, wts, key, 4096))
+        got = tree_sampler_keyed(*args, key, 4096)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert int(got[0].max()) < g.live_m
+        assert int(got[1].max()) < wts.q
+
+
+def test_card_witnesses_equal_cpu(cuda_device):
+    """The witness window on the card (a second sampler launch per chunk)
+    equals the CPU's, and a stream of padded epochs gives the CPU's
+    epochs and witnesses."""
+    import numpy as np
+
+    from repro_torch.api import EstimateConfig
+    from repro_torch.core.engine import STATS
+    from repro_torch.stream import StandingQuery, StreamingSession
+    g = powerlaw_temporal_graph(**GRAPH)
+    runs = []
+    for device in (cuda_device, "cpu"):
+        ss = StreamingSession(config=EstimateConfig(chunk=256,
+                                                    device=str(device)),
+                              horizon=30000)
+        ss.subscribe(StandingQuery("M5-3", 2000, 1024))
+        ss.subscribe(StandingQuery("M4-2", 2000, 1024, seed=3,
+                                   witnesses=8))
+        STATS.reset()
+        n = tree_sampler_keyed.launches
+        out = []
+        for idx in np.array_split(np.arange(g.m), 3):
+            ss.ingest(g.src[idx], g.dst[idx], g.t[idx])
+            er = ss.advance()
+            out.append([(er.epoch.m_real, er.epoch.buckets)]
+                       + [tuple(getattr(r, f) for f in FIELDS
+                                + ("witnesses",))
+                          for r in er.results.values()])
+        ss.close()
+        runs.append((out, tree_sampler_keyed.launches - n,
+                     STATS.witness_chunks))
+    (card, launches, redraws), (cpu, _, _) = runs
+    assert card == cpu and any(row[2][-1] for row in card)
+    assert redraws == 3 * 4 and launches == 3 * 8 + redraws
+
+
 # -- the LM serving path -------------------------------------------------
 FA_CUDA_CASES = [
     # (B, Sq, Skv, Hq, Hkv, D, causal, window, softcap): the six cases of

@@ -42,10 +42,9 @@ def _fields_equal(a, b):
 def test_generators_and_host_build_match(name, kw):
     ref = getattr(rgraphs, name)(**kw)
     got = getattr(tgraphs, name)(**kw)
-    # the port's fields are a subset of the reference's (it has no
-    # graph padding yet); every one of them is equal
+    # the port's fields are the reference's, and every one is equal
     assert ({f.name for f in dataclasses.fields(got)}
-            <= {f.name for f in dataclasses.fields(ref)})
+            == {f.name for f in dataclasses.fields(ref)})
     _fields_equal(got, ref)
 
 
@@ -56,6 +55,23 @@ def test_from_edges_dedups_and_relabels_like_the_reference():
     t = r.integers(5, 400, 500)
     src[:20], dst[:20], t[:20] = src[20:40], dst[20:40], t[20:40]  # dups
     from repro.core.graph import TemporalGraph as RG
+    _fields_equal(TemporalGraph.from_edges(src, dst, t),
+                  RG.from_edges(src, dst, t))
+
+
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("dups", [0, 1, 40])
+def test_from_edges_equals_reference_on_unsorted_batches(seed, dups):
+    """Unsorted edges with no, one or many repeated (src, dst, t) tuples,
+    as a stream store hands them over: the port's duplicate test and the
+    reference's row-unique count agree, and so do the graphs."""
+    from repro.core.graph import TemporalGraph as RG
+    r = np.random.default_rng(seed)
+    src, dst = r.integers(0, 30, 400), r.integers(0, 30, 400)
+    src = np.where(src == dst, (dst + 1) % 30, src)
+    t = r.integers(0, 50, 400) * 1000 + 7
+    pick = r.integers(0, 400, dups)
+    src, dst, t = (np.concatenate([a, a[pick]]) for a in (src, dst, t))
     _fields_equal(TemporalGraph.from_edges(src, dst, t),
                   RG.from_edges(src, dst, t))
 

@@ -35,16 +35,25 @@ for n in names:
 bad = sorted(m for m in sys.modules
              if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
 print(len(names), bad)
+print(" ".join(names))
 """
+
+# the modules of the stream-and-witness slice, among those imported
+STREAM_SLICE = ("repro_torch.stream", "repro_torch.stream.replay",
+                "repro_torch.stream.session", "repro_torch.stream.store",
+                "repro_torch.stream.wal", "repro_torch.resilience.faultinject",
+                "repro_torch.resilience.retry")
 
 
 def test_import_pulls_neither_jax_nor_repro():
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
                          capture_output=True, text=True, timeout=120,
-                         check=True).stdout.split(maxsplit=1)
-    assert int(out[0]) >= 48            # every module of the three slices
-    assert out[1].strip() == "[]"
+                         check=True).stdout.splitlines()
+    count, bad = out[0].split(maxsplit=1)
+    assert int(count) >= 68             # every module of the eight slices
+    assert bad.strip() == "[]"
+    assert set(STREAM_SLICE) <= set(out[1].split())
 
 
 def _imports(path: Path):
@@ -125,6 +134,27 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
         main(["--graph", "powerlaw:n=60,m=400,time_span=5000,seed=1",
               "--motif", "M4-2", "--delta", "500", "--k", "64",
               "--chunk", "64"])
+
+
+def test_stream_entry_points_default_to_the_card_and_raise_without_one(
+        tmp_path):
+    """``StreamingSession`` and the CLI's stream modes run on the card
+    unless asked for the CPU; without one they raise at construction,
+    before a WAL is opened or an edge is read."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the defaults would run")
+    from repro_torch.launch.estimate import main
+    from repro_torch.stream import StreamingSession, StreamStore
+    with pytest.raises(RuntimeError, match="CUDA"):
+        StreamingSession(horizon=100)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        StreamingSession(StreamStore())
+    wal = tmp_path / "never.wal"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--serve", "--stream", "--wal", str(wal)])
+    assert not wal.exists()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--stream-replay", str(tmp_path / "missing.npz")])
 
 
 def test_wrappers_raise_on_devices_without_a_kernel():

@@ -1,10 +1,13 @@
 """The port's NDJSON serve loop and CLI.
 
 The same request lines through both packages' ``serve_loop`` give equal
-response lines (``sampler_backend`` aside, and only the blocks the port
-has in ``stats``/``health``); the verbs the port does not have yet answer
+response lines (``sampler_backend`` and ``advance_s`` aside, and only
+the blocks the port has in ``stats``/``health``), in plain mode and in
+stream mode (``subscribe`` / ``ingest`` / ``advance`` / ``unsubscribe``,
+witness payloads included); the verbs the port does not have yet answer
 as documented.  The CLI takes comma lists, edge-list paths, ``--exact``,
-``--checkpoint`` and ``--serve``.
+``--checkpoint`` and ``--serve``, and in a subprocess ``--serve
+--stream`` (with a ``--wal`` restart) and ``--stream-replay``.
 """
 from __future__ import annotations
 
@@ -12,12 +15,16 @@ import io
 import json
 import os
 import re
+import subprocess
+import sys
+from pathlib import Path
 
 import pytest
 
 from repro.api import EstimateConfig as RConfig
 from repro.api import Session as RSession
 from repro.api import serve_loop as ref_serve_loop
+from repro.stream import StreamingSession as RStreaming
 from repro.core.engine import STATS as RSTATS
 from repro.graphs import powerlaw_temporal_graph as rgraph
 from repro_torch import (count_exact, estimate, estimate_many, get_motif,
@@ -26,6 +33,7 @@ from repro_torch.api import EstimateConfig, Session, serve_loop
 from repro_torch.core.engine import STATS
 from repro_torch.gateway import LineSource
 from repro_torch.launch import estimate as cli
+from repro_torch.stream import StreamingSession
 
 GRAPH = dict(n=150, m=2000, time_span=40000, seed=11)
 SPEC = "powerlaw:n=150,m=2000,time_span=40000,seed=11"
@@ -85,10 +93,11 @@ def port():
 
 
 def _comparable(port_line: dict, ref_line: dict) -> tuple[dict, dict]:
-    """The port's line without ``sampler_backend``, against the reference
-    line's same keys (the port's ``stats``/``health`` carry no obs or
-    resilience block yet)."""
-    got = {k: v for k, v in port_line.items() if k != "sampler_backend"}
+    """The port's line without ``sampler_backend`` and the wall clock of
+    an ``advance``, against the reference line's same keys (the port's
+    ``stats``/``health`` carry no obs or resilience block yet)."""
+    got = {k: v for k, v in port_line.items()
+           if k not in ("sampler_backend", "advance_s")}
     return got, {k: ref_line.get(k, "<missing>") for k in got}
 
 
@@ -134,11 +143,19 @@ def test_telemetry_verbs_wait_for_their_slice(cmd):
 
 
 def test_witness_requests_answer_bad_request():
-    _, lines = _serve(serve_loop, _port_session(), [
-        {"id": 1, "motif": "M4-2", "delta": 500, "k": 64, "witnesses": 2}])
-    assert lines[0]["ok"] is False and lines[0]["id"] == 1
-    assert lines[0]["error_kind"] == "bad_request"
-    assert "witnesses slice" in lines[0]["error"]
+    """Named for what it checked before the port had witnesses: a
+    witness request now answers the reference's line, witness edges
+    included."""
+    req = [{"id": 1, "motif": "M4-2", "delta": 500, "k": 128,
+            "witnesses": 2}]
+    _, lines = _serve(serve_loop, _port_session(), req)
+    _, want = _serve(ref_serve_loop, RSession(rgraph(**TINY), RConfig(
+        chunk=64)), req)
+    got, ref = _comparable(lines[0], want[0])
+    assert got == ref and lines[0]["ok"] is True
+    assert len(lines[0]["witnesses"]) == 2
+    assert all(len(w["edges"]) == 3 and w["cnt"] > 0
+               for w in lines[0]["witnesses"])
 
 
 def test_count_closed_window_drains_mid_stream():
@@ -227,3 +244,178 @@ def test_cli_serves_ndjson(monkeypatch, capsys):
     assert lines[0]["ok"] and lines[0]["estimate"] == want.estimate
     assert lines[0]["W"] == want.W and lines[0]["valid"] == want.valid
     assert lines[1] == {"ok": True, "cmd": "quit", "served": 1}
+
+
+# -- stream mode ----------------------------------------------------------
+def _stream_lines():
+    g = powerlaw_temporal_graph(**TINY)
+    edges = [[int(a), int(b), int(c)] for a, b, c in zip(g.src, g.dst, g.t)]
+    half = len(edges) // 2
+    return [
+        {"cmd": "advance"},                                  # empty stream
+        {"id": 0, "motif": "M4-2", "delta": 500, "k": 64},   # no epoch yet
+        {"cmd": "subscribe", "motif": "M4-2", "delta": 500, "k": 128,
+         "witnesses": 3},
+        {"cmd": "subscribe", "motif": "0-1,1-2,2-0", "delta": 800, "k": 128,
+         "seed": 2, "name": "tri"},
+        {"cmd": "subscribe", "motif": "M4-2", "delta": 500, "k": 64,
+         "bogus": 1},
+        {"cmd": "subscribe", "motif": "M4-2", "delta": 500, "k": 0},
+        {"cmd": "ingest", "edges": edges[:half] + [[7, 7, 10]]},
+        {"cmd": "ingest", "edges": [[1, 2]]},
+        {"cmd": "ingest"},
+        {"cmd": "health"},
+        {"cmd": "advance"},
+        {"id": 1, "motif": "M4-2", "delta": 500, "k": 128, "seed": 1,
+         "witnesses": 2},
+        {"cmd": "ingest", "edges": edges[half:]},
+        {"cmd": "advance"},
+        {"cmd": "unsubscribe", "sub": 1},
+        {"cmd": "unsubscribe", "sub": 9},
+        {"cmd": "advance"},
+        {"cmd": "stats"},
+        {"cmd": "health"},
+        {"cmd": "quit"},
+    ]
+
+
+def _stream_serve(loop, ss, lines):
+    out = io.StringIO()
+    served = loop(None, infile=_stdin(lines), outfile=out, stream=ss)
+    return served, [json.loads(ln) for ln in out.getvalue().splitlines()]
+
+
+@pytest.fixture(scope="module")
+def stream_reference():
+    RSTATS.reset()
+    ss = RStreaming(config=RConfig(chunk=64, coalesce_window_s=3600.0),
+                    horizon=3000)
+    return _stream_serve(ref_serve_loop, ss, _stream_lines())
+
+
+@pytest.fixture(scope="module")
+def stream_port():
+    STATS.reset()
+    ss = StreamingSession(config=EstimateConfig(
+        chunk=64, coalesce_window_s=3600.0, device="cpu"), horizon=3000)
+    return _stream_serve(serve_loop, ss, _stream_lines())
+
+
+def test_stream_wire_equals_reference(stream_reference, stream_port):
+    assert stream_port[0] == stream_reference[0] == 6
+    assert len(stream_port[1]) == len(stream_reference[1]) == 25
+    for i, (got, want) in enumerate(zip(stream_port[1],
+                                        stream_reference[1])):
+        a, b = _comparable(got, want)
+        assert a == b, i
+
+
+def test_stream_wire_answers(stream_port):
+    lines = stream_port[1]
+    advances = [ln for ln in lines if ln.get("cmd") == "advance"]
+    assert [a["ok"] for a in advances] == [False, True, True, True]
+    assert advances[0]["error_kind"] == "bad_request"
+    assert [a["epoch"] for a in advances[1:]] == [0, 1, 2]
+    assert advances[2]["evicted"] > 0
+    subs = [ln for ln in lines if "sub" in ln and "epoch" in ln]
+    assert [(s["sub"], s["epoch"]) for s in subs] == [
+        (0, 0), (1, 0), (0, 1), (1, 1), (0, 2)]
+    assert all(len(s["witnesses"]) == 3 for s in subs if s["sub"] == 0)
+    assert all("witnesses" not in s for s in subs if s["sub"] == 1)
+    assert subs[1]["name"] == "tri" and subs[0]["sampler_backend"] == "cpu"
+    one_shot = [ln for ln in lines if ln.get("id") is not None]
+    assert [o["ok"] for o in one_shot] == [False, True]
+    assert len(one_shot[1]["witnesses"]) == 2
+    health = [ln for ln in lines if ln.get("cmd") == "health"]
+    assert health[0]["mode"] == "stream" and health[0]["epoch"] == 0
+    assert health[1]["epoch"] == 3 and "wal" not in health[1]
+
+
+def test_stream_wal_position_in_health(tmp_path):
+    from repro_torch.stream import StreamStore
+    wal = str(tmp_path / "s.wal")
+    ss = StreamingSession(StreamStore(wal=wal),
+                          EstimateConfig(chunk=64, device="cpu"))
+    _, lines = _stream_serve(serve_loop, ss, [
+        {"cmd": "ingest", "edges": [[0, 1, 5], [1, 2, 9]]},
+        {"cmd": "health"}])
+    assert lines[1]["wal"] == {"path": wal, "records": 1,
+                               "offset": os.path.getsize(wal)}
+
+
+def test_serve_loop_needs_one_of_session_and_stream():
+    with pytest.raises(ValueError, match="exactly one of session/stream"):
+        serve_loop(None)
+
+
+# -- the CLI in a subprocess ----------------------------------------------
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _cli(args, lines=(), check=True):
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.estimate", *args],
+        input="".join(json.dumps(ln) + "\n" for ln in lines), env=env,
+        capture_output=True, text=True, timeout=300, check=check)
+    return proc
+
+
+def test_cli_serves_a_live_stream_and_recovers_its_wal(tmp_path):
+    """``--serve --stream --wal``: a server killed after an ingest (never
+    advanced) restarts from its log and answers the uncrashed server's
+    next epoch."""
+    g = powerlaw_temporal_graph(**TINY)
+    edges = [[int(a), int(b), int(c)] for a, b, c in zip(g.src, g.dst, g.t)]
+    sub = {"cmd": "subscribe", "motif": "M4-2", "delta": 500, "k": 128,
+           "witnesses": 2}
+    first = [sub, {"cmd": "ingest", "edges": edges[:200]},
+             {"cmd": "advance"}, {"cmd": "ingest", "edges": edges[200:]}]
+    base = ["--serve", "--stream", "--chunk", "64", "--horizon", "4000",
+            "--device", "cpu"]
+    wal = str(tmp_path / "live.wal")
+    _cli(base + ["--wal", wal], first)
+    again = _cli(base + ["--wal", wal], [sub, {"cmd": "advance"}])
+    assert "recovered epoch=1" in again.stderr
+    restarted = [json.loads(ln) for ln in again.stdout.splitlines()]
+    whole = _cli(base, first + [{"cmd": "advance"}])
+    uncrashed = [json.loads(ln) for ln in whole.stdout.splitlines()]
+    assert restarted[1]["epoch"] == uncrashed[-2]["epoch"] == 1
+    got, want = _comparable(restarted[1], uncrashed[-2])
+    assert got == want and got["ok"] and len(got["witnesses"]) == 2
+    got, want = _comparable(restarted[2], uncrashed[-1])
+    assert got == want and got["cmd"] == "advance" and got["ok"]
+
+
+def test_cli_replays_an_edge_list_as_a_stream(tmp_path):
+    g = powerlaw_temporal_graph(**TINY)
+    path = str(tmp_path / "edges.txt.gz")
+    save_edge_list(g, path)
+    out = _cli(["--stream-replay", path, "--motif", "M4-2,M5-3", "--delta",
+                "500", "--k", "128", "--chunk", "64", "--horizon", "3000",
+                "--replay-batch", "150", "--advance-every", "1",
+                "--device", "cpu"]).stdout.splitlines()
+    assert out[0].startswith(f"replaying {path}  horizon=3000  batch=150  "
+                             "queries=2")
+    epochs = [ln for ln in out if ln.startswith("epoch ")]
+    assert len(epochs) == 3
+    ss = StreamingSession(config=EstimateConfig(chunk=64, device="cpu"),
+                          horizon=3000)
+    from repro_torch.stream import StandingQuery, replay_epochs
+    for m in ("M4-2", "M5-3"):
+        ss.subscribe(StandingQuery(m, 500, 128))
+    want = list(replay_epochs(ss, path, batch_size=150))
+    rows = [ln for ln in out if ln.startswith("  ")]
+    assert [float(r.split("C^=")[1].split()[0]) for r in rows] == [
+        float(f"{er.results[q].estimate:12.4g}") for er in want
+        for q in (0, 1)]
+
+
+@pytest.mark.parametrize("args,msg", [
+    (["--stream"], "--stream requires --serve"),
+    (["--horizon", "5"], "--horizon only applies to stream modes"),
+    (["--serve", "--wal", "x.wal"], "--wal requires --serve --stream")])
+def test_cli_refuses_stream_flags_out_of_place(args, msg, capsys):
+    with pytest.raises(SystemExit) as e:
+        cli.main(args + ["--device", "cpu"])
+    assert e.value.code == 2 and msg in capsys.readouterr().err

@@ -18,7 +18,6 @@ from repro.api import Session as RSession
 from repro.graphs import powerlaw_temporal_graph as rgraph
 from repro_torch import powerlaw_temporal_graph
 from repro_torch.api import EstimateConfig, Request, Session
-from repro_torch.resilience import BadRequestError
 
 GRAPH = dict(n=150, m=2000, time_span=40000, seed=11)
 CFG = dict(chunk=256, checkpoint_every=1, coalesce_window_s=3600.0)
@@ -147,9 +146,17 @@ def test_request_checks_raise_as_the_reference(bad):
 
 
 def test_witnesses_are_refused_until_their_slice():
-    RRequest(motif="M5-3", delta=3000, k=1024, witnesses=3)   # accepted
-    with pytest.raises(BadRequestError, match="witnesses slice"):
-        Request(motif="M5-3", delta=3000, k=1024, witnesses=3)
+    """Named for what it checked before the port had witnesses: a
+    request with ``witnesses`` is now accepted, as the reference's, and
+    answers the reference's witness entries (here per window too)."""
+    req = dict(motif="M5-3", delta=3000, k=1024, witnesses=3)
+    want = RSession(rgraph(**GRAPH), RConfig(**CFG)).submit(RRequest(**req))
+    got = Session(powerlaw_temporal_graph(**GRAPH),
+                  EstimateConfig(**CFG, device="cpu")).submit(Request(**req))
+    assert got.result().witnesses == want.result().witnesses
+    assert len(got.result().witnesses) == 3
+    assert [p.witnesses for p in got.stream()] == \
+        [p.witnesses for p in want.stream()]
 
 
 def test_closed_session_refuses_submits_as_the_reference():
