@@ -20,6 +20,15 @@ port's two paths:
   resumed to k; three NDJSON requests through ``serve_loop``; and, on a
   mid-size graph, the estimate's relative error against ``count_exact``
   (a reading);
+* the multi-tenant gateway at full size (``gateway_serve_loop`` on a
+  thread of this process, obs at ``trace``): a tenant on the full graph
+  answers phase ``full``'s integers and a witness request; a stream
+  tenant with a WAL answers each epoch as a direct ``StreamingSession``
+  and recovers on reopen; three injected dispatch faults are retried and
+  the window halved, the integers unchanged; a profile armed over the
+  wire holds the sampler kernel; the trace chains one request across
+  the gateway's threads; the same wire script gives equal answers on a
+  ``cpu`` and a ``cuda`` gateway;
 * LM serving: card against CPU for the Gemma-2 smoke config, then
   Gemma-2-27B at full width (random bf16 weights from seed 0): a
   2 x 8192-token prefill and 16 greedy decode steps, shown to go through
@@ -84,6 +93,8 @@ ORACLE_CASES = (("M4-2", 3600), ("M5-2", 3600))
 STREAM_SMALL = (("M5-3", 3000, 1024, 0, 0), ("M4-2", 3000, 512, 3, 8))
 STREAM_QUERIES = (("M5-3", 3600, 0, 0), ("M4-2", 3600, 0, 8))
 STREAM_K, STREAM_BATCHES, STREAM_RECOVER_AT = 1 << 18, 8, 5
+# the gateway phase's stream tenant: two batches of this many edges
+GATEWAY_BATCH = 65536
 FIELDS = ("estimate", "W", "k", "cnt2_sum", "valid", "fail_vmap",
           "fail_delta", "fail_order", "overflow", "tree_edges")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
@@ -1158,6 +1169,429 @@ def phase_stream(g, chunk: int, k: int) -> dict:
     return launches, dict(
         interval_weight=max(p["dep_sum_err"] for p in padded.values()),
         tree_sampler=max(p["sampler_err"] for p in padded.values()))
+
+
+class GatewayWire:
+    """``gateway_serve_loop`` on a thread of this process, fed through a
+    pipe: ``send`` writes one request line, ``wait`` blocks until an
+    answer line matches, so the phase can order its steps (install a
+    fault schedule, read a counter) between answers."""
+
+    def __init__(self, config, **loop_kw):
+        import os
+        import queue
+        import threading
+
+        from repro_torch.gateway import gateway_serve_loop
+        r, w = os.pipe()
+        self._rf = os.fdopen(r, "r")
+        self._wf = os.fdopen(w, "w", buffering=1)
+        self._q: queue.Queue = queue.Queue()
+        self.lines: list = []
+        self.served = None
+        self.error = None
+
+        wire = self
+
+        class _Out:
+            def write(self, text):
+                for ln in text.splitlines():
+                    wire._q.put(json.loads(ln))
+
+            def flush(self):
+                pass
+
+        def run():
+            try:
+                self.served = gateway_serve_loop(config, infile=self._rf,
+                                                 outfile=_Out(), **loop_kw)
+            except BaseException as e:      # reported by wait()
+                self.error = e
+            finally:
+                self._q.put(None)           # the loop's output ended
+
+        self._thread = threading.Thread(target=run, name="smoke-gateway")
+        self._thread.start()
+
+    def send(self, obj: dict) -> None:
+        self._wf.write(json.dumps(obj) + "\n")
+
+    def wait(self, pred, timeout: float = 300.0) -> dict:
+        import queue
+        deadline = time.perf_counter() + timeout
+        while True:
+            left = deadline - time.perf_counter()
+            require(left > 0, "gateway: no answer matched in time")
+            try:
+                ln = self._q.get(timeout=left)
+            except queue.Empty:
+                continue
+            require(ln is not None, f"gateway: the loop ended "
+                    f"({self.error!r}) before the answer")
+            self.lines.append(ln)
+            if pred(ln):
+                return ln
+
+    def ask(self, obj: dict, pred=None) -> dict:
+        """Send ``obj`` and wait for its answer (by id, else by cmd)."""
+        self.send(obj)
+        if pred is None:
+            if "id" in obj:
+                def pred(ln):
+                    return ln.get("id") == obj["id"] and not ln.get(
+                        "progress")
+            else:
+                def pred(ln):
+                    return ln.get("cmd") == obj["cmd"]
+        return self.wait(pred)
+
+    def close(self) -> int:
+        self.ask({"cmd": "quit"})
+        self._wf.close()
+        self._thread.join(600)
+        require(not self._thread.is_alive(), "gateway: loop did not stop")
+        self._rf.close()
+        return self.served
+
+
+class Uncounted:
+    """Launches inside the block (comparisons with direct runs) do not
+    count toward the gateway path's launches."""
+
+    def __init__(self, *fns):
+        self.fns = fns
+
+    def __enter__(self):
+        self.saved = [fn.launches for fn in self.fns]
+
+    def __exit__(self, *exc):
+        for fn, n in zip(self.fns, self.saved):
+            fn.launches = n
+        return False
+
+
+def keyed_answers(lines) -> dict:
+    """Gateway answers keyed by (tenant, id, progress window) or (tenant,
+    sub, epoch) or (tenant, cmd, n-th), without the fields that differ
+    between devices or runs (``sampler_backend``, ``advance_s``)."""
+    out, seen = {}, {}
+    for ln in lines:
+        if ln.get("cmd") in ("health", "stats"):
+            continue
+        got = {k: v for k, v in ln.items()
+               if k not in ("sampler_backend", "advance_s")}
+        if "id" in ln:
+            key = ("id", ln.get("tenant"), ln["id"],
+                   ln.get("window") if ln.get("progress") else None)
+        elif "sub" in ln and "epoch" in ln:
+            key = ("sub", ln.get("tenant"), ln["sub"], ln["epoch"])
+        else:
+            base = (ln.get("tenant"), ln.get("cmd"), ln.get("error"))
+            seen[base] = seen.get(base, 0) + 1
+            key = ("line", *base, seen[base])
+        out[key] = got
+    return out
+
+
+def gateway_small_script() -> list:
+    """(f)'s wire script on ``SMALL_GRAPH``: a graph tenant with two
+    requests (one with witnesses), a stream tenant fed in two batches."""
+    from repro_torch.launch.estimate import parse_graph
+    g = parse_graph(SMALL_GRAPH)
+    edges = [[int(a), int(b), int(c)] for a, b, c in zip(g.src, g.dst, g.t)]
+    half = len(edges) // 2
+    return [
+        {"cmd": "open_tenant", "tenant": "small", "graph": SMALL_GRAPH},
+        {"cmd": "open_tenant", "tenant": "live", "stream": True},
+        {"tenant": "small", "id": 1, "motif": "M5-3", "delta": 3000,
+         "k": 1024, "witnesses": 2},
+        {"tenant": "small", "id": 2, "motif": "M4-2", "delta": 3000,
+         "k": 512, "seed": 3},
+        {"cmd": "subscribe", "tenant": "live", "motif": "M4-2",
+         "delta": 3000, "k": 512, "witnesses": 2},
+        {"cmd": "ingest", "tenant": "live", "edges": edges[:half]},
+        {"cmd": "advance", "tenant": "live"},
+        {"cmd": "ingest", "tenant": "live", "edges": edges[half:]},
+        {"cmd": "advance", "tenant": "live"},
+        {"cmd": "quit"}]
+
+
+def wire_witnesses(res) -> list:
+    return [dict(edges=[list(e) for e in w["edges"]], cnt=w["cnt"])
+            for w in res.witnesses]
+
+
+def phase_gateway(g, graph_spec: str, delta: int, k: int, chunk: int,
+                  full) -> dict:
+    """The multi-tenant gateway on the card: ``gateway_serve_loop`` in
+    this process on ``cuda`` with obs at ``trace``, a ``profile_dir`` and
+    a ``wal_dir`` (both temporary, under ``build/``).  The launch
+    counters are set to 0 before the wire session and read after it
+    (direct runs it is compared with do not count).  Requires:
+
+    (a) a graph tenant on the full graph answers M5-3 at ``delta``, k,
+        seed 0 with phase ``full``'s integers, and M4-2 with 8 witnesses
+        the entries of a direct Session request;
+    (b) a stream tenant (WAL on, M4-2 with 4 witnesses standing) fed two
+        batches of 65,536 of the graph's edges in time order answers
+        each epoch as a direct ``StreamingSession``; closed and
+        reopened, it recovers its store (epoch, buffer) and answers the
+        next epoch as the live session does;
+    (c) M5-3 again under three injected ``engine.dispatch`` faults:
+        3 retries, one ladder step (the window halved), the integers of
+        (a); a real ``torch.cuda.OutOfMemoryError`` classifies as
+        ``retryable``;
+    (d) a profile armed over the wire around two one-chunk requests
+        writes a Chrome trace with a tree-sampler kernel event, and no
+        profiler error; (a)'s spans
+        chain intake -> queue wait -> drain -> dispatch -> emit under
+        one trace id; ``metrics`` holds the retries and the stage
+        histograms;
+    (e) the same M5-3 estimate timed at ``off`` and at ``trace`` in
+        paired runs (a reading);
+    (f) one wire script on ``SMALL_GRAPH`` through a ``cpu`` and a
+        ``cuda`` gateway: equal answers, timing fields aside.
+    """
+    import io
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch import EstimateConfig, Request, Session, estimate, obs
+    from repro_torch import get_motif
+    from repro_torch.core.engine import STATS
+    from repro_torch.gateway import gateway_serve_loop
+    from repro_torch.kernels.interval_weight.ops import dep_sum
+    from repro_torch.kernels.tree_sampler.ops import tree_sampler_keyed
+    from repro_torch.resilience import STATS as RSTATS
+    from repro_torch.resilience import FaultInjector, FaultSpec, classify
+    from repro_torch.stream import StandingQuery, StreamingSession
+    t_phase = time.perf_counter()
+    kernels = (dep_sum, tree_sampler_keyed)
+    k_wit = min(STREAM_K, k)
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(dir=ROOT / "build",
+                                      prefix="gateway_")
+    prof_dir, wal_dir = f"{tmp.name}/profile", f"{tmp.name}/wal"
+    obs.set_level("trace")
+    obs.set_ring(1 << 16)           # the whole session's spans stay
+    obs.RECORDER.clear()
+    STATS.reset()
+    RSTATS.reset()
+    reset_counters(*kernels)
+    cfg = EstimateConfig(chunk=chunk)
+    wire = GatewayWire(cfg, max_tenants=4, wal_dir=wal_dir,
+                       profile_dir=prof_dir)
+    walls = {}
+
+    # (a) a graph tenant at full width; a profile of two one-chunk
+    # requests' windows first (a window of 64 chunks would hold ~60,000
+    # kernels and their torch ops)
+    t0 = time.perf_counter()
+    opened = wire.ask({"cmd": "open_tenant", "tenant": "wiki",
+                       "graph": graph_spec})
+    walls["open_tenant"] = time.perf_counter() - t0
+    require(opened.get("ok"), f"gateway: open_tenant {opened}")
+    m53 = {"tenant": "wiki", "motif": full.motif, "delta": delta, "k": k,
+           "seed": 0}
+    prof = wire.ask({"cmd": "profile", "windows": 2})
+    require(prof.get("ok"), f"gateway: profile {prof}")
+    for rid, seed in ((10, 0), (11, 1)):
+        one = wire.ask({**m53, "id": rid, "k": chunk, "seed": seed})
+        require(one.get("ok") and one["windows"] == 1,
+                f"gateway (d): profiled request {one}")
+    t0 = time.perf_counter()
+    a = wire.ask({"id": 1, **m53})
+    walls["m53"] = time.perf_counter() - t0
+    got = (a.get("estimate"), a.get("W"), a.get("k"), a.get("valid"))
+    require(a.get("ok") and a["sampler_backend"] == "cuda"
+            and got == (full.estimate, full.W, full.k, full.valid),
+            f"gateway (a): {a} differs from phase full")
+    t0 = time.perf_counter()
+    a2 = wire.ask({"id": 2, "tenant": "wiki", "motif": "M4-2",
+                   "delta": delta, "k": k_wit, "witnesses": 8})
+    walls["m42_witnesses"] = time.perf_counter() - t0
+    with Uncounted(*kernels):
+        direct = Session(g, cfg).submit(
+            Request("M4-2", delta, k_wit, witnesses=8)).result()
+        torch.cuda.empty_cache()
+    require(a2.get("ok") and len(direct.witnesses) == 8
+            and (a2["W"], a2["valid"], a2["estimate"]) == (
+                direct.W, direct.valid, direct.estimate)
+            and a2["witnesses"] == wire_witnesses(direct),
+            "gateway (a): M4-2 witnesses differ from a direct request")
+    progress = [ln for ln in wire.lines if ln.get("progress")
+                and ln.get("id") == 2]
+    require(len(progress) == -(-k_wit // chunk // cfg.checkpoint_every),
+            f"gateway (a): {len(progress)} witness progress lines")
+
+    # (b) a stream tenant with a WAL, against a direct StreamingSession
+    order = np.argsort(g.t, kind="stable")[:2 * GATEWAY_BATCH]
+    batches = [order[:GATEWAY_BATCH], order[GATEWAY_BATCH:]]
+    live = {"cmd": "open_tenant", "tenant": "live", "stream": True,
+            "wal": True}
+    sub = {"cmd": "subscribe", "tenant": "live", "motif": "M4-2",
+           "delta": delta, "k": k_wit, "witnesses": 4}
+    require(wire.ask(live).get("ok") and wire.ask(sub).get("ok"),
+            "gateway (b): stream tenant not opened")
+    epochs = []
+    for idx in batches:
+        edges = np.stack([g.src[idx], g.dst[idx], g.t[idx]], 1).tolist()
+        ing = wire.ask({"cmd": "ingest", "tenant": "live", "edges": edges})
+        require(ing.get("ingested") == len(idx), f"gateway (b): {ing}")
+        t0 = time.perf_counter()
+        adv = wire.ask({"cmd": "advance", "tenant": "live"})
+        walls.setdefault("advance", []).append(time.perf_counter() - t0)
+        require(adv.get("ok"), f"gateway (b): advance {adv}")
+        epochs.append(next(ln for ln in wire.lines
+                           if ln.get("tenant") == "live" and "sub" in ln
+                           and ln.get("epoch") == adv["epoch"]))
+    with Uncounted(*kernels):
+        ss = StreamingSession(config=cfg)
+        ss.subscribe(StandingQuery("M4-2", delta, k_wit, witnesses=4))
+        direct_epochs = []
+        for idx in batches + [None]:
+            if idx is not None:
+                ss.ingest(g.src[idx], g.dst[idx], g.t[idx])
+            direct_epochs.append(ss.advance().results[0])
+        ss.close()
+        torch.cuda.empty_cache()
+    for ep, want in zip(epochs, direct_epochs):
+        require((ep["W"], ep["valid"], ep["estimate"], ep["witnesses"])
+                == (want.W, want.valid, want.estimate,
+                    wire_witnesses(want)),
+                f"gateway (b): epoch {ep['epoch']} differs from a direct "
+                "StreamingSession")
+    closed = wire.ask({"cmd": "close_tenant", "tenant": "live"})
+    reopened = wire.ask(live)
+    require(closed.get("ok") and reopened.get("recovered")
+            and (reopened["epoch"], reopened["buffered"]) == (2, 0),
+            f"gateway (b): reopen {reopened}")
+    wire.ask(sub)
+    adv = wire.ask({"cmd": "advance", "tenant": "live"})
+    ep3 = next(ln for ln in wire.lines if ln.get("tenant") == "live"
+               and "sub" in ln and ln.get("epoch") == adv.get("epoch"))
+    want = direct_epochs[2]
+    require(adv.get("epoch") == 2 and (ep3["W"], ep3["valid"],
+                                       ep3["estimate"]) == (
+                want.W, want.valid, want.estimate),
+            "gateway (b): the recovered stream's next epoch differs from "
+            "the live one's")
+
+    # (c) the retry ladder on the card
+    RSTATS.reset()
+    with FaultInjector([FaultSpec("engine.dispatch", hits=(0, 1, 2),
+                                  tag="cuda")]) as inj:
+        t0 = time.perf_counter()
+        c = wire.ask({"id": 3, **m53})
+        walls["m53_laddered"] = time.perf_counter() - t0
+    health = wire.ask({"cmd": "health"})
+    res_block = health["resilience"]
+    require(c.get("ok") and (c["estimate"], c["W"], c["k"], c["valid"])
+            == got and "dispatch window halved to 32 " in c[
+                "fallback_reason"],
+            f"gateway (c): laddered answer {c}")
+    require(res_block["retries"] == 3 and res_block["ladder_steps"] == 1
+            and sum(f for *_, f in inj.log) == 3,
+            f"gateway (c): resilience {res_block}, log {inj.log[:4]}")
+    try:
+        torch.empty(2 * torch.cuda.get_device_properties(0).total_memory,
+                    dtype=torch.uint8, device="cuda")
+        oom_kind = None
+    except torch.cuda.OutOfMemoryError as e:
+        oom_kind = classify(e)
+    require(oom_kind == "retryable", f"gateway (c): a card OOM classified "
+            f"{oom_kind}")
+
+    # (d) the telemetry verbs
+    status = obs.profile_status()
+    require(status["error"] is None and status["captured"] == 2
+            and status["file"] and os.path.exists(status["file"]),
+            f"gateway (d): profile {status}")
+    with open(status["file"]) as f:
+        events = json.load(f)["traceEvents"]
+    sampler_events = [e for e in events if e.get("cat") == "kernel"
+                      and "tree_sampler_kernel" in e.get("name", "")]
+    require(sampler_events, "gateway (d): the profile holds no "
+            "tree-sampler kernel event")
+    trace = wire.ask({"cmd": "trace"})
+    intake = [s for s in trace["spans"] if s["name"] == "gateway.intake"
+              and s.get("attrs", {}).get("id") == 1]
+    require(len(intake) == 1, "gateway (d): no intake span of (a)")
+    chain = [s for s in trace["spans"] if s["trace"] == intake[0]["trace"]]
+    names = {s["name"] for s in chain}
+    need = {"gateway.intake", "stage.queue_wait", "session.drain",
+            "engine.dispatch", "gateway.emit"}
+    require(need <= names, f"gateway (d): (a)'s chain {sorted(names)}")
+    metrics = wire.ask({"cmd": "metrics"})["text"]
+    require("repro_resilience_retries_total 3" in metrics.splitlines()
+            and 'repro_stage_seconds_bucket{stage="dispatch"' in metrics
+            and 'repro_stage_seconds_count{stage="device"}' in metrics,
+            "gateway (d): metrics lack the retries or stage histograms")
+    spans_recorded = obs.RECORDER.recorded
+    profile_bytes = os.path.getsize(status["file"])
+    served = wire.close()
+    launches = {"interval_weight": dep_sum.launches,
+                "tree_sampler": tree_sampler_keyed.launches}
+    require(all(v > 0 for v in launches.values()),
+            f"gateway: launches {launches}")
+    obs.set_level(None)
+    obs.set_ring(4096)
+    obs.RECORDER.clear()
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+
+    # (e) obs overhead: paired runs, off / trace / trace / off
+    overhead = {"off": [], "trace": []}
+    with Uncounted(*kernels):
+        for lvl in ("off", "trace", "trace", "off"):
+            obs.set_level(lvl)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = estimate(g, get_motif(full.motif), delta, k, seed=0,
+                         chunk=chunk)
+            overhead[lvl].append(time.perf_counter() - t0)
+            require(same_result(r, full), f"(e): {lvl} estimate differs")
+        obs.set_level(None)
+        obs.RECORDER.clear()
+        torch.cuda.empty_cache()
+
+        # (f) card against CPU on the small wire script
+        answers = {}
+        for device in ("cpu", "cuda"):
+            out = io.StringIO()
+            gateway_serve_loop(
+                EstimateConfig(chunk=256, checkpoint_every=2,
+                               coalesce_window_s=60.0, device=device),
+                infile=io.StringIO("".join(json.dumps(ln) + "\n" for ln
+                                           in gateway_small_script())),
+                outfile=out)
+            answers[device] = keyed_answers(
+                json.loads(ln) for ln in out.getvalue().splitlines())
+        require(answers["cuda"] == answers["cpu"],
+                "gateway (f): card answers differ from the CPU's")
+
+    requests = [ln for ln in wire.lines if "id" in ln
+                and not ln.get("progress")]
+    emit({"phase": "gateway", "tenants": 2, "requests": len(requests),
+          "served": served, "k": k, "k_witness": k_wit,
+          "wall_s": walls, "wall_per_request_s": (
+              walls["m53"] + walls["m42_witnesses"]
+              + walls["m53_laddered"]) / 3,
+          "spans_recorded": spans_recorded,
+          "retries": res_block["retries"],
+          "ladder_steps": res_block["ladder_steps"],
+          "fallback_reason": c["fallback_reason"],
+          "oom_classified": oom_kind,
+          "profile_bytes": profile_bytes,
+          "profile_sampler_events": len(sampler_events),
+          "chain": sorted(names), "epochs": [
+              {k_: ep[k_] for k_ in ("epoch", "W", "valid", "estimate")}
+              for ep in epochs + [ep3]],
+          "obs_overhead_s": overhead, "card_equal_cpu": True,
+          "launches": launches, "phase_s": time.perf_counter() - t_phase})
+    return launches
 
 
 def same_graph(a, b) -> bool:
@@ -2354,7 +2788,6 @@ def main() -> None:
     recs[1].update(cohort_streams=len(COHORT_SEEDS),
                    launches_per_cohort_chunk=service["tree_sampler"]
                    / -(-args.k // args.chunk))
-    del full
     gc.collect()
     torch.cuda.empty_cache()
     phase_oracle(args.chunk, args.k)
@@ -2363,7 +2796,11 @@ def main() -> None:
     for rec in recs:
         rec["launches_stream"] = stream[rec["name"]]
         rec["max_abs_err_padded"] = padded_err[rec["name"]]
-    del g
+    gateway = phase_gateway(g, args.graph, args.delta, args.k, args.chunk,
+                            full)
+    for rec in recs:
+        rec["launches_gateway"] = gateway[rec["name"]]
+    del g, full
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2388,7 +2825,8 @@ def main() -> None:
     eb["launches"] = phase_recsys_full()
     recs += [fa, fa_simt, sm, sm_simt, eb]
     require(all(r["launches"] > 0 and r.get("launches_service", 1) > 0
-                and r.get("launches_stream", 1) > 0 for r in recs),
+                and r.get("launches_stream", 1) > 0
+                and r.get("launches_gateway", 1) > 0 for r in recs),
             "a kernel was launched no time on its path")
     emit({"phase": "total", "seconds": time.perf_counter() - T_START})
     emit({"kernels": recs})

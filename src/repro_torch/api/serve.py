@@ -21,13 +21,22 @@ dst, t], ...], "cnt": ...}, ...]``).  Unknown fields are rejected
 name server-side files to overwrite).
 
 Control lines: ``{"cmd": "stats"}`` (session counters plus the
-``engine`` block of process-wide tree-cohort counters), ``{"cmd":
-"health"}`` (answered at once, without draining: mode, pending/served
-counts, the same ``engine`` block, and in stream mode the current epoch
+``engine`` block of process-wide tree-cohort counters and the ``obs``
+block), ``{"cmd": "health"}`` (answered at once, without draining: mode,
+pending/served counts, the process-wide ``resilience`` counters, the
+same ``engine`` and ``obs`` blocks, and in stream mode the current epoch
 and the WAL position), ``{"cmd": "quit"}`` (drain + exit; EOF does the
-same).  The telemetry verbs ``metrics``, ``trace`` and ``profile``
-answer ``unknown cmd`` until the port's obs slice; ``health`` and
-``stats`` carry no ``obs`` or ``resilience`` block until then.
+same).
+
+Telemetry verbs (``repro_torch.obs``): ``{"cmd": "metrics"}`` answers
+the registry as Prometheus text in the ``text`` field; ``{"cmd":
+"trace"}`` exports the flight recorder (host-side spans, recorded at
+the ``trace`` level) as a ``spans`` list; ``{"cmd": "profile",
+"windows": n}`` arms a one-shot ``torch.profiler`` capture around the
+next n engine windows (the server started with ``--profile-dir``: the
+wire names no server path).  Each request line mints a trace id at
+intake (``serve.intake``); the session drain, engine dispatches and the
+response emit (``serve.emit``) record spans under it.
 
 Streaming verbs (``--serve --stream``; ``serve_loop(None,
 stream=...)``), the reference's::
@@ -69,9 +78,10 @@ from typing import IO
 
 import numpy as np
 
+from .. import obs
 from ..gateway.io import LineSource
 from ..resilience import STATS as RSTATS
-from ..resilience import classify, error_payload
+from ..resilience import classify, error_payload, fire
 from .session import Handle, Request, Session
 
 
@@ -136,6 +146,37 @@ def _engine_stats() -> dict:
                 witness_dispatches=ESTATS.witness_dispatches)
 
 
+def _metrics() -> dict:
+    """The ``metrics`` verb: the registry as Prometheus text exposition
+    (one NDJSON response; scrapers unwrap the ``text`` field)."""
+    return dict(ok=True, cmd="metrics",
+                content_type="text/plain; version=0.0.4",
+                text=obs.REGISTRY.prometheus_text())
+
+
+def _trace_export() -> dict:
+    """The ``trace`` verb: the flight recorder's span ring, oldest first
+    (each entry is one NDJSON record of the ``--trace-out`` export)."""
+    recs = obs.RECORDER.records()
+    return dict(ok=True, cmd="trace", level=obs.level_name(),
+                count=len(recs), recorded=obs.RECORDER.recorded,
+                ring=obs.RECORDER.capacity, spans=recs)
+
+
+def _profile(obj: dict, profile_dir: str | None) -> dict:
+    """The ``profile`` verb: arm a ``torch.profiler`` capture around the
+    next N engine windows.  The capture directory comes from the
+    server's ``--profile-dir``: the wire never names server paths."""
+    if profile_dir is None:
+        return dict(ok=False, cmd="profile",
+                    error="server started without --profile-dir")
+    try:
+        st = obs.arm_profile(int(obj.get("windows") or 1), profile_dir)
+    except (ValueError, RuntimeError, TypeError) as e:
+        return dict(ok=False, cmd="profile", error=str(e))
+    return dict(ok=True, cmd="profile", **st)
+
+
 def _stats(session: Session | None, stream=None) -> dict:
     d = dict(ok=True, cmd="stats")
     if session is not None:
@@ -151,7 +192,7 @@ def _stats(session: Session | None, stream=None) -> dict:
                  queries_run=ss.queries_run, ingested=st.ingested,
                  buffered=stream.store.buffered, evicted=st.evicted,
                  dropped=st.dropped, compactions=st.compactions)
-    d.update(engine=_engine_stats())
+    d.update(engine=_engine_stats(), obs=obs.summary())
     return d
 
 
@@ -159,7 +200,9 @@ def _health(stream, n_pending: int, served: int) -> dict:
     """The ``health`` verb's payload, answered without draining."""
     d = dict(ok=True, cmd="health",
              mode="plain" if stream is None else "stream",
-             pending=n_pending, served=served, engine=_engine_stats())
+             pending=n_pending, served=served,
+             resilience=RSTATS.as_dict(),
+             engine=_engine_stats(), obs=obs.summary())
     if stream is not None:
         st = stream.store
         d.update(epoch=st.epoch, buffered=st.buffered)
@@ -216,14 +259,16 @@ def _sub_response(qid: int, query, epoch_idx: int, res) -> dict:
 
 
 def serve_loop(session: Session | None, infile: IO = None,
-               outfile: IO = None, stream=None) -> int:
+               outfile: IO = None, stream=None,
+               profile_dir: str | None = None) -> int:
     """Run the NDJSON request/response loop until EOF or ``quit``.
 
     ``stream`` (a ``repro_torch.stream.StreamingSession``) enables the
     streaming verbs; the resident session is then the stream's current
     epoch's (swapped on every ``advance``) and ``session`` must be None.
-    Returns the number of estimation requests answered (standing-query
-    epoch responses included).
+    ``profile_dir`` enables the ``profile`` verb (the capture directory,
+    CLI ``--profile-dir``).  Returns the number of estimation requests
+    answered (standing-query epoch responses included).
     """
     if (session is None) == (stream is None):
         raise ValueError("serve_loop needs exactly one of session/stream")
@@ -238,8 +283,10 @@ def serve_loop(session: Session | None, infile: IO = None,
 
     def emit(obj: dict) -> None:
         try:
-            out.write(json.dumps(obj) + "\n")
-            out.flush()
+            fire("serve.write")
+            with obs.span("serve.emit", stage="emit"):
+                out.write(json.dumps(obj) + "\n")
+                out.flush()
         except Exception as e:
             # a client that hung up mid-response must not kill the server
             RSTATS.emit_failures += 1
@@ -258,10 +305,12 @@ def serve_loop(session: Session | None, infile: IO = None,
             sys.stderr.write(f"serve: window drain failed "
                              f"({classify(e)}): {e}\n")
         for rid, h in pending:
-            try:
-                emit(_response(rid, h))
-            except Exception as e:   # noqa: BLE001 — server stays up
-                emit(dict(id=rid, ok=False, **error_payload(e)))
+            # the response emit belongs to the request's trace
+            with obs.trace_context(h._trace):
+                try:
+                    emit(_response(rid, h))
+                except Exception as e:   # noqa: BLE001 — server stays up
+                    emit(dict(id=rid, ok=False, **error_payload(e)))
             served += 1
         pending.clear()
 
@@ -341,6 +390,12 @@ def serve_loop(session: Session | None, infile: IO = None,
             emit(_stats(cur_session(), stream))
         elif cmd == "health":
             emit(_health(stream, len(pending), served))
+        elif cmd == "metrics":
+            emit(_metrics())
+        elif cmd == "trace":
+            emit(_trace_export())
+        elif cmd == "profile":
+            emit(_profile(obj, profile_dir))
         elif cmd in _STREAM_VERBS and stream is None:
             emit(dict(ok=False, error=f"cmd {cmd!r} needs stream mode "
                                       "(--serve --stream)"))
@@ -352,18 +407,25 @@ def serve_loop(session: Session | None, infile: IO = None,
             emit(dict(ok=False, error=f"unknown cmd {cmd!r}"))
         else:
             rid = obj.get("id")
+            # one trace id per request wire line, minted at intake; the
+            # handle inherits it (ambient context) and every downstream
+            # span (drain, dispatch, emit) reports it
+            tid = obs.new_trace() if obs.enabled(obs.TRACE) else None
             try:
-                req = _parse_request(obj)
-                # validate the motif before it reaches the drain, so the
-                # error answers THIS line instead of poisoning the window
-                if isinstance(req.motif, str):
-                    from ..core.motif import get_motif
-                    get_motif(req.motif)
-                s = cur_session()
-                if s is None:
-                    raise RuntimeError("no epoch materialized yet — "
-                                       "send ingest + advance first")
-                pending.append((rid, s.submit(req)))
+                with obs.trace_context(tid), \
+                        obs.span("serve.intake", stage="intake", id=rid):
+                    req = _parse_request(obj)
+                    # validate the motif before it reaches the drain, so
+                    # the error answers THIS line instead of poisoning
+                    # the window
+                    if isinstance(req.motif, str):
+                        from ..core.motif import get_motif
+                        get_motif(req.motif)
+                    s = cur_session()
+                    if s is None:
+                        raise RuntimeError("no epoch materialized yet — "
+                                           "send ingest + advance first")
+                    pending.append((rid, s.submit(req)))
                 if s.window_age() is None:          # count-closed mid-add
                     drain()
             except Exception as e:       # noqa: BLE001

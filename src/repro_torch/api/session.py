@@ -25,7 +25,7 @@ Adaptive budgets: a request with ``target_rse`` starts at its ``k`` and
 grows the budget by ``config.rse_growth`` until the batch-means relative
 standard error over checkpoint windows meets the target or ``k_max`` is
 hit; growth rounds RESUME (``EngineJob.resume``) and never redraw a
-chunk.  Deadlines use ``time.monotonic``.
+chunk.  Deadlines use ``obs.monotonic``.
 
 Witnesses: ``Request.witnesses = n`` asks for up to ``n`` accepted
 full-match edge tuples beside the count; the handle merges the engine's
@@ -33,15 +33,22 @@ reservoir across adaptive rounds (least priority per edge-id tuple), so
 an adaptive result carries the witnesses of one uninterrupted run at its
 final budget.
 
-Not here yet: the mesh and obs tracing.
+Telemetry (``repro_torch.obs``): ``submit`` is an intake point (the
+handle inherits the ambient trace id or mints one at the ``trace``
+level); a drain records the ``session.drain`` span, plan resolution
+``session.preprocess``, the submit-to-drain wait the ``queue_wait``
+stage, and each window a ``request.window`` event (the RSE-vs-samples
+trajectory).
+
+Not here yet: the mesh.
 """
 from __future__ import annotations
 
 import math
-import time
 from dataclasses import dataclass
 from typing import Iterator, Sequence
 
+from .. import obs
 from ..core.batch import BatchPlanner
 from ..core.engine import witness_entries
 from ..core.estimator import EstimateResult
@@ -163,9 +170,15 @@ class Handle:
         self._preprocess_s = 0.0
         self._k_total = int(request.k)
         self._resume: tuple[int, dict] | None = None
+        # obs identity: inherit the ambient trace (a serve loop's intake
+        # minted one) or mint here: Session.submit is an intake point
+        self._trace = obs.current_trace() or (
+            obs.new_trace() if obs.enabled(obs.TRACE) else None)
+        self._submit_t = obs.monotonic()
+        self._queue_wait_seen = False
         # absolute monotonic deadline, fixed at SUBMIT time
         self._deadline_t = (None if request.deadline_s is None
-                            else time.monotonic() + request.deadline_s)
+                            else obs.monotonic() + request.deadline_s)
 
     # -- public surface --------------------------------------------------
     def result(self) -> EstimateResult:
@@ -222,10 +235,15 @@ class Handle:
                 if cur is None or e["prio"] < cur["prio"]:
                     self._wit[eid_row] = e
             wit = witness_entries(self._wit, job.witnesses)
+        rse = self._current_rse()
         self._progress.append(Progress(
             window=len(self._progress), k_done=k_done, cnt2_sum=cnt2,
-            estimate=W * cnt2 / (2.0 * k_done), rse=self._current_rse(),
+            estimate=W * cnt2 / (2.0 * k_done), rse=rse,
             witnesses=wit))
+        if obs.enabled(obs.TRACE):
+            # per-request RSE-vs-samples trajectory point (flight recorder)
+            obs.event("request.window", trace=self._trace, k_done=k_done,
+                      cnt2=cnt2, rse=(rse if math.isfinite(rse) else None))
 
     def _current_rse(self) -> float:
         if self._wts is not None and int(self._wts.W_total) == 0:
@@ -305,12 +323,12 @@ class Session:
         if self._closed:
             raise RuntimeError("Session is closed")
         if (self._pending
-                and time.monotonic() - self._window_opened
+                and obs.monotonic() - self._window_opened
                 >= self.config.coalesce_window_s):
             self.flush()                       # time-closed window
         if not self._pending:
             # a fresh clock read: the flush above ran a whole window
-            self._window_opened = time.monotonic()
+            self._window_opened = obs.monotonic()
         handle = Handle(self, request)
         self._pending.append(handle)
         self.stats.submitted += 1
@@ -328,7 +346,7 @@ class Session:
             raise RuntimeError("Session is closed")
         handles = [Handle(self, r) for r in requests]
         if not self._pending:
-            self._window_opened = time.monotonic()
+            self._window_opened = obs.monotonic()
         self._pending.extend(handles)
         self.stats.submitted += len(handles)
         return handles
@@ -338,7 +356,7 @@ class Session:
         nothing is pending): serve loops poll this to time-close."""
         if not self._pending:
             return None
-        return time.monotonic() - self._window_opened
+        return obs.monotonic() - self._window_opened
 
     def sample_matches(self, specs: Sequence, K: int,
                        seed: int | None = None) -> list[dict]:
@@ -364,33 +382,36 @@ class Session:
             return
         self.stats.drains += 1
         active = pending
-        try:
-            while active:
-                active = self._run_round(active)
-        except BaseException as e:
-            for h in pending:
-                if not h.done:
-                    h._error = e
-                    h.done = True
-            raise
+        with obs.span("session.drain", stage="drain",
+                      trace=pending[0]._trace, requests=len(pending)):
+            try:
+                while active:
+                    active = self._run_round(active)
+            except BaseException as e:
+                for h in pending:
+                    if not h.done:
+                        h._error = e
+                        h.done = True
+                raise
 
     def _resolve_plan(self, h: Handle) -> None:
         """Tree + weights for a handle (cached across growth rounds)."""
         if h._tree is not None:
             return
         req = h.request
-        t0 = time.perf_counter()
         pre0 = self.planner.preprocess_s
-        h._motif = (get_motif(req.motif) if isinstance(req.motif, str)
-                    else req.motif)
-        if req.tree is not None:
-            h._tree = req.tree
-            h._wts = (req.wts if req.wts is not None
-                      else self.planner.weights_for(req.tree, req.delta))
-        else:
-            h._tree, h._wts = self.planner.plan(h._motif, req.delta)
+        with obs.span("session.preprocess", stage="preprocess",
+                      trace=h._trace) as sp:
+            h._motif = (get_motif(req.motif) if isinstance(req.motif, str)
+                        else req.motif)
+            if req.tree is not None:
+                h._tree = req.tree
+                h._wts = (req.wts if req.wts is not None
+                          else self.planner.weights_for(req.tree, req.delta))
+            else:
+                h._tree, h._wts = self.planner.plan(h._motif, req.delta)
         h._preprocess_s = self.planner.preprocess_s - pre0
-        h._tree_select_s = time.perf_counter() - t0
+        h._tree_select_s = sp.elapsed_s
 
     def _run_round(self, active: list[Handle]) -> list[Handle]:
         """One engine pass over ``active`` handles; returns the handles
@@ -400,6 +421,12 @@ class Session:
         cfg = self.config
         handles, jobs = [], []
         for h in active:
+            if obs.enabled() and not h._queue_wait_seen:
+                # submit -> first drain: coalescing + queueing latency
+                h._queue_wait_seen = True
+                obs.observe_stage("queue_wait",
+                                  obs.monotonic() - h._submit_t,
+                                  trace=h._trace)
             self._resolve_plan(h)
             req = h.request
             job = EngineJob(
@@ -408,7 +435,8 @@ class Session:
                 seed=int(cfg.seed if req.seed is None else req.seed),
                 tree=h._tree, wts=h._wts,
                 checkpoint_path=req.checkpoint_path, resume=h._resume,
-                deadline_t=h._deadline_t, witnesses=int(req.witnesses))
+                deadline_t=h._deadline_t, witnesses=int(req.witnesses),
+                trace=h._trace)
             job.tree_select_s = h._tree_select_s
             job.preprocess_s = h._preprocess_s
             handles.append(h)
@@ -446,7 +474,7 @@ class Session:
                 if (h.request.target_rse is not None
                         and h._deadline_t is not None
                         and h._current_rse() > h.request.target_rse
-                        and time.monotonic() >= h._deadline_t):
+                        and obs.monotonic() >= h._deadline_t):
                     # target unmet but the deadline vetoed further
                     # growth rounds: report the partial as degraded
                     res.degraded = True
@@ -465,7 +493,7 @@ class Session:
         target = h.request.target_rse
         if target is None or h._current_rse() <= target:
             return False
-        if h._deadline_t is not None and time.monotonic() >= h._deadline_t:
+        if h._deadline_t is not None and obs.monotonic() >= h._deadline_t:
             return False
         cap_chunks = max(1, -(-h._k_cap() // self.config.chunk))
         return job.cursor < cap_chunks

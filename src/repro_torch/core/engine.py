@@ -30,11 +30,29 @@ chunk), keeps the window's top ``n_wit`` accepted matches by
 deterministic priority and merges them into ``job.wit``, keyed by the
 edge-id tuple.  A job without witnesses never re-draws.
 
-Not here (the reference's, to come with later slices of the port): the
-mesh, the retry ladder and its degradation rungs, obs spans and the
-compiled-program LRU (nothing is compiled).  The reference pads
-a cohort's stream rows to the group's width only to avoid a retrace;
-the port does not pad.
+Resilience (the reference's ladder at ``sampler_backend="xla"``): every
+window dispatch runs through a transient-retry loop
+(``resilience.retry.DISPATCH_POLICY``, deterministic backoff), and a
+window whose retries are spent on a *retryable* failure is split into
+halves, each retried the same way, down to one chunk; then the error
+raises.  The halves are summed on the host in int64 and chunk ``j``
+still draws ``fold_in(base_key, j)``, so every rung is bit-identical.
+The window's six sums are copied to the host inside the retry's ``try``
+(and inside the ``engine.device`` span): a fault of an asynchronous
+launch surfaces at that copy, the window's one host sync, and so meets
+the ladder.  There is no backend-swap rung: the port has one route per
+device, and swapping a card's kernel for its plain twin would be a
+hidden fallback.  A witness window retries the same way.
+
+Telemetry (``repro_torch.obs``): spans ``engine.dispatch`` (per cohort
+window) with ``engine.device`` (per attempt) inside it, and
+``engine.witness``; the profile seam starts and stops around cohort
+windows; the ``repro_sampler_samples_per_s`` gauge; ``STATS`` is a
+registry ``CounterBlock``.  All timing goes through ``obs``.
+
+Not here: the mesh (one device) and the compiled-program LRU (nothing
+is compiled).  The reference pads a cohort's stream rows to the group's
+width only to avoid a retrace; the port does not pad.
 """
 from __future__ import annotations
 
@@ -42,11 +60,14 @@ import json
 import os
 import time
 from collections import OrderedDict
-from dataclasses import dataclass, field, fields
+from dataclasses import dataclass, field
 
 import torch
 
-from ..resilience import atomic_write_json
+from .. import obs
+from ..resilience import STATS as RSTATS
+from ..resilience import atomic_write_json, fire, is_retryable
+from ..resilience.retry import DISPATCH_POLICY, backoff_delay
 from . import rng
 from .estimator import ACC_KEYS, EstimateResult, unbias_estimate
 from .motif import TemporalMotif
@@ -57,13 +78,14 @@ from .weights import Weights
 
 
 def make_engine_window_fn(trees, chunk: int, Lmax: int, device):
-    """``fn(dev, wts, base_keys [J, 2], j0, n) -> {key: [J][M] ints}``:
-    chunks ``j0 .. j0+n-1`` of a J-stream, M-lane tree cohort.
+    """``fn(dev, wts, base_keys [J, 2], j0, n) -> int64 [6, J, M]``:
+    chunks ``j0 .. j0+n-1`` of a J-stream, M-lane tree cohort, the six
+    sums in ``ACC_KEYS`` order.
 
     ``trees`` is the tuple of signature-equal lane trees (the first one
     drives sampling).  Per chunk: one batched sampler call, then every
-    lane's counts; the sums stay on ``device`` and are read once, at the
-    end of the window.
+    lane's counts; the sums stay on ``device`` (the caller reads them
+    once, at the end of the window).
     """
     bs_fn = make_batched_sample_fn(trees[0], chunk, device)
     cc_fn = make_cohort_count_fn(trees, chunk, Lmax=Lmax)
@@ -79,7 +101,7 @@ def make_engine_window_fn(trees, chunk: int, Lmax: int, device):
         for i in range(n):
             out = cc_fn(dev, wts, bs_fn(dev, wts, keys[i]))
             sums += torch.stack([out[kk] for kk in ACC_KEYS])
-        return dict(zip(ACC_KEYS, sums.tolist()))
+        return sums
 
     return window
 
@@ -95,9 +117,10 @@ def _witness_width(n: int) -> int:
 
 
 def make_witness_window_fn(tree, chunk: int, Lmax: int, n_wit: int, device):
-    """``fn(dev, wts, base_key, j0, n, seed) -> dict``: scan chunks
-    ``j0 .. j0+n-1`` merging each chunk's witness reservoir
-    (``sampler.make_witness_fn``) into the window's top ``n_wit``.
+    """``fn(dev, wts, base_key, j0, n, seed) -> dict`` of tensors on
+    ``device``: scan chunks ``j0 .. j0+n-1`` merging each chunk's witness
+    reservoir (``sampler.make_witness_fn``) into the window's top
+    ``n_wit``.
 
     Chunk ``j`` re-draws from ``fold_in(base_key, j)``, the key the
     counting path used, so witnesses come from the instances the
@@ -157,7 +180,7 @@ class EngineJob:
     # growth rounds continue a job from its previous round's cursor.
     # Takes precedence over ``checkpoint_path`` when set.
     resume: tuple | None = None
-    # absolute ``time.monotonic()`` deadline: when it passes mid-run the
+    # absolute ``obs.monotonic()`` deadline: when it passes mid-run the
     # job stops at its last completed checkpoint window and returns a
     # partial result marked ``degraded`` (never an error)
     deadline_t: float | None = None
@@ -173,6 +196,10 @@ class EngineJob:
     fallback_reason: str = ""
     degraded: bool = False
     degrade_reason: str = ""
+    # runtime degradation ladder state: 0 = dispatch whole windows; a
+    # positive value caps the chunks per dispatch (execution only: the
+    # chunk -> fold_in key map and the checkpoint grid are untouched)
+    max_window: int = 0
     n_chunks: int = 0
     k_eff: int = 0
     cursor: int = 0
@@ -181,6 +208,9 @@ class EngineJob:
     group_size: int = 1
     # the job reads cell ``[stream(seed), lane]`` of its cohort's sums
     lane: int = 0
+    # obs trace id of the request that planned this job (None when the
+    # caller runs untraced); dispatch spans report it
+    trace: str | None = None
     # timings (tree_select_s/preprocess_s are filled by the front-ends)
     sampling_s: float = 0.0
     preprocess_s: float = 0.0
@@ -211,12 +241,22 @@ class ExecutionPlan:
     dispatches: int = 0
 
 
-@dataclass
-class EngineStats:
-    """Process-wide dispatch accounting, with the reference's names.
+_SAMPLES_PER_S = obs.REGISTRY.gauge(
+    "repro_sampler_samples_per_s",
+    "sampler throughput over the most recent cohort window dispatch")
+_WITNESS_SECONDS = obs.REGISTRY.counter(
+    "repro_engine_witness_seconds_total",
+    "wall seconds in witness windows, device synced")
 
-    ``dispatches``          cohort windows run
-    ``fused_dispatches``    windows carrying more than one job
+
+class EngineStats(obs.CounterBlock):
+    """Process-wide dispatch accounting, with the reference's names: a
+    registry ``CounterBlock`` (``repro_engine_*_total``, monotonic;
+    ``reset()`` is a test seam).
+
+    ``dispatches``          window dispatches launched (halved windows
+                            count each part)
+    ``fused_dispatches``    cohort windows carrying more than one job
     ``job_windows``         job x window pairs covered
     ``tree_cohorts``        cohort windows dispatched
     ``cohort_motif_lanes``  distinct motif lanes over those windows
@@ -226,22 +266,33 @@ class EngineStats:
                             port's own: on the card one sampler launch
                             each, apart from the counting path's)
     ``witness_s``           wall seconds in witness windows, device
-                            synced (the port's own)
+                            synced (the port's own; a float counter,
+                            read-only here)
     """
 
-    dispatches: int = 0
-    fused_dispatches: int = 0
-    job_windows: int = 0
-    tree_cohorts: int = 0
-    cohort_motif_lanes: int = 0
-    samples_shared: int = 0
-    witness_dispatches: int = 0
-    witness_chunks: int = 0
-    witness_s: float = 0.0
+    _PREFIX = "repro_engine"
+    _FIELDS = ("dispatches", "fused_dispatches", "job_windows",
+               "tree_cohorts", "cohort_motif_lanes", "samples_shared",
+               "witness_dispatches", "witness_chunks")
+    _DOCS = {
+        "dispatches": "window dispatches launched",
+        "fused_dispatches": "cohort windows carrying more than one job",
+        "job_windows": "job x window pairs covered",
+        "tree_cohorts": "cohort windows dispatched",
+        "cohort_motif_lanes": "distinct motif lanes over cohort windows",
+        "samples_shared": "samples consumed without being redrawn",
+        "witness_dispatches": "witness reservoir windows run",
+        "witness_chunks": "chunks re-drawn by witness windows",
+    }
+
+    @property
+    def witness_s(self) -> float:
+        return _WITNESS_SECONDS.value
 
     def reset(self) -> None:
-        for f in fields(self):
-            setattr(self, f.name, f.default)
+        """Zero the block — TEST-ONLY seam."""
+        super().reset()
+        _WITNESS_SECONDS._reset()
 
     @property
     def motifs_per_cohort(self) -> float:
@@ -295,14 +346,20 @@ def _run_witness_window(fn, plan, group, job, j0, n) -> None:
     built once per job) over a counted window and merge its top rows
     into ``job.wit``.
 
-    ``job.wit`` keeps every per-window survivor at its best (smallest)
-    priority and is never trimmed here, so an adaptive run split into
-    resume rounds merges to the same set as one uninterrupted run.
+    Transient failures retry like count dispatches (the rows are copied
+    to the host inside the ``try``).  ``job.wit`` keeps every per-window
+    survivor at its best (smallest) priority and is never trimmed here,
+    so an adaptive run split into resume rounds merges to the same set
+    as one uninterrupted run.
     """
-    t0 = time.perf_counter()
-    out = fn(plan.dev, group.wts, job.base_key, j0, n, job.seed)
-    out = {kk: out[kk].tolist() for kk in _WIT_KEYS}
-    STATS.witness_s += time.perf_counter() - t0
+    def attempt():
+        out = fn(plan.dev, group.wts, job.base_key, j0, n, job.seed)
+        return {kk: out[kk].tolist() for kk in _WIT_KEYS}
+
+    with obs.span("engine.witness", trace=job.trace, backend=job.backend,
+                  j0=int(j0), n=int(n)) as sp:
+        out = _retrying("engine.witness", job.backend, j0, attempt)
+    _WITNESS_SECONDS.inc(sp.elapsed_s)
     STATS.witness_dispatches += 1
     width = len(out["prio"])
     # present edges in motif (pi) order, not tree-local order
@@ -376,10 +433,92 @@ def plan_jobs(jobs, *, dev: dict, chunk: int = 8192, Lmax: int = 16,
                          checkpoint_every=max(1, int(checkpoint_every)))
 
 
+def _retrying(site: str, tag: str, j0: int, attempt):
+    """``attempt()`` behind the ``site`` fault-injection point, with the
+    transient-retry loop: ``classify() == retryable`` failures are
+    retried up to the policy's attempt budget with deterministically
+    jittered backoff (seeded by the window's ``j0``).  Non-retryable
+    failures and spent budgets raise to the caller."""
+    for i in range(DISPATCH_POLICY.max_attempts):
+        try:
+            fire(site, tag=tag)
+            return attempt()
+        except Exception as e:
+            if not is_retryable(e):
+                raise
+            RSTATS.retries += 1
+            if i == DISPATCH_POLICY.max_attempts - 1:
+                raise
+            time.sleep(backoff_delay(DISPATCH_POLICY, i, seed=int(j0)))
+
+
+def _attempt_dispatch(window_fn, plan, wts, base_keys, j0, n, backend):
+    """One window dispatch through the retry loop; returns the window's
+    sums as a host int64 tensor ``[6, J, M]``.  The sums are copied to
+    the host inside the loop: a fault of an asynchronous launch surfaces
+    at that copy, so it meets the retries and the ladder."""
+    def attempt():
+        with obs.span("engine.device", stage="device", backend=backend,
+                      j0=int(j0), n=int(n)):
+            return window_fn(plan.dev, wts, base_keys, j0, n).cpu()
+
+    return _retrying("engine.dispatch", backend, j0, attempt)
+
+
+def _run_cohort_window(plan, group, get_fn, cjobs, base_keys, j0, n):
+    """Dispatch one cohort window through the degradation ladder.
+
+    Rungs, each taken only after the retry budget at the current one is
+    spent on a *retryable* failure: the whole window, then windows
+    halved again and again (``max_window`` chunks per dispatch, summed
+    on the host in int64) down to one chunk; then the last error raises.
+    Purely an execution change: chunk ``j`` still draws ``fold_in(
+    base_key, j)`` and the checkpoint grid is untouched, so every rung
+    is bit-identical.  (The reference's ``pallas -> xla`` swap has no
+    counterpart: the port has one route per device.)
+
+    Returns ``(sums, n_dispatches)`` and records the rung on the cohort's
+    jobs (``max_window`` / ``fallback_reason``).
+    """
+    backend = cjobs[0].backend
+    max_window = cjobs[0].max_window
+    while True:
+        try:
+            window_fn = get_fn()
+            if not max_window or max_window >= n:
+                return _attempt_dispatch(window_fn, plan, group.wts,
+                                         base_keys, j0, n, backend), 1
+            total = None
+            parts = 0
+            done = 0
+            while done < n:
+                step = min(max_window, n - done)
+                part = _attempt_dispatch(window_fn, plan, group.wts,
+                                         base_keys, j0 + done, step, backend)
+                parts += 1
+                total = part if total is None else total + part
+                done += step
+            return total, parts
+        except Exception as e:
+            if not is_retryable(e):
+                raise
+            cur = max_window if max_window and max_window < n else n
+            if cur <= 1:
+                raise           # smallest dispatch still failing
+            max_window = cur // 2
+            reason = f"ladder: dispatch window halved to {max_window} " \
+                     "chunks after repeated transient failure"
+            RSTATS.ladder_steps += 1
+            for job in cjobs:
+                job.max_window = max_window
+                job.fallback_reason = (job.fallback_reason + "; " + reason
+                                       if job.fallback_reason else reason)
+
+
 def _mark_deadline_expired(jobs, chunk) -> list:
     """Split off jobs whose deadline has passed; they stop at their last
     completed checkpoint window (cursor stays put).  Returns survivors."""
-    now = time.monotonic()
+    now = obs.monotonic()
     live = []
     for job in jobs:
         if job.deadline_t is not None and now >= job.deadline_t:
@@ -387,6 +526,7 @@ def _mark_deadline_expired(jobs, chunk) -> list:
             job.degrade_reason = (
                 f"deadline: stopped at k={job.cursor * chunk} "
                 f"of {job.k_eff} (last completed checkpoint window)")
+            RSTATS.deadline_degraded += 1
         else:
             live.append(job)
     return live
@@ -401,19 +541,31 @@ def run_plan(plan: ExecutionPlan, on_window=None) -> list[EstimateResult]:
     (``window_sums`` is THIS window's int sums).
 
     Within a group, jobs whose next window coincides (same ``(j0, n)``
-    on the ``checkpoint_every``-aligned grid) run together: one stream
-    row per distinct seed, jobs sharing a seed read the same samples
-    (``STATS.samples_shared`` counts what they did not redraw).  Fused
-    jobs report the shared window's wall clock as their ``sampling_s``.
-    Jobs whose ``deadline_t`` passes stop at their last completed window
-    and return partials marked ``degraded``, with the samples actually
-    drawn as ``k``.
+    on the ``checkpoint_every``-aligned grid, and the same ladder rung)
+    run together: one stream row per distinct seed, jobs sharing a seed
+    read the same samples (``STATS.samples_shared`` counts what they did
+    not redraw).  Fused jobs report the shared window's wall clock as
+    their ``sampling_s``.  Every window goes through the retry ladder
+    (``_run_cohort_window``); a laddered job records its rung in
+    ``fallback_reason`` and peels into its own cohorts, so fused
+    siblings never inherit it.  Jobs whose ``deadline_t`` passes stop at
+    their last completed window and return partials marked ``degraded``,
+    with the samples actually drawn as ``k``.
     """
     ce = plan.checkpoint_every
     device = plan.dev["t"].device
+    on_card = device.type == "cuda"
     for group in plan.groups:
-        window_fn = make_engine_window_fn(group.lane_trees, plan.chunk,
-                                          plan.Lmax, device)
+        built: list = []
+
+        def get_fn(_group=group, _built=built):
+            # built at the group's first dispatch, behind its fault site
+            if not _built:
+                fire("sampler.call", tag=device.type)
+                _built.append(make_engine_window_fn(
+                    _group.lane_trees, plan.chunk, plan.Lmax, device))
+            return _built[0]
+
         witness_fns = {
             id(job): make_witness_window_fn(
                 job.tree, plan.chunk, plan.Lmax,
@@ -426,8 +578,11 @@ def run_plan(plan: ExecutionPlan, on_window=None) -> list[EstimateResult]:
             for job in active:
                 j0 = job.cursor
                 n = min(ce - j0 % ce, job.n_chunks - j0)
-                cohorts.setdefault((j0, n), []).append(job)
-            for (j0, n), cjobs in cohorts.items():
+                # laddered jobs peel into their own cohorts so fused
+                # siblings never inherit their rung
+                cohorts.setdefault((j0, n, job.max_window),
+                                   []).append(job)
+            for (j0, n, _), cjobs in cohorts.items():
                 # stream rows: first-seen dedupe by seed
                 row_of: dict = {}
                 keys: list = []
@@ -435,12 +590,27 @@ def run_plan(plan: ExecutionPlan, on_window=None) -> list[EstimateResult]:
                     if job.seed not in row_of:
                         row_of[job.seed] = len(keys)
                         keys.append(job.base_key)
-                t0 = time.perf_counter()
-                sums = window_fn(plan.dev, group.wts, torch.stack(keys),
-                                 j0, n)
-                dt = time.perf_counter() - t0
-                plan.dispatches += 1
-                STATS.dispatches += 1
+                profiling = obs.profile_armed()
+                if profiling:
+                    obs.profile_window_start(cuda=on_card)
+                with obs.span("engine.dispatch", stage="dispatch",
+                              trace=cjobs[0].trace,
+                              backend=cjobs[0].backend, j0=int(j0),
+                              n=int(n), jobs=len(cjobs),
+                              streams=len(keys), rung=cjobs[0].max_window,
+                              plan_key=str(group.key.signature)) as sp:
+                    sums, n_disp = _run_cohort_window(
+                        plan, group, get_fn, cjobs, torch.stack(keys),
+                        j0, n)
+                    sp.set(dispatches=n_disp)
+                if profiling:
+                    obs.profile_window_end()
+                dt = sp.elapsed_s
+                if obs.enabled() and dt > 0:
+                    _SAMPLES_PER_S.set(plan.chunk * n * len(keys) / dt)
+                sums = dict(zip(ACC_KEYS, sums.tolist()))
+                plan.dispatches += n_disp
+                STATS.dispatches += n_disp
                 STATS.job_windows += len(cjobs)
                 if len(cjobs) > 1:
                     STATS.fused_dispatches += 1

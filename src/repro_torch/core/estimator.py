@@ -63,7 +63,10 @@ class EstimateResult:
     sampling_s: float = 0.0     # sampling + counting, device synced
     tree_select_s: float = 0.0  # Alg. 7 as a whole (includes preprocess)
     sampler_backend: str = "cuda"   # the device type that sampled
-    fallback_reason: str = ""      # always "": the port never falls back
+    # the retry ladder's rungs taken ("" when none): the port never
+    # swaps a kernel for its plain twin, it only halves windows
+    fallback_reason: str = ""
+    mesh_shape: tuple | None = None   # always None: one device, no mesh
     fused_jobs: int = 1            # jobs sharing this job's tree cohort
     # empirical batch-means relative standard error, filled by the
     # session layer (api/session.py); None when no session measured it

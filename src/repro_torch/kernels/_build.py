@@ -10,7 +10,8 @@ rebuilt.  Only the repository's own sources are read.
 Calling convention of every entry point: pointers and the stream are
 ``c_void_p``, sizes ``c_int64``; the launch runs on the caller's stream
 (``torch.cuda.current_stream()``) and the function returns
-``cudaGetLastError()``, which the wrapper turns into an exception.
+``cudaGetLastError()``, which the wrapper turns into a
+:class:`~repro_torch.resilience.errors.CudaLaunchError`.
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+from ..resilience.errors import CudaLaunchError
 
 _KERNELS = Path(__file__).resolve().parent
 _ROOT = _KERNELS.parents[2]
@@ -119,7 +122,9 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def check(rc: int, name: str) -> None:
-    """Raise on a non-zero ``cudaError_t`` returned by an entry point."""
+    """Raise :class:`~repro_torch.resilience.errors.CudaLaunchError`
+    (a ``RuntimeError`` carrying the number, which the failure taxonomy
+    classifies) on a non-zero ``cudaError_t`` returned by an entry
+    point."""
     if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError "
-                           f"{rc}")
+        raise CudaLaunchError(name, rc)

@@ -34,12 +34,28 @@ and recovers it on restart; ``--horizon`` is the sliding retention.
 ``--replay-batch`` batches, advancing an epoch every ``--advance-every``
 batches and re-estimating the ``--motif`` x ``--delta`` standing queries
 per epoch.
+
+Multi-tenant serving: ``--serve --gateway`` pools graph and stream
+tenants behind the ``open_tenant`` / ``close_tenant`` verbs
+(``repro_torch.gateway``; ``--graph`` is ignored), ``--max-tenants`` and
+``--tenant-quota`` bound the pool and each tenant's pending work, and
+``--wal-dir DIR`` enables ``"wal": true`` stream tenants (one WAL per
+tenant under DIR, recovered on reopen).
+
+Telemetry (``repro_torch.obs``): ``--obs {off,metrics,trace}`` and
+``--obs-ring N`` set the level and the flight recorder's capacity (the
+reference's ``REPRO_OBS`` / ``REPRO_OBS_RING``; the port reads no
+environment); ``--trace-out PATH`` writes the recorder as NDJSON when
+the run ends (and implies ``trace``); ``--profile-dir DIR`` enables the
+serve modes' ``profile`` verb, whose ``torch.profiler`` Chrome traces
+land under DIR.
 """
 from __future__ import annotations
 
 import argparse
 import sys
 
+from .. import obs
 from ..core.motif import get_motif, is_motif_spec
 from ..graphs import (er_temporal_graph, fintxn_temporal_graph,
                       load_edge_list, powerlaw_temporal_graph)
@@ -74,6 +90,42 @@ def _print_exact(g, res, cache: dict) -> None:
 
 
 def main(argv=None) -> None:
+    ap = _parser()
+    args = ap.parse_args(argv)
+    if args.stream and not args.serve:
+        ap.error("--stream requires --serve (for offline replay use "
+                 "--stream-replay FILE)")
+    if args.horizon is not None and not (args.stream or args.stream_replay):
+        ap.error("--horizon only applies to stream modes (--serve --stream "
+                 "or --stream-replay)")
+    if args.wal is not None and not (args.serve and args.stream):
+        ap.error("--wal requires --serve --stream (the WAL logs the live "
+                 "ingest/advance history)")
+    if args.gateway and not args.serve:
+        ap.error("--gateway requires --serve (it is a serving mode)")
+    if args.gateway and args.stream:
+        ap.error("--gateway pools graph AND stream tenants itself; open "
+                 "stream tenants over the wire instead of --stream")
+    if args.wal_dir is not None and not args.gateway:
+        ap.error("--wal-dir only applies to --serve --gateway (single-"
+                 "stream serving uses --wal PATH)")
+    if args.profile_dir is not None and not args.serve:
+        ap.error("--profile-dir requires --serve (the 'profile' verb "
+                 "arms the profiler over the wire)")
+    obs.set_level("trace" if args.trace_out else args.obs)
+    obs.set_ring(args.obs_ring)
+    try:
+        _run(args)
+    finally:
+        if args.trace_out:
+            with open(args.trace_out, "w") as f:
+                f.write(obs.RECORDER.export_ndjson())
+            print(f"trace: {obs.RECORDER.recorded} spans recorded, "
+                  f"{len(obs.RECORDER)} in ring -> {args.trace_out}",
+                  file=sys.stderr)
+
+
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--graph", default="powerlaw:n=500,m=8000")
     ap.add_argument("--motif", default="M5-3",
@@ -117,26 +169,69 @@ def main(argv=None) -> None:
                     help="with --serve --stream: crash-safe write-ahead "
                          "log; ingest/advance history is fsynced to PATH "
                          "and replayed on restart (torn tail truncated)")
+    ap.add_argument("--gateway", action="store_true",
+                    help="with --serve: multi-tenant gateway; pool many "
+                         "graphs/streams in one process behind "
+                         "open_tenant/close_tenant verbs with overlapped "
+                         "drains (repro_torch.gateway; --graph is "
+                         "ignored, tenants open over the wire)")
+    ap.add_argument("--max-tenants", type=int, default=8,
+                    help="gateway: tenant pool capacity (idle-LRU "
+                         "eviction past it)")
+    ap.add_argument("--tenant-quota", type=int, default=16,
+                    help="gateway: max pending work items per tenant; "
+                         "submits past it answer error_kind=overloaded")
+    ap.add_argument("--wal-dir", default=None, metavar="DIR",
+                    help="gateway: directory for per-tenant WAL files "
+                         "(enables '\"wal\": true' stream tenants; paths "
+                         "derive from the tenant name server-side)")
+    ap.add_argument("--obs", default=obs.trace.DEFAULT_LEVEL,
+                    choices=("off", "metrics", "trace"),
+                    help="telemetry level: off (records nothing), metrics "
+                         "(counters and stage histograms), trace (metrics "
+                         "plus host-side spans in the flight recorder); "
+                         "estimates are bit-identical at every level")
+    ap.add_argument("--obs-ring", type=int, default=obs.trace.DEFAULT_RING,
+                    metavar="N",
+                    help="flight-recorder capacity in spans (the oldest "
+                         "is overwritten when full)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write the flight recorder as NDJSON to PATH when "
+                         "the run ends (implies --obs trace)")
+    ap.add_argument("--profile-dir", default=None, metavar="DIR",
+                    help="serve modes: enable the 'profile' wire verb; "
+                         "torch.profiler Chrome traces of the next N "
+                         "engine windows land under DIR (never a path "
+                         "from the wire)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default: the hand-written kernels) or cpu "
                          "(their plain torch versions)")
-    args = ap.parse_args(argv)
-    if args.stream and not args.serve:
-        ap.error("--stream requires --serve (for offline replay use "
-                 "--stream-replay FILE)")
-    if args.horizon is not None and not (args.stream or args.stream_replay):
-        ap.error("--horizon only applies to stream modes (--serve --stream "
-                 "or --stream-replay)")
-    if args.wal is not None and not (args.serve and args.stream):
-        ap.error("--wal requires --serve --stream (the WAL logs the live "
-                 "ingest/advance history)")
+    return ap
 
+
+def _run(args) -> None:
     from ..api import EstimateConfig
     # an inline motif spec contains commas itself: a --motif that parses
     # as ONE spec is a single motif, not a comma list
     motifs = ([args.motif] if is_motif_spec(args.motif)
               else args.motif.split(","))
     deltas = [int(d) for d in str(args.delta).split(",")]
+
+    if args.serve and args.gateway:
+        from ..gateway import gateway_serve_loop
+        cfg = EstimateConfig(chunk=args.chunk, seed=args.seed,
+                             coalesce_window_s=args.coalesce_window,
+                             coalesce_max_requests=args.coalesce_max,
+                             device=args.device)
+        print(f"serving GATEWAY  max_tenants={args.max_tenants}  "
+              f"quota={args.tenant_quota}  wal_dir={args.wal_dir}  "
+              f"device={args.device}", file=sys.stderr, flush=True)
+        served = gateway_serve_loop(cfg, max_tenants=args.max_tenants,
+                                    quota=args.tenant_quota,
+                                    wal_dir=args.wal_dir,
+                                    profile_dir=args.profile_dir)
+        print(f"served {served} responses", file=sys.stderr)
+        return
 
     if args.serve and args.stream:
         from ..api import serve_loop
@@ -159,7 +254,8 @@ def main(argv=None) -> None:
             print(f"serving LIVE stream  horizon={args.horizon}  "
                   f"wal={args.wal}  device={args.device}",
                   file=sys.stderr, flush=True)
-            served = serve_loop(None, stream=ss)
+            served = serve_loop(None, stream=ss,
+                                profile_dir=args.profile_dir)
         print(f"served {served} responses", file=sys.stderr)
         return
 
@@ -202,7 +298,7 @@ def main(argv=None) -> None:
         print(f"serving graph n={g.n} m={g.m} span={g.time_span}  "
               f"device={args.device}  window={args.coalesce_window}s "
               f"max={args.coalesce_max}", file=sys.stderr, flush=True)
-        served = serve_loop(session)
+        served = serve_loop(session, profile_dir=args.profile_dir)
         print(f"served {served} requests", file=sys.stderr)
         return
 

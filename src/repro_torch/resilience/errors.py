@@ -15,10 +15,19 @@ Three kinds, chosen for what the caller should *do* next:
   shed work itself, which is what distinguishes it from ``retryable``.
 
 The port's own copy of ``repro.resilience.errors``: :func:`classify`
-is the single decision point the serve loop consults, and it gives the
-same kind as the JAX package's for the same exception.  Device errors
-are matched by type NAME and their message grepped for transient status
-codes.
+is the single decision point the engine's retry ladder and the serve
+loops consult, and it gives the same kind as the JAX package's for every
+exception both can meet.  It also knows the card's faults, which the
+reference (matching XLA's error types) cannot see:
+
+* ``torch.cuda.OutOfMemoryError`` (matched by type name, no torch
+  import) is ``retryable``, as the reference's ``RESOURCE_EXHAUSTED``;
+* a kernel launch that returned a ``cudaError`` raises
+  :class:`CudaLaunchError` (``kernels._build.check``), which carries the
+  number: ``cudaErrorMemoryAllocation`` (2) is ``retryable``; every
+  other code is ``fatal``, the sticky ones (an illegal address, a
+  device-side assert, a launch failure) above all, because they poison
+  the CUDA context and a retry can only fail again.
 """
 from __future__ import annotations
 
@@ -49,6 +58,24 @@ class BadRequestError(ValueError):
     """Marker: the request itself is invalid (never retried)."""
 
 
+#: ``cudaErrorMemoryAllocation``: the one launch error worth a retry
+#: (the sticky ones, 700 illegal address, 710 device-side assert, 719
+#: launch failure, and every other code are fatal)
+CUDA_ERROR_MEMORY_ALLOCATION = 2
+
+
+class CudaLaunchError(RuntimeError):
+    """A hand-written kernel's launch returned ``cudaError`` ``code``
+    (``kernels._build.check``).  Only an allocation failure is worth
+    retrying."""
+
+    def __init__(self, name: str, code: int):
+        super().__init__(f"{name}: CUDA launch failed with cudaError "
+                         f"{code}")
+        self.kernel = name
+        self.code = int(code)
+
+
 # host-side exception types that model transient conditions
 _TRANSIENT_TYPES = (ConnectionError, TimeoutError, InterruptedError,
                     MemoryError)
@@ -56,6 +83,9 @@ _TRANSIENT_TYPES = (ConnectionError, TimeoutError, InterruptedError,
 # type names (checked against the MRO) whose message text carries the
 # real status
 _DEVICE_ERROR_NAMES = ("XlaRuntimeError", "JaxRuntimeError")
+
+# the card's out-of-memory error (torch.cuda.OutOfMemoryError), by name
+_DEVICE_OOM_NAMES = ("OutOfMemoryError",)
 
 # transient gRPC/XLA status markers inside a device error message
 _TRANSIENT_STATUS = ("RESOURCE_EXHAUSTED", "UNAVAILABLE",
@@ -74,7 +104,12 @@ def classify(exc: BaseException) -> str:
         return FATAL
     if isinstance(exc, TransientError) or isinstance(exc, _TRANSIENT_TYPES):
         return RETRYABLE
+    if isinstance(exc, CudaLaunchError):
+        return (RETRYABLE if exc.code == CUDA_ERROR_MEMORY_ALLOCATION
+                else FATAL)
     mro_names = {c.__name__ for c in type(exc).__mro__}
+    if mro_names & set(_DEVICE_OOM_NAMES):
+        return RETRYABLE
     if mro_names & set(_DEVICE_ERROR_NAMES):
         msg = str(exc).upper()
         if any(status in msg for status in _TRANSIENT_STATUS):

@@ -1,12 +1,19 @@
 """Deterministic fault injection: named sites, explicit hit schedules
 (the port's copy of the JAX package's ``repro.resilience.faultinject``).
 
-Production code calls :func:`fire` at its failure-prone seams.  The
-port has one so far (the reference's other sites, ``engine.dispatch``,
-``sampler.call``, ``serve.write`` and ``checkpoint.write``, come with
-the port's retry-ladder slice)::
+Production code calls :func:`fire` at its failure-prone seams, the
+reference's five and its witness site::
 
+    fire("engine.dispatch", tag=device)    # before every window dispatch
+    fire("engine.witness",  tag=device)    # before every witness window
+    fire("sampler.call",    tag=device)    # window function construction
     fire("wal.fsync")                      # before the WAL durability sync
+    fire("serve.write")                    # before each response write
+    fire("checkpoint.write", tag=path)     # MID checkpoint temp-file write
+
+The port's ``tag`` for the engine sites is the device type the window
+runs on (``"cuda"`` or ``"cpu"``), where the reference names its
+sampler backend.
 
 With no injector installed this is a None check.  Tests
 install a :class:`FaultInjector` whose :class:`FaultSpec` schedule says

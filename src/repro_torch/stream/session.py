@@ -21,14 +21,18 @@ epoch's snapshot, and to one on the unpadded retained graph.  Standing
 queries whose trees share a structural signature fuse into one tree
 cohort per window; fusion never changes bits.
 
-Not here yet: the reference's obs spans around ``advance`` (they come
-with the port's telemetry slice) and the mesh.
+Telemetry: an advance is an intake point (it mints or inherits a trace
+id) and records the ``stream.advance`` span (stage ``advance``) with
+``stream.estimate`` (the standing queries' drain) inside it; their
+``elapsed_s`` are the result's ``advance_s`` and ``estimate_s``.
+
+Not here yet: the mesh.
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 
+from .. import obs
 from ..api.config import EstimateConfig
 from ..api.session import MAX_WITNESSES, Request, Session
 from ..core.estimator import EstimateResult
@@ -179,30 +183,38 @@ class StreamingSession:
         """
         if self._closed:
             raise RuntimeError("StreamingSession is closed")
-        t0 = time.perf_counter()
-        epoch = self.store.advance()
-        if self.session is not None:
-            self.session.close()
-            self.session = None
-        self.session = Session(epoch.graph, self.config)
-        self.epoch = epoch
-        results: dict[int, EstimateResult] = {}
-        t1 = time.perf_counter()
-        if self._queries:
-            items = list(self._queries.items())
-            handles = self.session.submit_many([
-                Request(motif=q.motif, delta=int(q.delta), k=int(q.k),
-                        seed=int(q.seed), target_rse=q.target_rse,
-                        k_max=q.k_max, witnesses=int(q.witnesses))
-                for _, q in items])
-            for (qid, _), h in zip(items, handles):
-                results[qid] = h.result()
-        t2 = time.perf_counter()
+        # an advance is an intake point: mint (or inherit) a trace id so
+        # the epoch's snapshot/plan/drain spans chain together
+        tid = obs.current_trace() or (
+            obs.new_trace() if obs.enabled(obs.TRACE) else None)
+        with obs.trace_context(tid), \
+                obs.span("stream.advance", stage="advance",
+                         queries=len(self._queries)) as sp_adv:
+            epoch = self.store.advance()
+            if self.session is not None:
+                self.session.close()
+                self.session = None
+            self.session = Session(epoch.graph, self.config)
+            self.epoch = epoch
+            sp_adv.set(epoch=epoch.index)
+            results: dict[int, EstimateResult] = {}
+            with obs.span("stream.estimate") as sp_est:
+                if self._queries:
+                    items = list(self._queries.items())
+                    handles = self.session.submit_many([
+                        Request(motif=q.motif, delta=int(q.delta),
+                                k=int(q.k), seed=int(q.seed),
+                                target_rse=q.target_rse, k_max=q.k_max,
+                                witnesses=int(q.witnesses))
+                        for _, q in items])
+                    for (qid, _), h in zip(items, handles):
+                        results[qid] = h.result()
+        dt = sp_adv.elapsed_s
         self.stats.epochs += 1
         self.stats.queries_run += len(results)
-        self.stats.advance_s_total += t2 - t0
-        return EpochResult(epoch=epoch, results=results, advance_s=t2 - t0,
-                           estimate_s=t2 - t1)
+        self.stats.advance_s_total += dt
+        return EpochResult(epoch=epoch, results=results, advance_s=dt,
+                           estimate_s=sp_est.elapsed_s)
 
     # -- ad-hoc queries --------------------------------------------------
     def query(self, request: Request) -> EstimateResult:

@@ -40,11 +40,11 @@ log's valid prefix (truncating a torn tail) such that its next
 from __future__ import annotations
 
 import os
-import time
 from dataclasses import dataclass
 
 import numpy as np
 
+from .. import obs
 from ..core.graph import TemporalGraph, pad_snapshot
 
 
@@ -246,7 +246,7 @@ class StreamStore:
     # -- snapshots -------------------------------------------------------
     def advance(self) -> Epoch:
         """Compact, evict, and materialize the next epoch snapshot."""
-        t0 = time.perf_counter()
+        t0 = obs.perf_counter()
         evicted = self.compact()
         total = sum(s.t.size for s in self._segments)
         if total == 0:
@@ -267,7 +267,7 @@ class StreamStore:
             m_real=m_real, n_real=n_real, evicted=evicted,
             ingested_total=self.stats.ingested,
             evicted_total=self.stats.evicted,
-            snapshot_s=time.perf_counter() - t0)
+            snapshot_s=obs.perf_counter() - t0)
         self._epoch += 1
         self.stats.epochs += 1
         if self._wal is not None:

@@ -39,6 +39,7 @@ import zlib
 
 import numpy as np
 
+from .. import obs
 from ..resilience import fire
 from ..resilience.retry import STATS as RSTATS
 
@@ -83,9 +84,10 @@ class Wal:
         if self._f.closed:
             raise ValueError("WAL is closed")
         self._f.write(_encode(rec_type, payload))
-        self._f.flush()
-        fire("wal.fsync")
-        os.fsync(self._f.fileno())
+        with obs.span("wal.fsync", stage="wal_fsync"):
+            self._f.flush()
+            fire("wal.fsync")
+            os.fsync(self._f.fileno())
         self.records += 1
         RSTATS.wal_records += 1
 

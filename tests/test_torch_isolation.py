@@ -43,6 +43,15 @@ STREAM_SLICE = ("repro_torch.stream", "repro_torch.stream.replay",
                 "repro_torch.stream.session", "repro_torch.stream.store",
                 "repro_torch.stream.wal", "repro_torch.resilience.faultinject",
                 "repro_torch.resilience.retry")
+# the modules of the observability, retry-ladder and gateway slice
+GATEWAY_SLICE = ("repro_torch.obs", "repro_torch.obs.clock",
+                 "repro_torch.obs.registry", "repro_torch.obs.trace",
+                 "repro_torch.resilience.atomic",
+                 "repro_torch.resilience.errors", "repro_torch.gateway",
+                 "repro_torch.gateway.io", "repro_torch.gateway.scheduler",
+                 "repro_torch.gateway.state", "repro_torch.gateway.serve",
+                 "repro_torch.core.engine", "repro_torch.api.session",
+                 "repro_torch.api.serve", "repro_torch.launch.estimate")
 
 
 def test_import_pulls_neither_jax_nor_repro():
@@ -51,9 +60,10 @@ def test_import_pulls_neither_jax_nor_repro():
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout.splitlines()
     count, bad = out[0].split(maxsplit=1)
-    assert int(count) >= 68             # every module of the eight slices
+    assert int(count) >= 75             # every module of the nine slices
     assert bad.strip() == "[]"
     assert set(STREAM_SLICE) <= set(out[1].split())
+    assert set(GATEWAY_SLICE) <= set(out[1].split())
 
 
 def _imports(path: Path):

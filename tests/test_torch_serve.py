@@ -1,11 +1,12 @@
 """The port's NDJSON serve loop and CLI.
 
 The same request lines through both packages' ``serve_loop`` give equal
-response lines (``sampler_backend`` and ``advance_s`` aside, and only
-the blocks the port has in ``stats``/``health``), in plain mode and in
-stream mode (``subscribe`` / ``ingest`` / ``advance`` / ``unsubscribe``,
-witness payloads included); the verbs the port does not have yet answer
-as documented.  The CLI takes comma lists, edge-list paths, ``--exact``,
+response lines (``sampler_backend`` and ``advance_s`` aside; the
+``resilience`` and ``obs`` blocks of ``stats``/``health`` included, both
+packages' counters reset first), in plain mode and in stream mode
+(``subscribe`` / ``ingest`` / ``advance`` / ``unsubscribe``, witness
+payloads included); the telemetry verbs answer the reference's
+payloads.  The CLI takes comma lists, edge-list paths, ``--exact``,
 ``--checkpoint`` and ``--serve``, and in a subprocess ``--serve
 --stream`` (with a ``--wal`` restart) and ``--stream-replay``.
 """
@@ -27,12 +28,16 @@ from repro.api import serve_loop as ref_serve_loop
 from repro.stream import StreamingSession as RStreaming
 from repro.core.engine import STATS as RSTATS
 from repro.graphs import powerlaw_temporal_graph as rgraph
+from repro.obs import RECORDER as R_RECORDER
+from repro.resilience.retry import STATS as R_RES_STATS
 from repro_torch import (count_exact, estimate, estimate_many, get_motif,
                          powerlaw_temporal_graph, save_edge_list)
 from repro_torch.api import EstimateConfig, Session, serve_loop
 from repro_torch.core.engine import STATS
 from repro_torch.gateway import LineSource
 from repro_torch.launch import estimate as cli
+from repro_torch.obs import RECORDER
+from repro_torch.resilience import STATS as RES_STATS
 from repro_torch.stream import StreamingSession
 
 GRAPH = dict(n=150, m=2000, time_span=40000, seed=11)
@@ -75,9 +80,21 @@ def _serve(loop, session, lines):
     return served, [json.loads(ln) for ln in out.getvalue().splitlines()]
 
 
+def _reset_reference():
+    RSTATS.reset()
+    R_RES_STATS.reset()
+    R_RECORDER.clear()
+
+
+def _reset_port():
+    STATS.reset()
+    RES_STATS.reset()
+    RECORDER.clear()
+
+
 @pytest.fixture(scope="module")
 def reference():
-    RSTATS.reset()
+    _reset_reference()
     s = RSession(rgraph(**GRAPH), RConfig(chunk=256,
                                           coalesce_window_s=3600.0))
     return _serve(ref_serve_loop, s, LINES)
@@ -85,7 +102,7 @@ def reference():
 
 @pytest.fixture(scope="module")
 def port():
-    STATS.reset()
+    _reset_port()
     s = Session(powerlaw_temporal_graph(**GRAPH),
                 EstimateConfig(chunk=256, coalesce_window_s=3600.0,
                                device="cpu"))
@@ -94,8 +111,7 @@ def port():
 
 def _comparable(port_line: dict, ref_line: dict) -> tuple[dict, dict]:
     """The port's line without ``sampler_backend`` and the wall clock of
-    an ``advance``, against the reference line's same keys (the port's
-    ``stats``/``health`` carry no obs or resilience block yet)."""
+    an ``advance``, against the reference line's same keys."""
     got = {k: v for k, v in port_line.items()
            if k not in ("sampler_backend", "advance_s")}
     return got, {k: ref_line.get(k, "<missing>") for k in got}
@@ -138,8 +154,25 @@ def _port_session(**kw):
 
 @pytest.mark.parametrize("cmd", ["metrics", "trace", "profile"])
 def test_telemetry_verbs_wait_for_their_slice(cmd):
+    """Named for what it checked before the port had telemetry: each
+    verb now answers the reference's payload.  The two registries count
+    different work, so ``metrics`` is held by its keys and the series
+    the text declares."""
+    _reset_port()
+    _reset_reference()
     _, lines = _serve(serve_loop, _port_session(), [{"cmd": cmd}])
-    assert lines == [{"ok": False, "error": f"unknown cmd {cmd!r}"}]
+    _, want = _serve(ref_serve_loop, RSession(rgraph(**TINY), RConfig(
+        chunk=64)), [{"cmd": cmd}])
+    if cmd != "metrics":
+        assert lines == want
+        return
+    assert set(lines[0]) == set(want[0])
+    assert lines[0]["content_type"] == want[0]["content_type"]
+    declared = {ln for ln in lines[0]["text"].splitlines()
+                if ln.startswith("# TYPE repro_resilience")}
+    assert declared == {ln for ln in want[0]["text"].splitlines()
+                        if ln.startswith("# TYPE repro_resilience")}
+    assert "# TYPE repro_engine_dispatches_total counter" in lines[0]["text"]
 
 
 def test_witness_requests_answer_bad_request():
@@ -287,7 +320,7 @@ def _stream_serve(loop, ss, lines):
 
 @pytest.fixture(scope="module")
 def stream_reference():
-    RSTATS.reset()
+    _reset_reference()
     ss = RStreaming(config=RConfig(chunk=64, coalesce_window_s=3600.0),
                     horizon=3000)
     return _stream_serve(ref_serve_loop, ss, _stream_lines())
@@ -295,7 +328,7 @@ def stream_reference():
 
 @pytest.fixture(scope="module")
 def stream_port():
-    STATS.reset()
+    _reset_port()
     ss = StreamingSession(config=EstimateConfig(
         chunk=64, coalesce_window_s=3600.0, device="cpu"), horizon=3000)
     return _stream_serve(serve_loop, ss, _stream_lines())
