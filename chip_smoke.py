@@ -44,7 +44,18 @@ port's two paths:
 * recsys serving: card against CPU for the DCN-v2 smoke config, then
   DCN-v2 at full width (the Criteo-1TB table profile, 62,988,288 rows of
   16 in bf16): the serve_p99, serve_bulk and retrieval_cand traffic of
-  ``configs/shapes.py``, shown to go through the EmbeddingBag kernel.
+  ``configs/shapes.py``, shown to go through the EmbeddingBag kernel;
+* training: card against CPU for three AdamW steps of the smoke GNNs
+  (GAT, GatedGCN on molecules, GraphSAGE on a graph and on sampled
+  blocks, GraphCast) and DCN-v2, and a DCN-v2 ``run_resumable`` killed
+  after step 2 and resumed, equal to the straight run; the four GNN
+  configs at full width on a ``GNN_SHAPES`` cell each (the sampler over
+  the minibatch_lg graph's 114.6 M edges); DCN-v2 at full width in
+  training (f32 table and AdamW state on the card, train_batch 65,536),
+  one EmbeddingBag launch a step, its backward held against the plain
+  autograd; and ``examples/motif_features_gnn.py``'s pipeline, TIMEST
+  motif features from ``Session.sample_matches`` (both TIMEST kernels,
+  card == CPU) feeding a GraphSAGE classifier trained on the card.
 
 Each phase prints one JSON line; the line before the last is the
 ``kernels`` record and the last line is ``{"ok": true, "device": ...}``.
@@ -141,6 +152,27 @@ MOE_CHECK_TOL = 1e-3
 KERNEL_TOL = {"bfloat16": dict(rtol=1e-2, atol_rel=2e-3, rel_l2_max=2e-3),
               "float32": dict(rtol=1e-4, atol_rel=5e-5, rel_l2_max=1e-5)}
 FAULT_FACTOR = 10
+# training: card against CPU at smoke size (f32 GNNs: the card's scatter
+# order differs; DCN-v2: the bf16 tolerance of tests/test_torch_recsys.py),
+# and the full-width first step's loss and gradient norm against the CPU
+# (the GNN cells and DCN-v2)
+TRAIN_SMALL_TOL = {"gnn": 1e-4, "dcn-v2": 5e-2}
+TRAIN_FULL_TOL = 1e-3
+# DCN-v2's bf16 gradient, each leaf's norm against the f32 CPU's: bf16's
+# rtol (KERNEL_TOL), its values rounding at 2^-8 through six layers
+BF16_GRAD_TOL = 1e-2
+TRAIN_STEPS = 5
+# the GNN cells trained at full width (configs/shapes.py GNN_SHAPES;
+# ogb_products waits for the distribution slice: unsharded, its edge
+# activations pass the card's 80 GB)
+GNN_CELLS = (("gat-cora", "full_graph_sm"),
+             ("graphsage-reddit", "minibatch_lg"),
+             ("gatedgcn", "molecule"), ("graphcast", "full_graph_sm"))
+# examples/motif_features_gnn.py's pipeline
+MOTIF_GNN = dict(graph=dict(n_accounts=300, m=4_000, time_span=150_000,
+                            n_rings=20, ring_size=5, n_smurf=16, seed=0),
+                 motifs=("M5-3", "scatter-gather"), delta=2_500, K=1 << 13,
+                 steps=60, acc_min=0.6)
 
 
 def emit(obj) -> None:
@@ -2737,6 +2769,545 @@ def phase_recsys_full() -> int:
     return total
 
 
+def phase_train_small() -> None:
+    """Card against CPU at smoke size: three AdamW steps of each
+    ``repro_torch.testing.TRAIN_SMOKE`` case (GAT, GatedGCN molecules,
+    GraphSAGE full graph and sampled blocks, GraphCast, DCN-v2) from the
+    same numpy weights and batches, losses and parameters within
+    ``TRAIN_SMALL_TOL``; then DCN-v2 smoke through ``run_resumable``,
+    killed after step 2 and resumed, equal to the straight run bit for
+    bit (batch 4: no id repeats more than twice in a feature, so the
+    backward's atomic adds land in one order)."""
+    import shutil
+
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.train import build, synthetic_batch
+    from repro_torch.testing import TRAIN_SMOKE, compare_train, train_runs
+    from repro_torch.train import pytree
+    from repro_torch.train.fault_tolerance import run_resumable
+    for name, arch, layout in TRAIN_SMOKE:
+        tol = TRAIN_SMALL_TOL["dcn-v2" if arch == "dcn-v2" else "gnn"]
+        runs, launches = train_runs(name, device="cuda")
+        err = compare_train(runs, tol)
+        want = 3 if arch == "dcn-v2" else 0
+        require(launches[1]["embedding_bag"] == want
+                and launches[0]["embedding_bag"] == 0,
+                f"train_small {name}: launches {launches}, not {want} "
+                "embedding_bag on the card")
+        emit({"phase": "train_small", "case": name, "layout": layout,
+              "steps": 3, "tol": tol, "max_rel_err": err,
+              "losses_card": runs[1][0].tolist(),
+              "losses_cpu": runs[0][0].tolist(),
+              "launches_card": launches[1]})
+    cfg = get_smoke_config("dcn-v2")
+    root = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def batches(step, attempt):
+        return synthetic_batch(cfg, 4, 0, step * 1000 + attempt, "cuda")
+    final = {}
+    for run, stops in (("straight", (4,)), ("killed", (2, 4))):
+        for total in stops:
+            state, do_step = build(cfg, 1e-3, 4, device="cuda")
+            state, rep = run_resumable(do_step, state, batches, total,
+                                       str(root / run), ckpt_every=1)
+        final[run] = (pytree.leaves(state), rep)
+    (a, rep_a), (b, rep_b) = final["straight"], final["killed"]
+    require(rep_b.resumed_from == 2 and rep_b.steps_run == 2
+            and rep_a.steps_run == 4,
+            f"train_small resume: {rep_a}, {rep_b}")
+    require(all(torch.equal(x, y) for x, y in zip(a, b, strict=True)),
+            "train_small: the resumed run differs from the straight run")
+    shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "train_small", "case": "dcn-v2 run_resumable",
+          "killed_after": 2, "steps": 4, "resumed_from": rep_b.resumed_from,
+          "equal": True, "leaves": len(a)})
+
+
+def gnn_cell(arch: str, shape: str, r) -> tuple:
+    """``(cfg, d_in, d_out, numpy batch, readings)`` of one GNN cell at
+    the reference's ``launch/specs.py`` layout, inputs from ``r``: a full
+    graph with its edges padded to a multiple of 512 (GraphCast: its
+    mesh and its three edge sets), sampled GraphSAGE blocks over a random
+    graph of the shape's n and m (the shape's fanout), or molecules."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import GNN_SHAPES
+    from repro_torch.graphs import NeighborSampler
+    from repro_torch.testing import (gnn_block_batch, gnn_full_batch,
+                                     gnn_molecule_batch)
+    sh, cfg = GNN_SHAPES[shape], get_config(arch)
+    d_in = sh["d_feat"]
+    d_out = cfg.n_vars if cfg.kind == "graphcast" else sh["n_classes"]
+    info = {}
+    if shape == "minibatch_lg":
+        cfg = dataclasses.replace(cfg, sample_sizes=tuple(sh["fanout"]))
+        n, m = sh["n_nodes"], sh["n_edges"]
+        t0 = time.perf_counter()
+        snd, rcv = r.integers(0, n, m), r.integers(0, n, m)
+        t1 = time.perf_counter()
+        sampler = NeighborSampler(snd, rcv, n)
+        t2 = time.perf_counter()
+        del snd, rcv
+        feats = r.standard_normal((n, d_in), dtype=np.float32)
+        labels = r.integers(0, sh["n_classes"], n)
+        t3 = time.perf_counter()
+        batch = gnn_block_batch(sampler, r, sh["batch_nodes"],
+                                cfg.sample_sizes, feats, labels)
+        info = dict(graph_n=n, graph_m=m, edges_gen_s=t1 - t0,
+                    sampler_build_s=t2 - t1,
+                    sample_blocks_s=time.perf_counter() - t3,
+                    table_nodes=len(batch["feats"]),
+                    block_edges=[len(b["senders"]) for b in batch["blocks"]])
+        del sampler, feats
+    elif shape == "molecule":
+        batch = gnn_molecule_batch(r, sh["batch"], sh["n_nodes"],
+                                   sh["n_edges"], d_in, sh["n_classes"])
+        d_out = sh["n_classes"]
+    else:
+        batch = gnn_full_batch(cfg, r, sh["n_nodes"], sh["n_edges"], d_in,
+                               sh["n_classes"])
+        info = {k: len(v) for k, v in batch.items() if k.endswith("senders")}
+    return cfg, d_in, d_out, batch, info
+
+
+def first_step(loss_fn, params, batch, by_leaf: bool = False) -> dict:
+    """The loss and the gradient's f64 norm at ``params`` (one
+    ``value_and_grad``; norms summed in slices of 2^24, so no leaf is
+    copied whole to f64), with each leaf's norm by its path if
+    ``by_leaf``."""
+    from repro_torch.train import pytree
+    from repro_torch.train.steps import value_and_grad
+    loss, grads = value_and_grad(loss_fn)(params, batch)
+    leaf = {}
+    for path, g in pytree.flatten_with_paths(grads):
+        leaf[path] = sum(float(part.double().square().sum())
+                         for part in g.reshape(-1).split(1 << 24)) ** 0.5
+    out = dict(loss=float(loss),
+               grad_norm_f64=sum(x * x for x in leaf.values()) ** 0.5)
+    if by_leaf:
+        out["leaf_norms_f64"] = leaf
+    return out
+
+
+def hold_first_step(what: str, card: dict, cpu: dict, tol: float,
+                    losses=()) -> dict:
+    """Require every reading of the card's ``first_step`` (loss, norm,
+    each leaf's norm) finite and within ``tol`` of the CPU port's, and
+    the trained run's ``losses`` finite with the first within ``tol``
+    of the CPU's loss; return the relative errors."""
+    import numpy as np
+    flat = {}
+    for side, d in (("card", card), ("cpu", cpu)):
+        for k, v in d.items():
+            for kk, x in (v.items() if isinstance(v, dict) else [("", v)]):
+                flat.setdefault(k + kk, {})[side] = x
+    rel = {k: abs(v["card"] - v["cpu"]) / max(abs(v["cpu"]), 1e-30)
+           for k, v in flat.items()}
+    require(all(np.isfinite([v["card"], v["cpu"]]).all()
+                for v in flat.values()) and all(np.isfinite(losses))
+            and all(r <= tol for r in rel.values()),
+            f"{what}: first step card {card} against CPU {cpu}, relative "
+            f"errors {rel} (tol {tol}), losses {losses}")
+    if len(losses):
+        require(abs(losses[0] - cpu["loss"]) <= tol * abs(cpu["loss"]),
+                f"{what}: first loss {losses[0]} against CPU {cpu['loss']}")
+    return rel
+
+
+def phase_gnn_train() -> None:
+    """The four GNN configs at full width, each on one ``GNN_SHAPES`` cell
+    (``GNN_CELLS``, inputs from numpy seed 0): ``TRAIN_STEPS`` AdamW
+    steps on the card, the step time (median of steps 2-5, synced), the
+    peak memory and a profiled sixth step; the loss and the gradient's
+    norm at the first step's weights held against the CPU port's at the
+    same inputs (``TRAIN_FULL_TOL``).  The norm is taken in f64: at full
+    depth GraphCast's gradient (the reference's interaction blocks have
+    no normalisation) has a sum of squares past f32's range, so the
+    optimizer's f32 ``grad_norm`` is inf on both devices (also printed)."""
+    import gc
+    import statistics
+    from functools import partial
+
+    import numpy as np
+    import torch
+    from repro_torch.models import gnn
+    from repro_torch.models.convert import gnn_from_numpy, numpy_gnn_params
+    from repro_torch.testing import to_torch
+    from repro_torch.train import pytree
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.steps import make_train_step
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+    torch.backends.cuda.matmul.allow_tf32 = False       # f32, as the CPU
+    for arch, shape in GNN_CELLS:
+        t0 = time.perf_counter()
+        cfg, d_in, d_out, batch, info = gnn_cell(arch, shape,
+                                                 np.random.default_rng(0))
+        params = numpy_gnn_params(cfg, d_in, d_out, seed=0)
+        setup_s = time.perf_counter() - t0
+        loss_fn = partial(gnn.train_loss, cfg)
+
+        def first(device):
+            return first_step(loss_fn, gnn_from_numpy(params, device=device),
+                              to_torch(batch, device))
+        t0 = time.perf_counter()
+        cpu_first = first("cpu")
+        cpu_s = time.perf_counter() - t0
+        card_first = first("cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        p = gnn_from_numpy(params, device="cuda")
+        b = to_torch(batch, "cuda")
+        opt = adamw_init(p)
+        step = make_train_step(loss_fn, opt_cfg)
+        times, losses, opt_norm = [], [], None
+        for s in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, opt, m = step(p, opt, b)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+            if opt_norm is None:
+                opt_norm = float(m["grad_norm"])
+        peak = torch.cuda.max_memory_allocated()
+        rel = hold_first_step(f"gnn_train {arch} x {shape}", card_first,
+                              cpu_first, TRAIN_FULL_TOL, losses)
+        prof = device_profile(lambda: step(p, opt, b))
+        emit({"phase": "gnn_train", "arch": arch, "shape": shape,
+              "params": sum(x.numel() for x in pytree.leaves(p)),
+              "d_in": d_in, "d_out": d_out, "steps": TRAIN_STEPS,
+              "step_ms_median_2_5": 1e3 * statistics.median(times[1:]),
+              "step_ms": [1e3 * t for t in times], "losses": losses,
+              "card_first": card_first, "cpu_first": cpu_first,
+              "rel_err": rel, "tol": TRAIN_FULL_TOL, "cpu_first_s": cpu_s,
+              "optimizer_grad_norm_f32": opt_norm,
+              "setup_s": setup_s, "peak_mem_bytes": peak, **info,
+              "profiled_step": prof})
+        del p, b, opt, step, batch, params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+class StepSplit:
+    """``make_train_step``'s ``mark`` hook: while ``run`` drives a step,
+    a CUDA event and the peak memory allocated since the last mark at
+    each boundary, so the real step's forward, backward and optimizer
+    are timed apart (ms) and their peaks read; a no-op otherwise."""
+
+    def __init__(self):
+        self.marks = None
+
+    def __call__(self, name: str) -> None:
+        if self.marks is None:
+            return
+        import torch
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.marks.append((name, ev, torch.cuda.max_memory_allocated()))
+        torch.cuda.reset_peak_memory_stats()
+
+    def run(self, fn) -> tuple:
+        """``(fn(), parts)``: ``parts`` maps ``<part>_ms`` and
+        ``<part>_peak_bytes`` for each part the step marked."""
+        import torch
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        self.marks = []
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+            marks = self.marks
+        finally:
+            self.marks = None
+        parts = {}
+        for (name, ev, _), (_, nxt, peak) in zip(marks, marks[1:]):
+            parts[f"{name}_ms"] = ev.elapsed_time(nxt)
+            parts[f"{name}_peak_bytes"] = peak
+        return out, parts
+
+
+def hold_table_grad(what: str, table, gid, gen) -> dict:
+    """``recsys.embedding_bag``'s table gradient on the card (one
+    ``index_add_`` in f32, cast to bf16) for a random bf16 output
+    gradient, held against the plain autograd of ``embedding_bag_ref``
+    on the rows it reads (in f32, rounded once to bf16); nothing may
+    land outside those rows."""
+    import torch
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    from repro_torch.models import recsys
+    g = torch.randn((gid.shape[0], table.shape[1]), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    t1 = table.detach().requires_grad_()
+    recsys.embedding_bag(t1, gid).backward(g)
+    rows = torch.unique(gid[:, 0])
+    t2 = table[rows].float().requires_grad_()
+    embedding_bag_ref(t2, torch.searchsorted(rows, gid)).backward(g.float())
+    torch.cuda.synchronize()
+    check = check_close(what, t1.grad[rows], t2.grad.to(torch.bfloat16),
+                        "bfloat16")
+    require(int(t1.grad.count_nonzero())
+            == int(t1.grad[rows].count_nonzero()),
+            f"{what}: gradient outside the rows read")
+    return dict(rows=int(rows.numel()), **check)
+
+
+def phase_recsys_train() -> tuple[int, dict]:
+    """DCN-v2 at full width in training (f32 weights, bf16 forward; the
+    62,988,288 x 16 table, its two moments and its gradient on the card)
+    on ``launch.train``'s step and its ``synthetic_batch`` traffic at
+    train_batch = 65,536 (numpy seeds 0, 1000, ...).  At the first
+    batch and the initial weights: the embedding_bag kernel equal to
+    ``embedding_bag_ref`` bit for bit, the table gradient held to the
+    plain autograd (``hold_table_grad``), and the first step against the
+    CPU port's: in f32 the loss and every leaf's gradient norm (f64)
+    within ``TRAIN_FULL_TOL``; in bf16, as the step trains, the loss
+    within the same and every leaf's norm within ``BF16_GRAD_TOL`` of
+    the f32 CPU's.  Then ``TRAIN_STEPS`` steps, one embedding_bag launch required per
+    step; the step's own forward / backward / optimizer split
+    (``StepSplit``, median of three more steps); a profiled step; the
+    backward's ``index_add_`` timed beside its bound and
+    ``embedding_dense_backward``, and held at the serve_p99 size too.
+    Returns the kernel launches of the timed steps and the backward's
+    readings."""
+    import gc
+    import statistics
+    from functools import partial
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import RECSYS_SHAPES
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    from repro_torch.launch.train import build, synthetic_batch
+    from repro_torch.models import recsys
+    cfg = get_config("dcn-v2")
+    V, d = cfg.v_total, cfg.embed_dim
+    B = RECSYS_SHAPES["train_batch"]["batch"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    split = StepSplit()
+    t0 = time.perf_counter()
+    state, do_step = build(cfg, 3e-4, TRAIN_STEPS + 2, device="cuda",
+                           mark=split)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batches = [synthetic_batch(cfg, B, 0, s * 1000, "cuda")
+               for s in range(TRAIN_STEPS)]
+
+    # the path's lookup and table gradient at its own shape
+    gid = (batches[0]["sparse"].long()
+           + recsys.table_offsets(cfg, "cuda")).reshape(-1, 1)
+    table = state["params"]["table"].detach().to(torch.bfloat16)
+    got, want = embedding_bag(table, gid), embedding_bag_ref(table, gid)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), "recsys_train: embedding_bag kernel "
+            "!= plain version bit for bit at train_batch")
+    del got, want
+    checks = dict(forward_equal=True, backward_train_batch=hold_table_grad(
+        "embedding_bag backward train_batch", table, gid, gen))
+    del table
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the first step against the CPU port, in f32 and in bf16
+    torch.backends.cuda.matmul.allow_tf32 = False       # f32, as the CPU
+    first, cpu_s = {}, 0.0
+    for dev in ("cuda", "cpu"):
+        p = (state["params"] if dev == "cuda"
+             else tree_to(state["params"], "cpu"))
+        b = batches[0] if dev == "cuda" else tree_to(batches[0], "cpu")
+        for dt in (torch.float32, torch.bfloat16):
+            t0 = time.perf_counter()
+            first[dev, dt] = first_step(
+                partial(recsys.train_loss, cfg, compute_dtype=dt), p, b,
+                by_leaf=True)
+            cpu_s += (time.perf_counter() - t0) * (dev == "cpu")
+            gc.collect()
+            torch.cuda.empty_cache()
+        del p, b
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, launches, losses = [], [], []
+    for s in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        reset_counters(embedding_bag)
+        t0 = time.perf_counter()
+        state, m = do_step(state, batches[s], s)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        launches.append(embedding_bag.launches)
+        losses.append(m["loss"])
+    peak = torch.cuda.max_memory_allocated()
+    require(launches == [1] * TRAIN_STEPS,
+            f"recsys_train: embedding_bag launches per step {launches}")
+    # f32 is the same arithmetic on both devices: loss and every leaf's
+    # gradient within TRAIN_FULL_TOL.  The bf16 step trained above: its
+    # loss likewise, its leaves' gradient norms within bf16's rtol of the
+    # f32 CPU's (either device's bf16 GEMMs round, and reduce, apart)
+    rel = dict(f32=hold_first_step("recsys_train f32", first["cuda", f32],
+                                   first["cpu", f32], TRAIN_FULL_TOL),
+               bf16_loss=hold_first_step(
+                   "recsys_train bf16 loss",
+                   {"loss": first["cuda", bf16]["loss"]},
+                   {"loss": first["cpu", bf16]["loss"]}, TRAIN_FULL_TOL,
+                   losses),
+               bf16_leaves=hold_first_step(
+                   "recsys_train bf16 gradient against the f32 CPU",
+                   {"g": first["cuda", bf16]["leaf_norms_f64"]},
+                   {"g": first["cpu", f32]["leaf_norms_f64"]},
+                   BF16_GRAD_TOL))
+    batch = synthetic_batch(cfg, B, 0, TRAIN_STEPS * 1000, "cuda")
+    del batches
+    splits = []
+    for s in range(3):
+        (state, _), parts = split.run(
+            lambda: do_step(state, batch, TRAIN_STEPS + s))
+        splits.append(parts)
+    parts = {k: statistics.median(x[k] for x in splits) for k in splits[0]}
+    parts["runs"] = splits
+    prof = device_profile(lambda: do_step(state, batch, TRAIN_STEPS + 3))
+    emit({"phase": "recsys_train", "arch": cfg.name, "batch": B,
+          "steps": TRAIN_STEPS, "init_s": init_s,
+          "step_ms_median_2_5": 1e3 * statistics.median(times[1:]),
+          "step_ms": [1e3 * t for t in times], "losses": losses,
+          "first": {f"{dev}_{str(dt)[6:]}": v
+                    for (dev, dt), v in first.items()},
+          "rel_err": rel, "tol": TRAIN_FULL_TOL,
+          "bf16_grad_tol": BF16_GRAD_TOL, "cpu_first_s": cpu_s,
+          "checks": checks, "split_ms": parts,
+          "embedding_bag_launches_per_step": launches,
+          "peak_mem_bytes": peak, "profiled_step": prof})
+    # the backward's scatter-add at the train_batch shape
+    gid = (batch["sparse"].long()
+           + recsys.table_offsets(cfg, "cuda")).reshape(-1, 1)
+    n = gid.shape[0]
+    g = torch.randn((n, d), generator=gen, device="cuda").to(torch.bfloat16)
+    nbytes = n * (2 * d + 8) + V * d * 2
+    bwd = dict(case=f"train_batch, {B} x {cfg.n_sparse} ids (the launcher's"
+               f" synthetic ids, < {min(cfg.table_sizes)} per feature), "
+               "d 16, bf16 gradient of the bf16 table",
+               rows=n, bytes=nbytes,
+               ms=cuda_ms(lambda: recsys.embedding_bag_grad(
+                   g, gid, None, (V, d), torch.bfloat16), reps=5),
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+               library="torch.ops.aten.embedding_dense_backward",
+               library_ms=cuda_ms(
+                   lambda: torch.ops.aten.embedding_dense_backward(
+                       g, gid[:, 0], V, -1, False), reps=5),
+               check_train_batch=checks["backward_train_batch"])
+    del g, gid
+    # held against the plain autograd at the serve_p99 size too
+    table = state["params"]["table"].detach().to(torch.bfloat16)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    ids = recsys_ids(cfg, RECSYS_SHAPES["serve_p99"]["batch"],
+                     np.random.default_rng(0))
+    gid = (ids + recsys.table_offsets(cfg, "cuda")).reshape(-1, 1)
+    bwd["check_serve_p99"] = hold_table_grad(
+        "embedding_bag backward serve_p99", table, gid, gen)
+    emit({"phase": "recsys_train", "backward": bwd})
+    del table, gid
+    gc.collect()
+    torch.cuda.empty_cache()
+    return sum(launches), bwd
+
+
+def phase_motif_gnn() -> dict:
+    """``examples/motif_features_gnn.py`` on the card: the fintxn graph's
+    per-node motif features from ``Session.sample_matches`` (M5-3 and
+    scatter-gather, delta 2500, K = 2^13, seed 0) equal to the CPU
+    port's (``cnt2``, ``phi_v``, ``scale``) and launching both TIMEST
+    kernels; then a GraphSAGE classifier (init seed 0) trained for 60
+    AdamW steps on ``[log degree || log motif features]``, validation
+    accuracy above 0.6 as the example asserts.  Returns the TIMEST
+    kernels' launches on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.api import EstimateConfig, Session
+    from repro_torch.graphs import fintxn_temporal_graph
+    from repro_torch.kernels.interval_weight.ops import dep_sum
+    from repro_torch.kernels.tree_sampler.ops import tree_sampler_keyed
+    from repro_torch.models import gnn
+    from repro_torch.models.convert import init_gnn
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.steps import make_train_step
+    g = fintxn_temporal_graph(**MOTIF_GNN["graph"])
+    specs = [(name, MOTIF_GNN["delta"]) for name in MOTIF_GNN["motifs"]]
+    out, launches, secs = {}, {}, {}
+    for device in ("cpu", "cuda"):
+        reset_counters(dep_sum, tree_sampler_keyed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with Session(g, EstimateConfig(device=device)) as s:
+            out[device] = s.sample_matches(specs, MOTIF_GNN["K"], seed=0)
+        torch.cuda.synchronize()
+        secs[device] = time.perf_counter() - t0
+        launches[device] = {"interval_weight": dep_sum.launches,
+                            "tree_sampler": tree_sampler_keyed.launches}
+    require(min(launches["cuda"].values()) > 0
+            and max(launches["cpu"].values()) == 0,
+            f"motif_gnn: TIMEST kernel launches {launches}")
+    for a, b in zip(out["cpu"], out["cuda"], strict=True):
+        for k in ("cnt2", "phi_v"):
+            require(torch.equal(a[k].cpu(), b[k].cpu()),
+                    f"motif_gnn {a['motif'].name}: {k} card != CPU")
+        require(a["scale"] == b["scale"], "motif_gnn: scale card != CPU")
+    feats_m = np.zeros((g.n, len(specs)), np.float64)
+    for j, b in enumerate(out["cuda"]):
+        cnt, phi = b["cnt2"].cpu().numpy(), b["phi_v"].cpu().numpy()
+        for col in range(phi.shape[1]):
+            np.add.at(feats_m[:, j], phi[:, col], cnt * b["scale"])
+    mf = np.log1p(feats_m)
+    labels = (mf[:, 0] > np.median(mf[:, 0])).astype(np.int32)
+    deg = np.zeros((g.n, 2), np.float32)
+    np.add.at(deg[:, 0], g.src, 1)
+    np.add.at(deg[:, 1], g.dst, 1)
+    feats = np.concatenate([np.log1p(deg), mf.astype(np.float32)], axis=1)
+    cfg = gnn.GNNConfig(name="sage-aml", kind="sage", n_layers=2,
+                        d_hidden=32, aggregator="mean")
+    params = init_gnn(cfg, feats.shape[1], 2, seed=0, device="cuda")
+    mask = (np.random.default_rng(0).random(g.n) < 0.7).astype(np.float32)
+    batch = {k: torch.as_tensor(v).cuda() for k, v in dict(
+        feats=feats, senders=g.src.astype(np.int32),
+        receivers=g.dst.astype(np.int32), labels=labels,
+        train_mask=mask).items()}
+    steps = MOTIF_GNN["steps"]
+    step = make_train_step(
+        lambda p, b: gnn.train_loss(cfg, p, b),
+        AdamWConfig(lr=1e-2, total_steps=steps, warmup_steps=5,
+                    weight_decay=0.0))
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = []
+    for i in range(steps):
+        params, opt, m = step(params, opt, batch)
+        if i % 15 == 0 or i == steps - 1:
+            losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    with torch.no_grad():
+        pred = gnn.forward(cfg, params, batch).argmax(-1).cpu().numpy()
+    val = mask == 0
+    acc = float((pred[val] == labels[val]).mean())
+    require(acc > MOTIF_GNN["acc_min"],
+            f"motif_gnn: validation accuracy {acc}")
+    emit({"phase": "motif_gnn", "graph_n": g.n, "graph_m": g.m,
+          "motifs": list(MOTIF_GNN["motifs"]), "K": MOTIF_GNN["K"],
+          "features_equal": True, "sample_matches_s": secs,
+          "launches_card": launches["cuda"], "train_steps": steps,
+          "train_s": train_s, "losses": losses, "val_accuracy": acc,
+          "acc_min": MOTIF_GNN["acc_min"]})
+    return launches["cuda"]
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--graph", default=FULL_GRAPH,
@@ -2823,10 +3394,20 @@ def main() -> None:
     sm_simt["launches"] = check["segment_matmul"]["simt"]
     phase_recsys_small()
     eb["launches"] = phase_recsys_full()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_small()
+    phase_gnn_train()
+    eb["launches_train"], eb["backward"] = phase_recsys_train()
+    motif = phase_motif_gnn()
+    for rec in recs:
+        rec["launches_motif_gnn"] = motif[rec["name"]]
     recs += [fa, fa_simt, sm, sm_simt, eb]
     require(all(r["launches"] > 0 and r.get("launches_service", 1) > 0
                 and r.get("launches_stream", 1) > 0
-                and r.get("launches_gateway", 1) > 0 for r in recs),
+                and r.get("launches_gateway", 1) > 0
+                and r.get("launches_train", 1) > 0
+                and r.get("launches_motif_gnn", 1) > 0 for r in recs),
             "a kernel was launched no time on its path")
     emit({"phase": "total", "seconds": time.perf_counter() - T_START})
     emit({"kernels": recs})

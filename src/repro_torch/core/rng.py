@@ -173,3 +173,49 @@ def randint(key: torch.Tensor, K: int, maxval, *,
     span = torch.as_tensor(maxval, dtype=torch.int64, device=key.device)
     span = torch.broadcast_to(span.clamp(min=1), hi.shape)
     return randint_from_bits(hi, lo, span)
+
+
+# ---------------------------------------------------------------------------
+# uniform: jax's mantissa fill of 32- or 64-bit draws
+# ---------------------------------------------------------------------------
+def bits32(key: torch.Tensor, n: int, *, partitionable: bool = True
+           ) -> torch.Tensor:
+    """``jax.random.bits(key, (n,), uint32)`` as int64 tensors of uint32
+    values; ``key [2] -> [n]``.
+
+    Partitionable: word ``i`` is the xor of the two output words of
+    ``threefry2x32(key, i >> 32, i & M32)``.  Original: the counters
+    ``0 .. n-1`` (padded with one zero to an even count) are hashed as
+    two halves, and the outputs concatenated.
+    """
+    i = torch.arange(n, dtype=torch.int64, device=key.device)
+    if partitionable:
+        b0, b1 = _hash(key, i >> 32, i & _M32)
+        return b0 ^ b1
+    half = -(-n // 2)
+    x = torch.cat([i, i.new_zeros(2 * half - n)])
+    y0, y1 = _hash(key, x[:half], x[half:])
+    return torch.cat([y0, y1])[:n]
+
+
+def uniform(key: torch.Tensor, shape, dtype=torch.float32, *,
+            partitionable: bool = True) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, dtype)`` in ``[0, 1)``, bit for bit:
+    the top mantissa bits of one draw per element (32-bit draws for
+    float32, 64-bit for float64, as jax sizes them) under an exponent of
+    one, minus one.  ``key [2]``."""
+    shape = tuple(shape)
+    n = 1
+    for s in shape:
+        n *= s
+    if dtype == torch.float32:
+        b = bits32(key, n, partitionable=partitionable)
+        one = (b >> 9) | 0x3F800000
+        f = one.to(torch.int32).view(torch.float32) - 1.0
+    elif dtype == torch.float64:
+        b = bits(key, n, partitionable=partitionable)
+        one = ((b >> 12) & ((1 << 52) - 1)) | 0x3FF0000000000000
+        f = one.view(torch.float64) - 1.0
+    else:
+        raise ValueError(f"uniform: float32 or float64, not {dtype}")
+    return f.clamp(min=0.0).reshape(shape)

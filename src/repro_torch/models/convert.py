@@ -25,6 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..train import pytree
+from . import gnn
 from .layers import dense_init, embed_init
 from .recsys import RecsysConfig
 from .transformer import LMConfig, TransformerLM, layer_shapes
@@ -159,3 +161,42 @@ def init_recsys(cfg: RecsysConfig, seed: int, device="cuda",
     return dict(table=table, cross=[wb(s) for s in cross],
                 mlp=[wb(s) for s in mlp], head=wb(head),
                 retrieval_proj=dense_init(proj, gen, **kw))
+
+
+def gnn_from_numpy(params: dict, device="cuda",
+                   dtype=torch.float32) -> dict:
+    """A GNN parameter pytree (nested dicts / lists of numpy arrays, the
+    reference's layout) -> the same tree of torch tensors."""
+    return pytree.tree_map(lambda a: torch.as_tensor(np.array(a)).to(
+        device=device, dtype=dtype), params)
+
+
+def numpy_gnn_params(cfg: gnn.GNNConfig, d_in: int, d_out: int,
+                     seed: int) -> dict:
+    """A reference-layout GNN pytree of f32 numpy arrays from ``seed``:
+    matrices ``N(0, 1)`` clipped to +-3 over ``sqrt(fan_in)`` (fan-in on
+    axis 0), biases and LayerNorm shifts ``N(0, 0.1^2)``, LayerNorm
+    scales ``1 + N(0, 0.1^2)`` (zero and one at the reference's init), so
+    a comparison sees every parameter."""
+    r = np.random.default_rng(seed)
+
+    def draw(path, shape):
+        if len(shape) == 2:
+            a = np.clip(r.standard_normal(shape), -3, 3) * shape[0] ** -0.5
+        else:
+            scale = path.endswith(("'ln_h_s']", "'ln_e_s']"))
+            a = float(scale) + r.normal(0.0, 0.1, shape)
+        return a.astype(np.float32)
+    return gnn.map_shapes(draw, gnn.param_shapes(cfg, d_in, d_out))
+
+
+def init_gnn(cfg: gnn.GNNConfig, d_in: int, d_out: int, seed: int,
+             device="cuda", dtype=torch.float32) -> dict:
+    """Random GNN weights as the reference's ``init_params`` draws them
+    (``gnn.init_params``) from a ``torch.Generator`` seeded with
+    ``seed`` on ``device``."""
+    device = torch.device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gnn.init_params(cfg, d_in, d_out, gen, dtype=dtype,
+                           device=device)

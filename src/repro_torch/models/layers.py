@@ -1,15 +1,11 @@
-"""Shared NN building blocks of the LM path: norms, RoPE, MLP, inits.
+"""Shared NN building blocks: norms, RoPE, MLPs, inits and the loss.
 
 The port of ``repro.models.layers`` (the JAX package, which stays the
-reference) for the dense-LM serving path.  Same conventions: compute
-dtype bf16 with f32 norms and rotary maths, weights in ``[in, out]``
-orientation so ``x @ w`` matches, every init deterministic from an
-explicit ``torch.Generator``.  ``torch.Generator`` and ``jax.random``
-give different numbers from one seed, so the tests hand both packages
-the same numpy arrays instead.
-
-Not ported yet (other families, training): ``layer_norm``, ``gelu`` /
-``geglu``, ``softmax_xent``.
+reference).  Same conventions: compute dtype bf16 with f32 norms, rotary
+maths and losses, weights in ``[in, out]`` orientation so ``x @ w``
+matches, every init deterministic from an explicit ``torch.Generator``.
+``torch.Generator`` and ``jax.random`` give different numbers from one
+seed, so the tests hand both packages the same numpy arrays instead.
 """
 from __future__ import annotations
 
@@ -44,6 +40,16 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
     return (y * w).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with the statistics in f32, output in ``x.dtype``."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
 def rope_frequencies(head_dim: int, theta: float = 10_000.0,
                      device=None) -> torch.Tensor:
     """Inverse frequencies ``[head_dim // 2]`` (f32)."""
@@ -73,10 +79,21 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     return cap * torch.tanh(x / cap)
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """GELU, tanh approximation (``jax.nn.gelu``'s default)."""
+    return F.gelu(x, approximate="tanh")
+
+
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     """SwiGLU MLP: ``down(silu(x @ gate) * (x @ up))``."""
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def geglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+          w_down: torch.Tensor) -> torch.Tensor:
+    """GeGLU MLP (Gemma): ``down(gelu(x @ gate) * (x @ up))``."""
+    return (gelu(x @ w_gate) * (x @ w_up)) @ w_down
 
 
 def dense_init(shape, generator: torch.Generator, in_axis: int = 0,
@@ -96,3 +113,24 @@ def embed_init(shape, generator: torch.Generator, dtype=torch.float32,
                     device=device)
     w *= 0.02
     return w.to(dtype)
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: torch.Tensor | None = None,
+                 z_loss: float = 0.0) -> torch.Tensor:
+    """Mean cross-entropy in f32, optional z-loss ``z_loss * lse^2``.
+
+    logits ``[..., V]`` (any float dtype); labels int ``[...]``; mask
+    broadcastable to labels (1 = count the position), averaged over
+    ``max(sum(mask), 1)``.
+    """
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.take_along_dim(lf, labels.long()[..., None], dim=-1)[..., 0]
+    loss = lse - ll
+    if z_loss:
+        loss = loss + z_loss * lse ** 2
+    if mask is None:
+        return loss.mean()
+    mask = mask.float()
+    return (loss * mask).sum() / torch.clamp(mask.sum(), min=1.0)

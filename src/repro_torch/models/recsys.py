@@ -1,10 +1,14 @@
-"""DCN-v2 (Wang et al., arXiv:2008.13535) serving: forward and retrieval.
+"""DCN-v2 (Wang et al., arXiv:2008.13535): forward, retrieval, training.
 
 The port of ``repro.models.recsys`` (the JAX package, which stays the
 reference).  All sparse tables are concatenated into one ``table
 [V_total, d_emb]`` with per-feature row offsets, so the lookup of a batch
 is one EmbeddingBag call: on the card the hand-written kernel
-(``kernels/embedding_bag``), on the CPU its plain version.
+(``kernels/embedding_bag``), on the CPU its plain version.  The lookup
+is a ``torch.autograd.Function``: its backward is the table's gradient,
+a scatter-add (``index_add_``) of the output gradient's rows times each
+slot's weight over the ids, in f32 (the reference leaves the same
+scatter-add to XLA; no Pallas backward exists).
 
 Model: ``x0 = [dense || concat(bag outputs)]``; cross layers ``x_{l+1} =
 x0 * (x_l W + b) + x_l`` (full-rank DCN-v2); an MLP tower; a logit.
@@ -17,11 +21,11 @@ computes them outside any kernel.
 ``cross`` and ``mlp`` lists of ``{W, b}``, ``head`` ``{W, b}``,
 ``retrieval_proj``), built by ``convert.recsys_from_numpy`` or
 ``convert.init_recsys``.  Keep it in the compute dtype: the cast at each
-call is then a no-op, not a copy of the 2 GB table.  ``batch`` holds
-torch tensors: ``dense [B, n_dense]``, ``sparse [B, n_sparse(, bag)]``
-(per-feature ids, -1 = padding) and, for retrieval, ``cand_ids``.
-
-Not ported yet: ``train_loss`` (training is later work).
+call is then a no-op, not a copy of the 2 GB table (training keeps f32
+parameters and casts them to bf16 each step, as the reference does).
+``batch`` holds torch tensors: ``dense [B, n_dense]``, ``sparse [B,
+n_sparse(, bag)]`` (per-feature ids, -1 = padding), for retrieval
+``cand_ids``, for training ``label [B]``.
 """
 from __future__ import annotations
 
@@ -76,14 +80,54 @@ def table_offsets(cfg: RecsysConfig, device=None) -> torch.Tensor:
     return torch.cumsum(sizes, 0).to(device)
 
 
+class EmbeddingBagFn(torch.autograd.Function):
+    """The EmbeddingBag kernel (``kernels/embedding_bag``) with the
+    table's gradient.  ``idx [N, bag]``, ``weights [N, bag]`` or None.
+
+    Backward: ``d table[idx[i, j]] += weights[i, j] * grad_out[i]`` over
+    the slots with ``idx >= 0`` (an id past the table adds to its last
+    row, which the forward read), summed in f32 and cast to the table's
+    dtype.  The ids and weights get no gradient."""
+
+    @staticmethod
+    def forward(ctx, table, idx, weights):
+        ctx.save_for_backward(idx, weights)
+        ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
+        return _embedding_bag(table, idx, weights)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        idx, weights = ctx.saved_tensors
+        return embedding_bag_grad(grad_out, idx, weights, ctx.table_shape,
+                                  ctx.table_dtype), None, None
+
+
+def embedding_bag_grad(grad_out: torch.Tensor, idx: torch.Tensor,
+                       weights: torch.Tensor | None, table_shape,
+                       table_dtype) -> torch.Tensor:
+    """The dense table gradient of ``EmbeddingBagFn`` (one
+    ``index_add_``)."""
+    V, d = table_shape
+    g = grad_out.float()[:, None, :]                          # [N, 1, d]
+    if weights is not None:
+        g = g * weights.float()[..., None]
+    g = g.expand(idx.shape[0], idx.shape[1], d)
+    valid = idx >= 0
+    acc = torch.zeros((V, d), dtype=torch.float32, device=grad_out.device)
+    acc.index_add_(0, idx[valid].long().clamp(max=V - 1), g[valid])
+    return acc.to(table_dtype)
+
+
 def embedding_bag(table: torch.Tensor, idx: torch.Tensor,
                   weights: torch.Tensor | None = None) -> torch.Tensor:
     """idx ``[..., bag]`` (rows of ``table``; -1 = padding) -> the weighted
     sum over the bag ``[..., d]``, through the EmbeddingBag kernel on
-    ``[N, bag]``."""
+    ``[N, bag]`` (differentiable in ``table``)."""
+    if weights is not None and weights.requires_grad:
+        raise ValueError("embedding_bag: no gradient for the weights")
     lead, bag = idx.shape[:-1], idx.shape[-1]
     flat_w = None if weights is None else weights.reshape(-1, bag)
-    out = _embedding_bag(table, idx.reshape(-1, bag), flat_w)
+    out = EmbeddingBagFn.apply(table, idx.reshape(-1, bag), flat_w)
     return out.reshape(*lead, table.shape[1])
 
 
@@ -111,14 +155,30 @@ def _tower(cfg: RecsysConfig, params: dict, dense: torch.Tensor,
     return x
 
 
-@torch.no_grad()
-def forward(cfg: RecsysConfig, params: dict, batch: dict,
-            compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """CTR logits ``[B]`` in the compute dtype."""
+def _logits(cfg: RecsysConfig, params: dict, batch: dict,
+            compute_dtype) -> torch.Tensor:
     params = cast_for_compute(params, compute_dtype)
     x = _tower(cfg, params, batch["dense"], batch["sparse"])
     p = params["head"]
     return (x @ p["W"] + p["b"])[..., 0]
+
+
+@torch.no_grad()
+def forward(cfg: RecsysConfig, params: dict, batch: dict,
+            compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """CTR logits ``[B]`` in the compute dtype."""
+    return _logits(cfg, params, batch, compute_dtype)
+
+
+def train_loss(cfg: RecsysConfig, params: dict, batch: dict,
+               compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Mean logistic loss of the forward's logits (bf16 unless asked,
+    as the reference trains) against ``label``, computed stably in
+    f32."""
+    logits = _logits(cfg, params, batch, compute_dtype).float()
+    y = batch["label"].float()
+    return torch.mean(torch.clamp(logits, min=0) - logits * y
+                      + torch.log1p(torch.exp(-logits.abs())))
 
 
 @torch.no_grad()

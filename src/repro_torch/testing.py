@@ -225,3 +225,175 @@ def compare(runs, tol: float) -> float:
     for got, want in zip(card, cpu, strict=True):
         torch.testing.assert_close(got, want, atol=tol, rtol=tol)
     return max(float((a - b).abs().max()) for a, b in zip(card, cpu))
+
+
+# ---------------------------------------------------------------------------
+# training: synthetic GNN batches and card-against-CPU train steps
+# ---------------------------------------------------------------------------
+def _pad_edges(snd, rcv, n_dst: int, multiple: int):
+    """Append pad edges (sender 0, receiver ``n_dst``: out of range) up to
+    a multiple of ``multiple``, as the reference's cells pad to 512."""
+    e = len(snd)
+    pad = -(-e // multiple) * multiple - e
+    snd = np.concatenate([snd, np.zeros(pad, np.int64)])
+    rcv = np.concatenate([rcv, np.full(pad, n_dst, np.int64)])
+    return snd.astype(np.int32), rcv.astype(np.int32)
+
+
+def gnn_full_batch(cfg, r, n: int, e: int, d_feat: int, n_classes: int,
+                   multiple: int = 512) -> dict:
+    """A full-graph batch in the layout of the reference's
+    ``launch/specs.py`` GNN cells (numpy arrays): ``e`` random edges over
+    ``n`` nodes padded to a multiple of ``multiple``; for GraphCast a mesh
+    of ``max(16, n // mesh_ratio)`` nodes with ``2n`` grid-to-mesh (every
+    grid node twice), ``8 n_mesh`` mesh and ``2n`` mesh-to-grid edges,
+    each set padded, and an ``[n, n_vars]`` target."""
+    feats = r.standard_normal((n, d_feat), dtype=np.float32)
+    if cfg.kind != "graphcast":
+        snd, rcv = _pad_edges(r.integers(0, n, e), r.integers(0, n, e), n,
+                              multiple)
+        return dict(feats=feats, senders=snd, receivers=rcv,
+                    labels=r.integers(0, n_classes, n).astype(np.int32),
+                    train_mask=(r.random(n) < 0.5).astype(np.float32))
+    nm = max(16, n // cfg.mesh_ratio)
+    grid2 = np.tile(np.arange(n), 2)
+    batch = dict(feats=feats,
+                 mesh_feats=r.standard_normal((nm, d_feat),
+                                              dtype=np.float32),
+                 target=r.standard_normal((n, cfg.n_vars),
+                                          dtype=np.float32))
+    for name, snd, rcv, n_dst in (
+            ("g2m", grid2, r.integers(0, nm, 2 * n), nm),
+            ("mesh", r.integers(0, nm, 8 * nm), r.integers(0, nm, 8 * nm),
+             nm),
+            ("m2g", r.integers(0, nm, 2 * n), grid2, n)):
+        batch[f"{name}_senders"], batch[f"{name}_receivers"] = _pad_edges(
+            snd, rcv, n_dst, multiple)
+    return batch
+
+
+def gnn_molecule_batch(r, B: int, n: int, e: int, d_feat: int,
+                       n_classes: int, n_pad: int = 0) -> dict:
+    """The ``molecule`` layout: ``B`` graphs of ``n`` nodes and ``e``
+    edges, the last ``n_pad`` of each a pad edge (receiver ``n``)."""
+    rcv = r.integers(0, n, (B, e))
+    if n_pad:
+        rcv[:, e - n_pad:] = n
+    return dict(
+        feats_batched=r.standard_normal((B, n, d_feat), dtype=np.float32),
+        senders_b=r.integers(0, n, (B, e)).astype(np.int32),
+        receivers_b=rcv.astype(np.int32),
+        graph_label=r.standard_normal((B, n_classes), dtype=np.float32))
+
+
+def gnn_block_batch(sampler, r, n_seed: int, fanouts, feats, labels) -> dict:
+    """A GraphSAGE minibatch: ``n_seed`` distinct seeds drawn by ``r``,
+    blocks sampled by ``sampler`` with ``r``, int32 edge ids."""
+    seeds = r.choice(sampler.n, n_seed, replace=False)
+    b = sampler.sample_blocks(seeds, tuple(fanouts), r, feats=feats,
+                              labels=labels)
+    return dict(feats=b["feats"], labels=b["labels"].astype(np.int32),
+                blocks=[{k: v.astype(np.int32) for k, v in blk.items()}
+                        for blk in b["blocks"]])
+
+
+def to_torch(tree, device):
+    """A nested dict / list of numpy arrays as tensors on ``device``."""
+    from .train import pytree
+    return pytree.tree_map(lambda a: torch.as_tensor(a).to(device), tree)
+
+
+#: the smoke-size training cases: (name, arch, layout)
+TRAIN_SMOKE = (("gat-cora", "gat-cora", "full"),
+               ("gatedgcn", "gatedgcn", "molecule"),
+               ("graphsage-reddit", "graphsage-reddit", "full"),
+               ("graphsage-reddit-blocks", "graphsage-reddit", "blocks"),
+               ("graphcast", "graphcast", "full"),
+               ("dcn-v2", "dcn-v2", "recsys"))
+
+
+def smoke_train_case(name: str, seed: int = 0):
+    """``(cfg, loss_fn, numpy params, [numpy batch per step])`` of one
+    ``TRAIN_SMOKE`` case: 3 batches, pad edges in every GNN layout."""
+    from functools import partial
+
+    from .graphs import NeighborSampler
+    from .launch.train import synthetic_batch
+    from .models import gnn
+    from .models.convert import numpy_gnn_params
+    _, arch, layout = next(c for c in TRAIN_SMOKE if c[0] == name)
+    cfg = get_smoke_config(arch)
+    r = np.random.default_rng(seed)
+    if layout == "recsys":
+        batches = [{k: v.numpy() for k, v in synthetic_batch(
+            cfg, 16, 0, s, "cpu").items()} for s in range(3)]
+        return (cfg, partial(recsys.train_loss, cfg),
+                numpy_recsys_params(cfg, seed), batches)
+    d_in, d_out = 6, (cfg.n_vars if cfg.kind == "graphcast" else 3)
+    if layout == "full":
+        batches = [gnn_full_batch(cfg, r, 24, 60, d_in, d_out, multiple=16)
+                   for _ in range(3)]
+    elif layout == "molecule":
+        d_out = 1
+        batches = [gnn_molecule_batch(r, 6, 7, 12, d_in, 1, n_pad=2)
+                   for _ in range(3)]
+    else:
+        n = 80
+        sampler = NeighborSampler(r.integers(0, n, 300),
+                                  r.integers(0, n, 300), n)
+        feats = r.standard_normal((n, d_in), dtype=np.float32)
+        labels = r.integers(0, d_out, n)
+        batches = [gnn_block_batch(sampler, r, 8, cfg.sample_sizes, feats,
+                                   labels) for _ in range(3)]
+    return (cfg, partial(gnn.train_loss, cfg),
+            numpy_gnn_params(cfg, d_in, d_out, seed), batches)
+
+
+def train_runs(name: str, device="cuda", seed: int = 0):
+    """Three ``make_train_step`` steps of a ``TRAIN_SMOKE`` case on the CPU
+    and on ``device`` from the same numpy weights and batches, f32
+    parameters without TF32.  Returns, for the CPU run and the card run,
+    the three losses and the final parameters (f32 on the CPU), then the
+    kernel launches of each run."""
+    from .models.convert import gnn_from_numpy
+    from .train import pytree
+    from .train.optimizer import AdamWConfig, adamw_init
+    from .train.steps import make_train_step
+    cfg, loss_fn, params, batches = smoke_train_case(name, seed)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    runs, launches = [], []
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for dev in ("cpu", device):
+            p = (recsys_from_numpy(cfg, params, device=dev)
+                 if cfg.family == "recsys" else
+                 gnn_from_numpy(params, device=dev))
+            opt = adamw_init(p)
+            step = make_train_step(loss_fn, opt_cfg)
+            before = _launches()
+            losses = []
+            for b in batches:
+                p, opt, m = step(p, opt, to_torch(b, dev))
+                losses.append(m["loss"].float().cpu())
+            launches.append(_since(before))
+            runs.append((torch.stack(losses),
+                         [x.float().cpu() for x in pytree.leaves(p)]))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return runs, launches
+
+
+def compare_train(runs, tol: float) -> float:
+    """Assert the card run's losses and final parameters (``runs[1]``)
+    within ``rtol = tol`` and ``atol = tol * max |leaf|`` of the CPU
+    run's; return the largest difference relative to its leaf's
+    scale."""
+    (cpu_loss, cpu_p), (card_loss, card_p) = runs
+    worst = 0.0
+    for got, want in zip([card_loss, *card_p], [cpu_loss, *cpu_p],
+                         strict=True):
+        scale = max(float(want.abs().max()), 1e-30)
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol * scale)
+        worst = max(worst, float((got - want).abs().max()) / scale)
+    return worst

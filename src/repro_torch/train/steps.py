@@ -1,0 +1,137 @@
+"""Train-step factories: gradient accumulation and int8 gradient
+compression (the port of ``repro.train.steps``).
+
+``make_train_step(loss_fn, opt_cfg, ...)`` builds ``step(params,
+opt_state, batch, rng=None) -> (params, opt_state, metrics)``:
+
+* gradients come from ``torch.autograd`` (``value_and_grad``);
+* ``accum_steps > 1`` splits every batch leaf on axis 0 into that many
+  microbatches and sums their losses and gradients in f32 (the
+  reference's ``lax.scan``), then divides by the count;
+* ``compress_grads`` int8-quantizes each gradient leaf with stochastic
+  rounding (``compress_decompress``), leaf ``i`` drawing jax's uniform
+  bits from ``split(rng, n_leaves)[i]`` (``rng`` defaults to
+  ``PRNGKey(0)``), bit-equal to the reference under the same key;
+* ``mark(name)``, if given, is called as each part of the step begins:
+  ``"forward"`` and ``"backward"`` (once per microbatch),
+  ``"optimizer"``, then ``"end"``; a caller times the parts with it.
+
+``loss_fn(params, batch) -> scalar`` is any differentiable torch
+function of a parameter tree (``train/pytree.py``).
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from ..core import rng as _rng
+from . import pytree
+from .optimizer import AdamWConfig, adamw_update
+
+
+def compress_decompress(g: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
+    """int8-quantize with stochastic rounding, then dequantize (f32).
+
+    One f32 scale per leaf (``max |g| / 127``); ``x = g / scale`` rounds
+    up where ``uniform(key) < frac(x)``, which keeps the quantizer
+    unbiased.  The draws are jax's float32 ``uniform`` bits.
+    """
+    gf = g.float()
+    scale = torch.clamp(gf.abs().max(), min=1e-30) / 127.0
+    x = gf / scale
+    lo = torch.floor(x)
+    p = x - lo
+    r = _rng.uniform(key.to(g.device), g.shape, torch.float32)
+    q = torch.clamp(lo + (r < p), -127, 127).to(torch.int8)
+    return q.float() * scale
+
+
+def _compress_tree(grads, key):
+    leaves, tdef = pytree.flatten(grads)
+    keys = _rng.split(key, len(leaves))
+    return pytree.unflatten(tdef, [compress_decompress(g, k)
+                                   for g, k in zip(leaves, keys)])
+
+
+def _no_mark(name: str) -> None:
+    pass
+
+
+def value_and_grad(loss_fn: Callable,
+                   mark: Callable[[str], None] | None = None) -> Callable:
+    """``(params, batch) -> (loss, grads)``: the loss (detached) and its
+    gradient with respect to every float leaf of ``params`` (zeros where
+    the loss does not reach a leaf; ``zeros(())`` for non-float leaves),
+    as a tree of the params' structure.  ``mark`` as in
+    ``make_train_step``."""
+    mark = mark or _no_mark
+
+    def run(params, batch):
+        flat, tdef = pytree.flatten(params)
+        live = [p.detach().requires_grad_(torch.is_floating_point(p))
+                for p in flat]
+        with torch.enable_grad():
+            mark("forward")
+            loss = loss_fn(pytree.unflatten(tdef, live), batch)
+            mark("backward")
+            wrt = [p for p in live if p.requires_grad]
+            got = iter(torch.autograd.grad(loss, wrt, allow_unused=True))
+        grads = []
+        for p in live:
+            if not p.requires_grad:
+                grads.append(torch.zeros((), device=p.device))
+                continue
+            g = next(got)
+            grads.append(torch.zeros_like(p) if g is None else g)
+        return loss.detach(), pytree.unflatten(tdef, grads)
+    return run
+
+
+def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig,
+                    accum_steps: int = 1, compress_grads: bool = False,
+                    mark: Callable[[str], None] | None = None):
+    """``loss_fn(params, batch) -> scalar``; returns the step function.
+
+    With ``accum_steps > 1`` every tensor in ``batch`` must have a leading
+    axis divisible by ``accum_steps``.
+    """
+    mark = mark or _no_mark
+    grads_of = value_and_grad(loss_fn, mark)
+
+    def step(params, opt_state, batch, rng=None):
+        if accum_steps == 1:
+            loss, grads = grads_of(params, batch)
+        else:
+            split = pytree.tree_map(
+                lambda x: x.reshape((accum_steps, x.shape[0] // accum_steps)
+                                    + tuple(x.shape[1:])), batch)
+            loss, grads = None, None
+            for a in range(accum_steps):
+                mb = pytree.tree_map(lambda x: x[a], split)
+                l, g = grads_of(params, mb)
+                g = pytree.tree_map(lambda x: x.float(), g)
+                if grads is None:
+                    loss, grads = l.float(), g
+                else:
+                    loss = loss + l.float()
+                    grads = pytree.tree_map(torch.Tensor.add_, grads, g)
+            loss = loss / accum_steps
+            grads = pytree.tree_map(lambda g: g / accum_steps, grads)
+        if compress_grads:
+            key = rng if rng is not None else _rng.PRNGKey(0)
+            grads = _compress_tree(grads, key)
+        mark("optimizer")
+        params, opt_state, om = adamw_update(opt_cfg, grads, opt_state,
+                                             params)
+        mark("end")
+        return params, opt_state, dict(loss=loss, **om)
+
+    return step
+
+
+def make_eval_step(loss_fn: Callable):
+    def step(params, batch):
+        with torch.no_grad():
+            return loss_fn(params, batch)
+    return step

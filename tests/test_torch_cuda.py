@@ -667,3 +667,49 @@ def test_card_recsys_equals_cpu(cuda_device, dtype, tol):
     assert launches[1] == dict(flash_attention=0, segment_matmul=0,
                                embedding_bag=3)
     compare(runs, tol)
+
+
+@pytest.mark.parametrize("name", ["gat-cora", "gatedgcn", "graphsage-reddit",
+                                  "graphsage-reddit-blocks", "graphcast",
+                                  "dcn-v2"])
+def test_card_train_steps_equal_cpu(cuda_device, name):
+    """Three AdamW steps of each smoke training case, card against CPU
+    from the same numpy weights and batches: f32 GNNs 1e-4 (scatter
+    order differs on the card), DCN-v2 (bf16 forward) 5e-2; DCN-v2
+    launches the EmbeddingBag kernel once per step on the card."""
+    from repro_torch.testing import compare_train, train_runs
+    runs, launches = train_runs(name, device=cuda_device)
+    compare_train(runs, 5e-2 if name == "dcn-v2" else 1e-4)
+    assert launches[0]["embedding_bag"] == 0
+    assert launches[1]["embedding_bag"] == (3 if name == "dcn-v2" else 0)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_embedding_bag_backward_on_card_equals_plain_autograd(
+        cuda_device, dtype, tol, weighted):
+    """The table gradient through the kernel's autograd seam (forward:
+    the CUDA kernel; backward: ``index_add_`` in f32, cast once) against
+    the autograd of ``embedding_bag_ref`` on the f32 table, cast once, on
+    the card."""
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    from repro_torch.models import recsys
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    V, d, B, bag = 5000, 16, 4096, 4
+    table = torch.randn((V, d), generator=gen, device=cuda_device).to(dtype)
+    idx = torch.randint(0, V, (B, bag), generator=gen, device=cuda_device)
+    idx[torch.rand((B, bag), generator=gen, device=cuda_device) < 0.2] = -1
+    w = (torch.randn((B, bag), generator=gen, device=cuda_device)
+         if weighted else None)
+    g = torch.randn((B, d), generator=gen, device=cuda_device).to(dtype)
+    t1 = table.clone().requires_grad_()
+    n = embedding_bag.launches
+    recsys.embedding_bag(t1, idx, w).backward(g)
+    assert embedding_bag.launches == n + 1
+    t2 = table.float().requires_grad_()     # f32 sums, rounded once
+    embedding_bag_ref(t2, idx, w).backward(g.float())
+    want = t2.grad.to(dtype).float()
+    torch.testing.assert_close(t1.grad.float(), want, rtol=tol,
+                               atol=tol * float(want.abs().max()))

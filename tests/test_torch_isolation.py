@@ -52,6 +52,17 @@ GATEWAY_SLICE = ("repro_torch.obs", "repro_torch.obs.clock",
                  "repro_torch.gateway.state", "repro_torch.gateway.serve",
                  "repro_torch.core.engine", "repro_torch.api.session",
                  "repro_torch.api.serve", "repro_torch.launch.estimate")
+# the modules of the training and GNN slice
+TRAIN_SLICE = ("repro_torch.train", "repro_torch.train.pytree",
+               "repro_torch.train.optimizer", "repro_torch.train.steps",
+               "repro_torch.train.checkpoint",
+               "repro_torch.train.fault_tolerance",
+               "repro_torch.graphs.neighbor_sampler",
+               "repro_torch.models.gnn", "repro_torch.models.recsys",
+               "repro_torch.models.convert", "repro_torch.launch.train",
+               "repro_torch.configs.gat_cora", "repro_torch.configs.gatedgcn",
+               "repro_torch.configs.graphsage_reddit",
+               "repro_torch.configs.graphcast", "repro_torch.testing")
 
 
 def test_import_pulls_neither_jax_nor_repro():
@@ -60,10 +71,11 @@ def test_import_pulls_neither_jax_nor_repro():
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout.splitlines()
     count, bad = out[0].split(maxsplit=1)
-    assert int(count) >= 75             # every module of the nine slices
+    assert int(count) >= 88             # every module of the ten slices
     assert bad.strip() == "[]"
     assert set(STREAM_SLICE) <= set(out[1].split())
     assert set(GATEWAY_SLICE) <= set(out[1].split())
+    assert set(TRAIN_SLICE) <= set(out[1].split())
 
 
 def _imports(path: Path):
@@ -115,12 +127,16 @@ def _small_graph():
 
 
 def test_model_entry_points_default_to_the_card():
-    """``init_lm``, ``lm_from_numpy``, ``init_recsys`` and
-    ``recsys_from_numpy`` build on the card unless asked for the CPU."""
+    """``init_lm``, ``lm_from_numpy``, ``init_recsys``,
+    ``recsys_from_numpy``, ``init_gnn``, ``gnn_from_numpy``, the training
+    launcher and its ``synthetic_batch`` build on the card unless asked
+    for the CPU."""
     import inspect
+    from repro_torch.launch import train
     from repro_torch.models import convert
     for fn in (convert.init_lm, convert.lm_from_numpy, convert.init_recsys,
-               convert.recsys_from_numpy):
+               convert.recsys_from_numpy, convert.init_gnn,
+               convert.gnn_from_numpy, train.build, train.synthetic_batch):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 

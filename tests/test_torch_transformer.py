@@ -110,7 +110,7 @@ def test_configs_are_the_reference_values(arch):
             [f.name for f in dataclasses.fields(ref)]
         if mine.family == "lm":
             assert mine.hd == ref.hd
-        else:
+        elif mine.family == "recsys":
             assert mine.param_count() == ref.param_count()
 
 
