@@ -55,7 +55,18 @@ port's two paths:
   one EmbeddingBag launch a step, its backward held against the plain
   autograd; and ``examples/motif_features_gnn.py``'s pipeline, TIMEST
   motif features from ``Session.sample_matches`` (both TIMEST kernels,
-  card == CPU) feeding a GraphSAGE classifier trained on the card.
+  card == CPU) feeding a GraphSAGE classifier trained on the card;
+* LM training: card against CPU for the five LM smoke configs (first
+  loss, every gradient leaf, three AdamW steps, f32 and bf16) and a
+  killed-and-resumed run equal to the straight one;
+  ``examples/train_lm.py``'s ~100 M model for 200 steps (the loss falls,
+  a run resumed from step 100 matches); granite-moe-3b-a800m at full
+  width on one card (f32 state, bf16 compute, remat), cut in depth to
+  what the measured peak allows, train_4k sequences with accumulation
+  4: each step launches the sm90 flash kernel (forward and recompute)
+  and the sm90 grouped GEMM (forward, recompute and dX), a 2-layer f32
+  check card against CPU, and both kernels held against their plain
+  versions at this path's shapes.
 
 Each phase prints one JSON line; the line before the last is the
 ``kernels`` record and the last line is ``{"ok": true, "device": ...}``.
@@ -70,6 +81,7 @@ service phase runs on the same graph and delta.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -168,6 +180,27 @@ TRAIN_STEPS = 5
 GNN_CELLS = (("gat-cora", "full_graph_sm"),
              ("graphsage-reddit", "minibatch_lg"),
              ("gatedgcn", "molecule"), ("graphcast", "full_graph_sm"))
+# LM training: card against CPU at smoke size (f32: summation order and
+# the card's scatter order; bf16: the LM tests' bf16 tolerance)
+LM_IDS = ("granite-8b", "gemma2-27b", "deepseek-7b", "qwen2-moe-a2.7b",
+          "granite-moe-3b-a800m")
+LM_TRAIN_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# examples/train_lm.py's ~100 M model (its lm100m() and its settings: batch
+# 8, seq 128, accumulation 2, lr 6e-4, warmup 20) for 200 steps, resumed
+# from step 100; the resumed run is held to the straight one within
+# LEARN_RESUME_TOL (relative: each loss, each parameter leaf in L2), as
+# the card's scatter-adds may sum in another order from run to run
+LEARN = dict(batch=8, seq=128, accum=2, lr=6e-4, warmup=20, steps=200,
+             resume_at=100)
+LEARN_RESUME_TOL = 1e-3
+# granite-moe-3b-a800m trained at full width on one card: train_4k's
+# sequence of 4096 tokens, one sequence per microbatch, accumulation 4
+# (the reference's launch/specs.py PERF entry for this cell), 5 steps;
+# the depth is the deepest even one whose predicted step peak stays
+# FULL_TRAIN_MARGIN below the card's memory
+FULL_TRAIN = dict(arch="granite-moe-3b-a800m", seq=4096, accum=4, steps=5,
+                  check_layers=2)
+FULL_TRAIN_MARGIN = 0.06
 # examples/motif_features_gnn.py's pipeline
 MOTIF_GNN = dict(graph=dict(n_accounts=300, m=4_000, time_span=150_000,
                             n_rings=20, ring_size=5, n_smurf=16, seed=0),
@@ -2935,7 +2968,7 @@ def phase_gnn_train() -> None:
     import numpy as np
     import torch
     from repro_torch.models import gnn
-    from repro_torch.models.convert import gnn_from_numpy, numpy_gnn_params
+    from repro_torch.models.convert import numpy_gnn_params, tree_from_numpy
     from repro_torch.testing import to_torch
     from repro_torch.train import pytree
     from repro_torch.train.optimizer import AdamWConfig, adamw_init
@@ -2951,7 +2984,7 @@ def phase_gnn_train() -> None:
         loss_fn = partial(gnn.train_loss, cfg)
 
         def first(device):
-            return first_step(loss_fn, gnn_from_numpy(params, device=device),
+            return first_step(loss_fn, tree_from_numpy(params, device=device),
                               to_torch(batch, device))
         t0 = time.perf_counter()
         cpu_first = first("cpu")
@@ -2959,7 +2992,7 @@ def phase_gnn_train() -> None:
         card_first = first("cuda")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        p = gnn_from_numpy(params, device="cuda")
+        p = tree_from_numpy(params, device="cuda")
         b = to_torch(batch, "cuda")
         opt = adamw_init(p)
         step = make_train_step(loss_fn, opt_cfg)
@@ -2996,7 +3029,8 @@ class StepSplit:
     """``make_train_step``'s ``mark`` hook: while ``run`` drives a step,
     a CUDA event and the peak memory allocated since the last mark at
     each boundary, so the real step's forward, backward and optimizer
-    are timed apart (ms) and their peaks read; a no-op otherwise."""
+    are timed apart (ms, summed over microbatches) and their peaks read;
+    a no-op otherwise."""
 
     def __init__(self):
         self.marks = None
@@ -3025,8 +3059,11 @@ class StepSplit:
             self.marks = None
         parts = {}
         for (name, ev, _), (_, nxt, peak) in zip(marks, marks[1:]):
-            parts[f"{name}_ms"] = ev.elapsed_time(nxt)
-            parts[f"{name}_peak_bytes"] = peak
+            # a part marked once per microbatch: times summed, peak max
+            parts[f"{name}_ms"] = (parts.get(f"{name}_ms", 0.0)
+                                   + ev.elapsed_time(nxt))
+            parts[f"{name}_peak_bytes"] = max(
+                parts.get(f"{name}_peak_bytes", 0), peak)
         return out, parts
 
 
@@ -3308,6 +3345,551 @@ def phase_motif_gnn() -> dict:
     return launches["cuda"]
 
 
+@contextlib.contextmanager
+def deterministic():
+    """Inside the ``with``, torch's deterministic algorithms (warnings
+    only where an op has none, and those silenced): the card's
+    scatter-adds then sum in one order, so two runs of the same steps
+    are equal bit for bit."""
+    import warnings
+
+    import torch
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            yield
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+
+def phase_lm_train_small() -> dict:
+    """Card against CPU for the five LM smoke configs on the same numpy
+    tree and batches (``repro_torch.testing.lm_train_runs``): the first
+    loss and every gradient leaf, then three AdamW steps (losses and
+    every parameter leaf), within ``LM_TRAIN_TOL`` in f32 (no TF32) and
+    bf16 (an MoE config's routes pinned to the CPU's); each step must
+    launch the flash kernel twice a layer (forward and remat recompute)
+    and the grouped GEMM nine times a MoE layer.  Then granite-moe smoke
+    through ``launch.train``'s ``build`` and ``run_resumable``, killed
+    after step 2 and resumed, equal to the straight run bit for bit
+    (``deterministic``).  Returns each kernel's launches."""
+    import shutil
+
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.segment_matmul.ops import segment_matmul
+    from repro_torch.launch.train import build, synthetic_batch
+    from repro_torch.testing import compare_lm_train, lm_train_runs
+    from repro_torch.train import pytree
+    from repro_torch.train.fault_tolerance import run_resumable
+    reset_counters(flash_attention, segment_matmul)
+    for arch in LM_IDS:
+        cfg = get_smoke_config(arch)
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = str(dtype).split(".")[1]
+            runs, flips = lm_train_runs(arch, dtype, device="cuda")
+            want = dict(flash_attention=2 * cfg.n_layers,
+                        segment_matmul=9 * cfg.n_layers * cfg.is_moe,
+                        embedding_bag=0)
+            require(runs[1]["launches"] == want,
+                    f"lm_train_small {arch} {dt}: launches per step "
+                    f"{runs[1]['launches']}, not {want}")
+            err = compare_lm_train(runs, LM_TRAIN_TOL[dt])
+            emit({"phase": "lm_train_small", "arch": cfg.name, "dtype": dt,
+                  "tol": LM_TRAIN_TOL[dt], "rel_err": err,
+                  "route_flips": flips, "losses_card": runs[1]["losses"],
+                  "losses_cpu": runs[0]["losses"],
+                  "launches_per_step": runs[1]["launches"]})
+    launches = dict(flash=by_kernel(flash_attention),
+                    segment_matmul=by_kernel(segment_matmul))
+    cfg = get_smoke_config("granite-moe-3b-a800m")
+    root = ROOT / "build" / "chip_smoke_lm_train"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def batches(step, attempt):
+        return synthetic_batch(cfg, 2, 16, step * 1000 + attempt, "cuda")
+    final = {}
+    with deterministic():
+        for run, stops in (("straight", (4,)), ("killed", (2, 4))):
+            for total in stops:
+                state, do_step = build(cfg, 1e-3, 4, device="cuda")
+                state, rep = run_resumable(do_step, state, batches, total,
+                                           str(root / run), ckpt_every=1)
+            final[run] = (pytree.leaves(state), rep)
+    (a, rep_a), (b, rep_b) = final["straight"], final["killed"]
+    require(rep_b.resumed_from == 2 and rep_b.steps_run == 2
+            and rep_a.steps_run == 4,
+            f"lm_train_small resume: {rep_a}, {rep_b}")
+    require(all(torch.equal(x, y) for x, y in zip(a, b, strict=True)),
+            "lm_train_small: the resumed run differs from the straight run")
+    shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "lm_train_small", "case": f"{cfg.name} run_resumable",
+          "killed_after": 2, "steps": 4, "resumed_from": rep_b.resumed_from,
+          "equal": True, "leaves": len(a), "launches": launches})
+    return launches
+
+
+def lm100m():
+    """``examples/train_lm.py``'s ``lm100m()``: 12 layers, d 768, 12
+    heads over 4 kv heads, d_ff 2048, vocab 8192."""
+    from repro_torch.models.transformer import LMConfig
+    return LMConfig(name="lm100m", n_layers=12, d_model=768, n_heads=12,
+                    n_kv_heads=4, d_ff=2048, vocab=8_192)
+
+
+def markov_batch(cfg, B: int, S: int, step: int, attempt: int = 0) -> dict:
+    """``examples/train_lm.py``'s ``batch_fn`` (numpy seed ``1000 * step
+    + attempt``): Markov-chain tokens that jump to a random token with
+    probability 0.1 and otherwise step ``state * 31 + 7``; on the
+    card."""
+    import numpy as np
+    import torch
+    r = np.random.default_rng(1000 * step + attempt)
+    state = r.integers(0, cfg.vocab, size=B)
+    toks = np.empty((B, S + 1), np.int64)
+    for t in range(S + 1):
+        toks[:, t] = state
+        jump = r.random(B) < 0.1
+        state = np.where(jump, r.integers(0, cfg.vocab, size=B),
+                         (state * 31 + 7) % cfg.vocab)
+    return dict(tokens=torch.as_tensor(toks[:, :-1], dtype=torch.int32,
+                                       device="cuda"),
+                labels=torch.as_tensor(toks[:, 1:], dtype=torch.int32,
+                                       device="cuda"),
+                mask=torch.ones((B, S), dtype=torch.float32, device="cuda"))
+
+
+def phase_lm_train_learn() -> dict:
+    """``examples/train_lm.py`` on the card: lm100m from
+    ``init_lm_params`` seed 0 (f32, bf16 compute, remat), AdamW at lr
+    6e-4 with warmup 20 over 200 steps, batch 8 x 128 in two
+    microbatches, ``run_resumable`` with a checkpoint every 100 steps;
+    the loss must fall (mean of the last 20 below the first 20, and the
+    last below the first, as the example asserts).  Then a run that lost
+    everything after the step-100 checkpoint (that checkpoint alone,
+    resumed) must end within ``LEARN_RESUME_TOL`` of the straight run.
+    Returns the kernel launches of the straight run."""
+    import shutil
+    import statistics
+    from functools import partial
+
+    import torch
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.segment_matmul.ops import segment_matmul
+    from repro_torch.models import transformer
+    from repro_torch.models.convert import init_lm_params
+    from repro_torch.train import pytree
+    from repro_torch.train.fault_tolerance import run_resumable
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.steps import make_train_step
+    cfg = lm100m()
+    st = LEARN
+    step_fn = make_train_step(
+        partial(transformer.train_loss, cfg),
+        AdamWConfig(lr=st["lr"], total_steps=st["steps"],
+                    warmup_steps=st["warmup"]), accum_steps=st["accum"])
+    times = []
+
+    def do_step(state, batch, step):
+        t0 = time.perf_counter()
+        p, o, m = step_fn(state["params"], state["opt"], batch)
+        m = {k: float(v) for k, v in m.items()}         # waits for the card
+        times.append(time.perf_counter() - t0)
+        return dict(params=p, opt=o), m
+
+    def fresh():
+        params = init_lm_params(cfg, seed=0, device="cuda")
+        return dict(params=params, opt=adamw_init(params))
+
+    def batches(step, attempt):
+        return markov_batch(cfg, st["batch"], st["seq"], step, attempt)
+    root = ROOT / "build" / "chip_smoke_lm100m"
+    shutil.rmtree(root, ignore_errors=True)
+    state = fresh()
+    n_params = sum(x.numel() for x in pytree.leaves(state["params"]))
+    reset_counters(flash_attention, segment_matmul)
+    t0 = time.perf_counter()
+    state, rep = run_resumable(do_step, state, batches, st["steps"],
+                               str(root / "straight"),
+                               ckpt_every=st["resume_at"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(flash=by_kernel(flash_attention),
+                    segment_matmul=by_kernel(segment_matmul))
+    step_times = times[:]
+    losses = [m["loss"] for m in rep.metrics]
+    k = st["resume_at"]
+    ckpt_name = f"step_{k:08d}"
+    shutil.copytree(root / "straight" / ckpt_name, root / "killed" / ckpt_name)
+    resumed, rep2 = run_resumable(do_step, fresh(), batches, st["steps"],
+                                  str(root / "killed"), ckpt_every=k)
+    losses2 = [m["loss"] for m in rep2.metrics]
+    a, b = pytree.leaves(state), pytree.leaves(resumed)
+    leaf_rel = [float((y.double() - x.double()).norm()
+                      / x.double().norm().clamp(min=1e-30))
+                for x, y in zip(a, b, strict=True)
+                if torch.is_floating_point(x)]
+    loss_rel = [abs(y - x) / abs(x) for x, y in zip(losses[k:], losses2)]
+    equal = all(torch.equal(x, y) for x, y in zip(a, b))
+    shutil.rmtree(root, ignore_errors=True)
+    first, last = (statistics.fmean(losses[:20]),
+                   statistics.fmean(losses[-20:]))
+    require(rep.steps_run == st["steps"] and rep2.resumed_from == k
+            and rep2.steps_run == st["steps"] - k,
+            f"lm_train_learn: runs {rep}, {rep2}")
+    require(all(map(torch.isfinite, map(torch.as_tensor, losses)))
+            and last < first and losses[-1] < losses[0],
+            f"lm_train_learn: the loss did not fall ({first} -> {last})")
+    require(max(loss_rel) <= LEARN_RESUME_TOL
+            and max(leaf_rel) <= LEARN_RESUME_TOL,
+            f"lm_train_learn: resumed run off the straight one: losses "
+            f"{max(loss_rel)}, leaves {max(leaf_rel)}")
+    per_step = st["steps"]
+    want = 2 * cfg.n_layers * st["accum"] * per_step
+    require(launches["flash"] == dict(sm90=want, simt=0)
+            and launches["segment_matmul"] == dict(sm90=0, simt=0),
+            f"lm_train_learn: launches {launches}, not {want} sm90 flash")
+    emit({"phase": "lm_train_learn", "arch": cfg.name, "params": n_params,
+          **{key: st[key] for key in ("batch", "seq", "accum", "lr",
+                                      "warmup", "steps")},
+          "loss_first": losses[0], "loss_last": losses[-1],
+          "loss_mean_first_20": first, "loss_mean_last_20": last,
+          "losses_every_20": losses[::20], "wall_s": wall,
+          "step_ms_median": 1e3 * statistics.median(step_times[1:]),
+          "resumed_from": rep2.resumed_from, "resume_tol": LEARN_RESUME_TOL,
+          "resume_max_loss_rel": max(loss_rel),
+          "resume_max_leaf_rel_l2": max(leaf_rel),
+          "resume_bit_equal": equal,
+          "flash_sm90_launches_per_step": launches["flash"]["sm90"]
+          / per_step})
+    del state, resumed, a, b
+    return launches
+
+
+def granite_train_cut(n_layers: int):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(FULL_TRAIN["arch"]),
+                               n_layers=n_layers)
+
+
+def free_card() -> None:
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_train_kernel_cases(cfg) -> dict:
+    """The two kernels at the shapes this path gives them, bf16 on the
+    card: the sm90 flash kernel on one layer's causal global attention
+    (1 x 4096 tokens, 24 query heads over 8 kv heads, D 64: G = 3)
+    against ``flash_attention_ref(round_p=True)``, timed beside its bound,
+    the plain version and SDPA, which computes the same function here (no
+    softcap, no window); and the sm90 grouped GEMM on the gate/up product
+    (48 experts x C rows, K 1536, N 512) and on the down product (K 512,
+    N 1536: also the shape of gate/up's dX), against
+    ``segment_matmul_ref``, beside ``torch.bmm``.  Then the attention's
+    backward (``FlashAttentionFn``: ``attention_blockwise`` per q block)
+    and the grouped GEMM's (dX kernel, dW ``bmm`` + ``index_add_``),
+    timed at the same shapes, for the step's breakdown."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.segment_matmul.ops import segment_matmul
+    from repro_torch.kernels.segment_matmul.ref import segment_matmul_ref
+    from repro_torch.models.attention import FlashAttentionFn
+    from repro_torch.models.moe import SegmentMatmulFn, capacity
+    from repro_torch.testing import p_rounding_allowance
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    S, Hq, Hkv, D = FULL_TRAIN["seq"], cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q, k, v, g = (torch.randn(shape, generator=gen, device="cuda").to(bf16)
+                  for shape in ((1, S, Hq, D), (1, S, Hkv, D),
+                                (1, S, Hkv, D), (1, S, Hq, D)))
+    kw = dict(causal=True, window=0, attn_softcap=cfg.attn_softcap)
+    n90 = flash_attention.launches_sm90
+    got = flash_attention(q, k, v, **kw)
+    want = flash_attention_ref(q, k, v, round_p=True, **kw)
+    torch.cuda.synchronize()
+    require(flash_attention.launches_sm90 == n90 + 1,
+            "lm_train flash: not through the sm90 kernel")
+    err = (got.float() - want.float()).abs()
+    allow = p_rounding_allowance(q, k, v, **kw)
+    ok = bool((err <= FA_ATOL + FA_RTOL * want.float().abs() + allow).all())
+    fa = dict(case=f"1 x {S}, {Hq} / {Hkv} heads, D {D}, causal global",
+              max_abs_err=float(err.max()), rel_l2=rel_l2(got, want))
+    require(bool(torch.isfinite(got).all()) and ok
+            and fa["rel_l2"] <= FA_REL_L2,
+            f"lm_train flash against its plain version: {fa}")
+    del got, want, err, allow
+    pairs = attended_pairs(S, S, True, 0) * Hq
+    flops, nbytes = 4 * D * pairs, 2 * (2 * q.numel() + 2 * k.numel())
+    lib_ms, lib_gqa = sdpa_ms(q, k, v)
+    fa.update(
+        ms=cuda_ms(lambda: flash_attention(q, k, v, **kw), reps=20),
+        plain_ms=cuda_ms(lambda: flash_attention_ref(q, k, v, round_p=True,
+                                                     **kw), reps=1),
+        bound_ms=max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S)
+        * 1e3,
+        bound_by=("operations" if flops / BF16_FLOPS_PER_S
+                  >= nbytes / HBM_BYTES_PER_S else "bytes"),
+        sfu_bound_ms=sfu_bound_ms(pairs, cfg.attn_softcap),
+        library_ms=lib_ms, library="scaled_dot_product_attention",
+        library_gqa=lib_gqa)
+    x = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = FlashAttentionFn.apply(*x, True, 0, cfg.attn_softcap)
+
+    def backward():
+        return torch.autograd.grad(out, x, g, retain_graph=True)
+    fa["backward_ms"] = cuda_ms(backward, reps=3)
+    prof = device_profile(backward)
+    fa.update(backward_device_ms=1e3 * prof["device_busy_s"],
+              backward_kernels=prof["kernel_launches"])
+    del q, k, v, g, x, out
+    free_card()
+
+    E, d, ffe = cfg.e_pad, cfg.d_model, cfg.d_expert
+    C = capacity(cfg, S)
+    groups = torch.arange(E, dtype=torch.int32, device="cuda")
+    cases = {}
+    for case, K, N in (("gate/up", d, ffe), ("down; gate/up dX", ffe, d)):
+        x = torch.randn((E * C, K), generator=gen, device="cuda").to(bf16)
+        w = (torch.randn((E, K, N), generator=gen, device="cuda")
+             * K ** -0.5).to(bf16)
+        n = segment_matmul.launches_sm90
+        got = segment_matmul(x, w, groups)
+        want = segment_matmul_ref(x, w, groups)
+        torch.cuda.synchronize()
+        require(segment_matmul.launches_sm90 == n + 1,
+                f"lm_train segment_matmul {case}: not the sm90 kernel")
+        rec = dict(case=f"{case}: {E} x {C} rows, K {K}, N {N}",
+                   **check_close(f"lm_train segment_matmul {case}", got,
+                                 want, "bfloat16"))
+        del got, want
+        flops = 2 * E * C * K * N
+        nbytes = (E * C * K + E * K * N + E * C * N) * 2
+        rec.update(
+            ms=cuda_ms(lambda: segment_matmul(x, w, groups), reps=20),
+            plain_ms=cuda_ms(lambda: segment_matmul_ref(x, w, groups),
+                             reps=3),
+            library_ms=cuda_ms(lambda: torch.bmm(x.view(E, C, K), w),
+                               reps=20),
+            bound_ms=max(flops / BF16_FLOPS_PER_S,
+                         nbytes / HBM_BYTES_PER_S) * 1e3,
+            bound_by=("operations" if flops / BF16_FLOPS_PER_S
+                      >= nbytes / HBM_BYTES_PER_S else "bytes"))
+        a, b = x.requires_grad_(), w.requires_grad_()
+        y = SegmentMatmulFn.apply(a, b, groups)
+        dy = torch.randn(y.shape, generator=gen, device="cuda").to(bf16)
+        rec["backward_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            y, (a, b), dy, retain_graph=True), reps=5)
+        cases[case] = rec
+        del x, w, a, b, y, dy
+        free_card()
+    return dict(flash=fa, segment_matmul=cases)
+
+
+def train_probe(L: int, batch) -> tuple:
+    """One bf16 training step of the cut at ``L`` layers from fresh
+    state: ``(peak bytes allocated, the initial state)``."""
+    import torch
+    from repro_torch.launch.train import build
+    state, do_step = build(granite_train_cut(L), 3e-4, 2,
+                           accum=FULL_TRAIN["accum"], device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    new, _ = do_step(state, batch, 0)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del new
+    return peak, state
+
+
+def phase_lm_train_full() -> dict:
+    """granite-moe-3b-a800m trained at full width on one card: f32
+    parameters and AdamW state, bf16 compute, remat per layer, the
+    ``launch.train`` step (``build``) on ``synthetic_batch`` traffic of
+    train_4k sequences, one per microbatch, accumulation 4.
+
+    1. Depth (a cut for memory): one step each at 2 and 4 layers gives
+       the peak's intercept and its slope per layer; the depth is the
+       deepest even one whose predicted peak stays ``FULL_TRAIN_MARGIN``
+       below the card's memory (a step that still runs out of memory
+       drops it by 2, recorded).
+    2. The f32 check on the 2-layer cut: one 4096-token sequence in f32
+       compute on the card and on the CPU, the loss and each leaf's
+       gradient norm (f64) within ``TRAIN_FULL_TOL``, through the
+       CUDA-core kernels of both.
+    3. ``FULL_TRAIN["steps"]`` steps at the chosen depth: step ms
+       (median of steps 2-5, synced), the forward / backward / optimizer
+       split (``StepSplit``), tokens/s, peak memory, MFU (``6 *
+       active_param_count * tokens / step_s`` over 989 TFLOP/s bf16, the
+       reference's ``model_flops``), launches per step, which must be
+       the sm90 flash kernel 2 per layer-microbatch (forward, remat) and
+       the sm90 grouped GEMM 9 (three products, recomputed, three dX),
+       and none of the CUDA-core kernels; then one profiled step (idle
+       share).
+    4. The kernels at this path's shapes (``lm_train_kernel_cases``).
+    Returns the launches and the kernel readings."""
+    import statistics
+    from functools import partial
+
+    import torch
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.segment_matmul.ops import segment_matmul
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import build, synthetic_batch
+    from repro_torch.models import transformer
+    from repro_torch.train import pytree
+    ft = FULL_TRAIN
+    torch.backends.cuda.matmul.allow_tf32 = False
+    free_card()
+    total = torch.cuda.get_device_properties(0).total_memory
+    seq, accum, steps = ft["seq"], ft["accum"], ft["steps"]
+    cfg = granite_train_cut(ft["check_layers"])
+    batch = synthetic_batch(cfg, accum, seq, 0, "cuda")
+    t0 = time.perf_counter()
+    probes = {}
+    for L in (2, 4):
+        probes[L], state = train_probe(L, batch)
+        if L == ft["check_layers"]:
+            # the f32 check on this cut's initial weights
+            one = {k: v[:1] for k, v in batch.items()}
+            loss_fn = partial(transformer.train_loss, cfg,
+                              compute_dtype=torch.float32)
+            reset_counters(flash_attention, segment_matmul)
+            card = first_step(loss_fn, state["params"], one, by_leaf=True)
+            check_launches = dict(flash=by_kernel(flash_attention),
+                                  segment_matmul=by_kernel(segment_matmul))
+            t1 = time.perf_counter()
+            cpu = first_step(loss_fn, tree_to(state["params"], "cpu"),
+                             tree_to(one, "cpu"), by_leaf=True)
+            cpu_s = time.perf_counter() - t1
+            rel = hold_first_step("lm_train_full f32 check", card, cpu,
+                                  TRAIN_FULL_TOL)
+            require(check_launches["flash"]["simt"] == 2 * L
+                    and check_launches["segment_matmul"]["simt"] == 9 * L
+                    and check_launches["flash"]["sm90"] == 0
+                    and check_launches["segment_matmul"]["sm90"] == 0,
+                    f"lm_train_full f32 check launches {check_launches}")
+            emit({"phase": "lm_train_full", "check": f"{L}-layer cut, 1 x "
+                  f"{seq} tokens, f32 compute, card against CPU",
+                  "loss_card": card["loss"], "loss_cpu": cpu["loss"],
+                  "grad_norm_f64_card": card["grad_norm_f64"],
+                  "grad_norm_f64_cpu": cpu["grad_norm_f64"],
+                  "max_rel_err": max(rel.values()), "tol": TRAIN_FULL_TOL,
+                  "cpu_s": cpu_s, "launches": check_launches})
+        del state
+        free_card()
+    per_layer = (probes[4] - probes[2]) / 2
+    base = probes[2] - 2 * per_layer
+    budget = total * (1 - FULL_TRAIN_MARGIN)
+    full_depth = get_config(ft["arch"]).n_layers
+    depth = max(L for L in range(2, full_depth + 1, 2)
+                if L == 2 or base + per_layer * L <= budget)
+    probe_s = time.perf_counter() - t0
+    split = StepSplit()
+    oom_at = []
+    t_steps = time.perf_counter()
+    while True:
+        cfg = granite_train_cut(depth)
+        t0 = time.perf_counter()
+        state, do_step = build(cfg, 3e-4, steps + 1, accum=accum,
+                               device="cuda", mark=split)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        batches = [synthetic_batch(cfg, accum, seq, s * 1000, "cuda")
+                   for s in range(steps + 1)]
+        reset_counters(flash_attention, segment_matmul)
+        times, parts, losses, launches = [], [], [], []
+        try:
+            for s in range(steps):
+                n = (flash_attention.launches_sm90,
+                     segment_matmul.launches_sm90)
+                t0 = time.perf_counter()
+                (state, m), part = split.run(
+                    lambda: do_step(state, batches[s], s))
+                times.append(time.perf_counter() - t0)
+                parts.append(part)
+                losses.append(m["loss"])
+                launches.append((flash_attention.launches_sm90 - n[0],
+                                 segment_matmul.launches_sm90 - n[1]))
+        except torch.cuda.OutOfMemoryError:
+            require(depth > 2, "lm_train_full: 2 layers do not fit")
+            oom_at.append(depth)
+        else:
+            break
+        # outside the handler: its traceback holds the step's tensors
+        del state, do_step, batches
+        free_card()
+        depth -= 2
+    run_launches = dict(flash=by_kernel(flash_attention),
+                        segment_matmul=by_kernel(segment_matmul))
+    want = (2 * depth * accum, 9 * depth * accum)
+    require(all(x == want for x in launches)
+            and run_launches["flash"]["simt"] == 0
+            and run_launches["segment_matmul"]["simt"] == 0,
+            f"lm_train_full: launches per step (flash sm90, segment_matmul "
+            f"sm90) {launches}, not {want}; by kernel {run_launches}")
+    require(all(map(torch.isfinite, map(torch.as_tensor, losses))),
+            f"lm_train_full: losses {losses}")
+    step_s = statistics.median(times[1:])
+    split_ms = {k: statistics.median(p[k] for p in parts[1:])
+                for k in parts[0] if k.endswith("_ms")}
+    peak = max(v for p in parts for k, v in p.items()
+               if k.endswith("_peak_bytes"))
+    steps_s = time.perf_counter() - t_steps
+    t0 = time.perf_counter()
+    prof = device_profile(
+        lambda: do_step(state, batches[steps], steps),
+        {"flash_attention_sm90": lambda k: "flash" in k.lower(),
+         "segment_matmul_sm90": lambda k: "segment" in k.lower(),
+         "gemm": lambda k: any(w in k.lower() for w in
+                               ("gemm", "cutlass", "xmma", "nvjet",
+                                "cublas"))})
+    tokens = accum * seq
+    active = cfg.active_param_count()
+    n_params = sum(x.numel() for x in pytree.leaves(state["params"]))
+    del state, do_step, batches
+    free_card()
+    profile_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kernels = lm_train_kernel_cases(cfg)
+    kernels_s = time.perf_counter() - t0
+    # the attention backward's device time (its wall, host-bound when
+    # run alone, hides behind the step's longer kernels)
+    attn_share = (kernels["flash"]["backward_device_ms"] * depth * accum
+                  / (1e3 * step_s))
+    emit({"phase": "lm_train_full", "arch": cfg.name,
+          "cuts": {"n_layers": [depth, full_depth, "memory: the deepest "
+                                "even depth "
+                                "whose step peak fits one card (probed "
+                                "at 2 and 4 layers)"],
+                   "batch": [f"{accum} x {seq} tokens a step", "train_4k: "
+                             "256 x 4096", "the run's time limit"]},
+          "probe_peak_bytes": probes, "per_layer_bytes": per_layer,
+          "base_bytes": base, "budget_bytes": budget, "total_bytes": total,
+          "probe_s": probe_s, "steps_s": steps_s, "profile_s": profile_s,
+          "kernels_s": kernels_s, "oom_at": oom_at, "init_s": init_s,
+          "params": n_params, "active_params": active, "steps": steps,
+          "step_ms": [1e3 * t for t in times],
+          "step_ms_median_2_5": 1e3 * step_s, "split_ms": split_ms,
+          "tokens_per_s": tokens / step_s, "peak_mem_bytes": peak,
+          "mfu": 6 * active * tokens / step_s / BF16_FLOPS_PER_S,
+          "losses": losses, "launches_per_step": {
+              "flash_attention_sm90": launches[0][0],
+              "segment_matmul_sm90": launches[0][1]},
+          "attention_backward_share": attn_share,
+          "profiled_step": prof, "kernels": kernels})
+    return dict(depth=depth, launches=run_launches, kernels=kernels,
+                check_launches=check_launches)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--graph", default=FULL_GRAPH,
@@ -3402,12 +3984,40 @@ def main() -> None:
     motif = phase_motif_gnn()
     for rec in recs:
         rec["launches_motif_gnn"] = motif[rec["name"]]
+    free_card()
+    small = phase_lm_train_small()
+    learn = phase_lm_train_learn()
+    full = phase_lm_train_full()
+    # each kernel's launches on each LM-training path it serves: the sm90
+    # flash kernel at full width and in lm100m, the sm90 grouped GEMM at
+    # full width and in the bf16 MoE smoke configs, the CUDA-core kernels
+    # in the smoke configs and the f32 check
+    sm["lm_train_down_ms"] = full["kernels"]["segment_matmul"][
+        "down; gate/up dX"]["ms"]
+    for rec, key, k in (
+            (fa, "flash", full["kernels"]["flash"]),
+            (sm, "segment_matmul",
+             full["kernels"]["segment_matmul"]["gate/up"])):
+        rec.update(launches_lm_train=full["launches"][key]["sm90"],
+                   **{f"lm_train_{x}": k[x] for x in (
+                       "case", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                       "bound_by", "library_ms", "backward_ms")})
+    fa["launches_lm_train_learn"] = learn["flash"]["sm90"]
+    sm["launches_lm_train_small"] = small["segment_matmul"]["sm90"]
+    for rec, key in ((fa_simt, "flash"), (sm_simt, "segment_matmul")):
+        rec.update(launches_lm_train_small=small[key]["simt"],
+                   launches_lm_train_check=full["check_launches"][key][
+                       "simt"])
     recs += [fa, fa_simt, sm, sm_simt, eb]
     require(all(r["launches"] > 0 and r.get("launches_service", 1) > 0
                 and r.get("launches_stream", 1) > 0
                 and r.get("launches_gateway", 1) > 0
                 and r.get("launches_train", 1) > 0
-                and r.get("launches_motif_gnn", 1) > 0 for r in recs),
+                and r.get("launches_motif_gnn", 1) > 0
+                and r.get("launches_lm_train", 1) > 0
+                and r.get("launches_lm_train_learn", 1) > 0
+                and r.get("launches_lm_train_small", 1) > 0
+                and r.get("launches_lm_train_check", 1) > 0 for r in recs),
             "a kernel was launched no time on its path")
     emit({"phase": "total", "seconds": time.perf_counter() - T_START})
     emit({"kernels": recs})

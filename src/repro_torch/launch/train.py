@@ -1,5 +1,5 @@
-"""Training launcher of the port: the recsys family on synthetic data,
-resumable (the port of ``repro.launch.train``).
+"""Training launcher of the port: the LM and recsys families on synthetic
+data, resumable (the port of ``repro.launch.train``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch dcn-v2 \\
         --scale smoke --steps 20 --ckpt-dir build/train_run --device cpu
@@ -10,12 +10,13 @@ every ``--ckpt-every`` steps into ``--ckpt-dir``, resumes from the latest
 manifest, bounded retry then skip-and-log.  It runs on the card unless
 ``--device cpu``.  Batches are the reference's ``synthetic_batch``
 (numpy seed ``step * 1000 + attempt``), so both packages see the same
-data.
+data.  An LM trains ``transformer.train_loss`` (f32 parameters and
+AdamW state, bf16 compute) from ``convert.init_lm_params`` seed 0;
+DCN-v2 ``recsys.train_loss`` from ``convert.init_recsys`` seed 0.
 
-LM archs exit: LM training is the next slice of the port, since the
-port's flash-attention kernels have no backward yet.  GNN archs exit
-with the reference's message (``examples/motif_features_gnn.py``;
-``chip_smoke.py`` phase ``motif_gnn`` runs that pipeline on the card).
+GNN archs exit with the reference's message
+(``examples/motif_features_gnn.py``; ``chip_smoke.py`` phase
+``motif_gnn`` runs that pipeline on the card).
 """
 from __future__ import annotations
 
@@ -25,17 +26,25 @@ from functools import partial
 import numpy as np
 import torch
 
-LM_EXIT = ("LM training is not ported yet: it is the next slice of the "
-           "port (ROADMAP), because the port's flash-attention kernels "
-           "have no backward")
 GNN_EXIT = "use examples/motif_features_gnn.py for GNN archs"
 
 
 def synthetic_batch(cfg, batch_size: int, seq_len: int, step: int,
                     device="cuda") -> dict:
-    """The reference's synthetic recsys batch (numpy seed ``step``) as
-    tensors on ``device``."""
+    """The reference's synthetic batch (numpy seed ``step``) as tensors on
+    ``device``: an LM's ``tokens`` / ``labels`` (int32, one random
+    sequence shifted by one) and ``mask`` (f32 ones), or a recsys
+    ``dense`` / ``sparse`` / ``label`` batch."""
     r = np.random.default_rng(step)
+    if cfg.family == "lm":
+        tok = r.integers(0, cfg.vocab, size=(batch_size, seq_len + 1))
+        return dict(
+            tokens=torch.as_tensor(tok[:, :-1], dtype=torch.int32,
+                                   device=device),
+            labels=torch.as_tensor(tok[:, 1:], dtype=torch.int32,
+                                   device=device),
+            mask=torch.ones((batch_size, seq_len), dtype=torch.float32,
+                            device=device))
     if cfg.family != "recsys":
         raise ValueError(f"synthetic_batch: use family-specific drivers for "
                          f"{cfg.family}")
@@ -58,19 +67,24 @@ def opt_config(lr: float, steps: int):
 
 def build(cfg, lr: float, steps: int, accum: int = 1, device="cuda",
           mark=None):
-    """``(state, do_step)`` for ``run_resumable``: f32 DCN-v2 weights from
-    seed 0 with a fresh AdamW state, and the step that trains them
-    (``opt_config(lr, steps)``; ``mark`` as in ``make_train_step``).
-    The step leaves the state it is given intact, so a step that raises
-    can be retried or skipped."""
-    from ..models import recsys
-    from ..models.convert import init_recsys
+    """``(state, do_step)`` for ``run_resumable``: f32 weights from seed 0
+    (an LM's ``init_lm_params`` tree, DCN-v2's ``init_recsys``) with a
+    fresh AdamW state, and the step that trains them (``opt_config(lr,
+    steps)``; ``mark`` as in ``make_train_step``).  The step leaves the
+    state it is given intact, so a step that raises can be retried or
+    skipped."""
+    from ..models import recsys, transformer
+    from ..models.convert import init_lm_params, init_recsys
     from ..train.optimizer import adamw_init
     from ..train.steps import make_train_step
-    params = init_recsys(cfg, seed=0, device=device, dtype=torch.float32)
-    step_fn = make_train_step(partial(recsys.train_loss, cfg),
-                              opt_config(lr, steps), accum_steps=accum,
-                              mark=mark)
+    if cfg.family == "lm":
+        params = init_lm_params(cfg, seed=0, device=device)
+        loss_fn = partial(transformer.train_loss, cfg)
+    else:
+        params = init_recsys(cfg, seed=0, device=device, dtype=torch.float32)
+        loss_fn = partial(recsys.train_loss, cfg)
+    step_fn = make_train_step(loss_fn, opt_config(lr, steps),
+                              accum_steps=accum, mark=mark)
 
     def do_step(state, batch, step):
         p, o, metrics = step_fn(state["params"], state["opt"], batch)
@@ -99,9 +113,7 @@ def main(argv=None) -> None:
 
     cfg = (get_config(args.arch) if args.scale == "full"
            else get_smoke_config(args.arch))
-    if cfg.family == "lm":
-        raise SystemExit(LM_EXIT)
-    if cfg.family != "recsys":
+    if cfg.family not in ("lm", "recsys"):
         raise SystemExit(GNN_EXIT)
     if args.device != "cpu" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device (pass --device cpu to train on "

@@ -11,6 +11,12 @@ The port of ``repro.models.attention``.  Paths, selected by ``impl``:
 * ``"naive"`` — the ``[S, S]`` reference, with explicit positions and
   ``kv_len`` (small shapes and tests).
 
+``attention_flash`` is differentiable: ``FlashAttentionFn`` runs the
+kernel forward, and its backward differentiates ``attention_blockwise``,
+the torch-op port of the reference's jnp ``attention_flash`` (the
+function the reference's training differentiates), one query block at a
+time, as the reference's ``jax.checkpoint`` of each query block does.
+
 ``attention_decode`` (one query against the cache) stays plain torch
 ops, as the reference computes it outside any Pallas kernel.
 
@@ -48,9 +54,110 @@ def attention_naive(q, k, v, *, causal=True, window=0, attn_softcap=0.0,
     return o.reshape(B, Sq, Hq, D).to(q.dtype)
 
 
+# the reference's attention_flash block sizes
+Q_BLOCK, KV_BLOCK = 512, 1024
+
+
+def attention_blockwise(q, k, v, *, causal=True, window=0,
+                        attn_softcap=0.0, q_block=Q_BLOCK,
+                        kv_block=KV_BLOCK, q_offset=0):
+    """The reference's jnp ``attention_flash`` in torch ops: online
+    softmax over ``kv_block`` keys for each ``q_block`` of queries, the
+    scores, running max and sum in f32 (the products of the storage
+    dtype summed in f32, as ``preferred_element_type=f32`` does), p cast
+    to v's dtype before ``p @ v``, output in q's dtype.
+
+    Positions are implicit: the queries sit at ``q_offset + 0..Sq-1``
+    and the keys at ``0..Skv-1``.  A kv block that no query of the q
+    block can see is skipped: in the reference it adds ``exp(NEG_INF -
+    m) = 0`` to every sum, or it is wiped by ``corr = 0`` at the first
+    visible block, so skipping it changes no value.  The running max is
+    held out of the graph: the output does not depend on it.
+    """
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = D ** -0.5
+    q_block, kv_block = min(q_block, Sq), min(kv_block, Skv)
+    kh = k.permute(0, 2, 3, 1).float()                     # [B, Hkv, D, S]
+    vh = v.transpose(1, 2)                                 # [B, Hkv, S, D]
+    outs = []
+    for q0 in range(0, Sq, q_block):
+        n = min(q_block, Sq - q0)
+        lo_q, hi_q = q_offset + q0, q_offset + q0 + n - 1
+        qpos = torch.arange(lo_q, hi_q + 1, device=q.device)
+        qh = (q[:, q0:q0 + n].reshape(B, n, Hkv, G, D).permute(0, 2, 1, 3, 4)
+              .reshape(B, Hkv, n * G, D).float())
+        acc = torch.zeros((B, Hkv, n * G, D), dtype=torch.float32,
+                          device=q.device)
+        m = torch.full((B, Hkv, n * G), NEG_INF, device=q.device)
+        l = torch.zeros((B, Hkv, n * G), device=q.device)
+        k_lo = max(0, lo_q - window + 1) if window > 0 else 0
+        k_hi = min(Skv, hi_q + 1) if causal else Skv
+        for k0 in range(0, Skv, kv_block):
+            if k0 + kv_block <= k_lo or k0 >= k_hi:
+                continue                     # no query here sees a key
+            kpos = torch.arange(k0, min(k0 + kv_block, Skv), device=q.device)
+            s = (qh @ kh[..., k0:k0 + kv_block]) * scale    # [B,Hkv,nG,kb]
+            if attn_softcap:
+                s = attn_softcap * torch.tanh(s / attn_softcap)
+            ok = visible(qpos, kpos, causal, window)[:, None, :]  # [n,1,kb]
+            s = torch.where(ok, s.view(B, Hkv, n, G, -1), NEG_INF).view(
+                B, Hkv, n * G, -1)
+            m_new = torch.maximum(m, s.detach().amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + (
+                p.to(v.dtype).float() @ vh[:, :, k0:k0 + kv_block].float())
+            m = m_new
+        o = acc / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(o.view(B, Hkv, n, G, D).permute(0, 2, 1, 3, 4)
+                    .reshape(B, n, Hq, D))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` (the kernel on the card, its plain version on
+    the CPU) with a gradient.
+
+    The backward runs ``attention_blockwise`` again one ``Q_BLOCK`` of
+    queries at a time and differentiates it, summing dK and dV over the
+    query blocks in f32: only one query block's scores are held at once
+    (about 50 MB per kv block at S 4096 and 24 heads), as the
+    reference's checkpointed ``per_q_block`` recomputes them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, attn_softcap):
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = dict(causal=causal, window=window,
+                      attn_softcap=attn_softcap)
+        return flash_attention(q, k, v, **ctx.kw)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = ctx.saved_tensors
+        dq = torch.empty_like(q)
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+        dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+        with torch.enable_grad():
+            kk, vv = (x.detach().requires_grad_() for x in (k, v))
+            for q0 in range(0, q.shape[1], Q_BLOCK):
+                rows = slice(q0, q0 + Q_BLOCK)
+                qi = q[:, rows].detach().requires_grad_()
+                o = attention_blockwise(qi, kk, vv, q_offset=q0, **ctx.kw)
+                gq, gk, gv = torch.autograd.grad(o, (qi, kk, vv),
+                                                 grad_out[:, rows])
+                dq[:, rows] = gq
+                dk += gk
+                dv += gv
+        return dq, dk.to(k.dtype), dv.to(v.dtype), None, None, None
+
+
 def attention_flash(q, k, v, *, causal=True, window=0, attn_softcap=0.0):
     """Online-softmax attention with implicit positions ``0..S-1``: the
-    CUDA kernel on the card (see ``kernels/flash_attention/ops.py``).
+    CUDA kernel on the card (see ``kernels/flash_attention/ops.py``),
+    differentiable through ``FlashAttentionFn``.
 
     A head dim the kernel has no build for (12 in a smoke config) is
     zero-padded to the next one it has, Dp; q is first multiplied by
@@ -60,12 +167,11 @@ def attention_flash(q, k, v, *, causal=True, window=0, attn_softcap=0.0):
     D = q.shape[-1]
     Dp = next((h for h in HEAD_DIMS if h >= D), D)
     if Dp == D:
-        return flash_attention(q, k, v, causal=causal, window=window,
-                               attn_softcap=attn_softcap)
+        return FlashAttentionFn.apply(q, k, v, causal, window, attn_softcap)
     q = q * (Dp / D) ** 0.5
     q, k, v = (F.pad(x, (0, Dp - D)) for x in (q, k, v))
-    return flash_attention(q, k, v, causal=causal, window=window,
-                           attn_softcap=attn_softcap)[..., :D]
+    return FlashAttentionFn.apply(q, k, v, causal, window,
+                                  attn_softcap)[..., :D]
 
 
 def attention_decode(q, k_cache, v_cache, *, kv_len, window=0,

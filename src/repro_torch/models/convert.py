@@ -1,17 +1,20 @@
 """Building the port's models from weights (no JAX counterpart).
 
-* ``lm_from_numpy`` takes the reference's ``init_params`` pytree as
-  numpy arrays (per-layer arrays stacked on a leading ``[L]`` axis; dense
-  or MoE layers) and builds a ``TransformerLM`` that computes what the
-  reference computes with those weights; the tests and ``chip_smoke.py``
-  feed both packages the same arrays this way.  ``recsys_from_numpy``
-  does the same for DCN-v2's pytree.
-* ``numpy_params`` / ``numpy_recsys_params`` make such pytrees from a
-  numpy seed, for runs that have no JAX (the card tests and
-  ``chip_smoke.py``).
-* ``init_lm`` / ``init_recsys`` make random weights at full width
-  directly on the card, one tensor at a time in the target dtype: a
-  full-width f32 copy of Gemma-2-27B would be 109 GB.
+* ``tree_from_numpy`` takes a reference parameter pytree as numpy arrays
+  (the LM's ``init_params`` tree, per-layer arrays stacked on a leading
+  ``[L]`` axis, or a GNN's) and returns the same tree of torch tensors:
+  ``transformer.forward`` / ``train_loss`` and ``gnn`` take it as it is.
+  ``lm_from_numpy`` builds a serving ``TransformerLM`` over such a tree,
+  ``recsys_from_numpy`` DCN-v2's tree; the tests and ``chip_smoke.py``
+  feed both packages the same arrays this way.
+* ``numpy_params`` / ``numpy_recsys_params`` / ``numpy_gnn_params`` make
+  such pytrees from a numpy seed, for runs that have no JAX (the card
+  tests and ``chip_smoke.py``).
+* ``init_lm_params`` draws the LM tree from a ``torch.Generator`` (the
+  training launcher's f32 state); ``init_lm`` / ``init_recsys`` /
+  ``init_gnn`` make random weights at full width directly on the card,
+  one tensor at a time in the target dtype: a full-width f32 copy of
+  Gemma-2-27B would be 109 GB.
 
 Every dense weight is drawn with its fan-in on axis 0, as the
 reference's ``dense_init`` (default ``in_axis=0``) draws it.  For the MoE
@@ -32,17 +35,19 @@ from .recsys import RecsysConfig
 from .transformer import LMConfig, TransformerLM, layer_shapes
 
 
+def tree_from_numpy(params, device="cuda", dtype=torch.float32):
+    """A parameter pytree of numpy arrays (nested dicts / lists, the
+    reference's layout) -> the same tree of torch tensors on ``device``
+    in ``dtype``."""
+    return pytree.tree_map(lambda a: torch.as_tensor(np.array(a)).to(
+        device=device, dtype=dtype), params)
+
+
 def lm_from_numpy(cfg: LMConfig, params: dict, device="cuda",
                   dtype=torch.float32) -> TransformerLM:
     """The reference's parameter pytree (numpy) -> ``TransformerLM``."""
-    def t(a):
-        return torch.as_tensor(np.array(a)).to(device=device, dtype=dtype)
-    lay = params["layers"]
-    layers = [{name: t(lay[name][i]) for name in layer_shapes(cfg)}
-              for i in range(cfg.n_layers)]
-    unembed = params.get("unembed")
-    return TransformerLM(cfg, t(params["embed"]), t(params["final_norm"]),
-                         layers, None if unembed is None else t(unembed))
+    return TransformerLM.from_tree(cfg, tree_from_numpy(params, device,
+                                                        dtype))
 
 
 def numpy_params(cfg: LMConfig, seed: int) -> dict:
@@ -73,28 +78,39 @@ def numpy_params(cfg: LMConfig, seed: int) -> dict:
     return f32
 
 
-def init_lm(cfg: LMConfig, seed: int, device="cuda",
-            dtype=torch.bfloat16) -> TransformerLM:
-    """Random weights as the reference's ``init_params`` draws them
+def init_lm_params(cfg: LMConfig, seed: int, device="cuda",
+                   dtype=torch.float32) -> dict:
+    """The reference's ``init_params`` tree drawn as it draws it
     (truncated-normal fan-in dense, fan-in on axis 0 as in the module
     docstring, ``N(0, 0.02^2)`` embedding, zero norms), from a
-    ``torch.Generator`` on ``device``, each tensor drawn in f32 and cast
-    to ``dtype`` before the next is made."""
+    ``torch.Generator`` on ``device``: the embedding, then each layer's
+    weights in ``layer_shapes`` order, then the unembedding, each drawn
+    in f32 and cast to ``dtype`` into its slot before the next is made."""
     device = torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     kw = dict(dtype=dtype, device=device)
-    d = cfg.d_model
+    d, L = cfg.d_model, cfg.n_layers
     embed = embed_init((cfg.vocab, d), gen, **kw)
-    layers = []
-    for _ in range(cfg.n_layers):
-        layers.append({name: (torch.zeros(shape, **kw) if len(shape) == 1
-                              else dense_init(shape, gen, **kw))
-                       for name, shape in layer_shapes(cfg).items()})
-    unembed = (None if cfg.tie_embeddings
-               else dense_init((d, cfg.vocab), gen, **kw))
-    return TransformerLM(cfg, embed, torch.zeros((d,), **kw), layers,
-                         unembed)
+    shapes = layer_shapes(cfg)
+    layers = {name: torch.zeros((L,) + shape, **kw)
+              for name, shape in shapes.items()}
+    for i in range(L):
+        for name, shape in shapes.items():
+            if len(shape) > 1:
+                layers[name][i] = dense_init(shape, gen, **kw)
+    params = dict(embed=embed, final_norm=torch.zeros((d,), **kw),
+                  layers=layers)
+    if not cfg.tie_embeddings:
+        params["unembed"] = dense_init((d, cfg.vocab), gen, **kw)
+    return params
+
+
+def init_lm(cfg: LMConfig, seed: int, device="cuda",
+            dtype=torch.bfloat16) -> TransformerLM:
+    """A serving model over ``init_lm_params(cfg, seed, device, dtype)``."""
+    return TransformerLM.from_tree(cfg, init_lm_params(cfg, seed, device,
+                                                       dtype))
 
 
 def recsys_from_numpy(cfg: RecsysConfig, params: dict, device="cuda",
@@ -161,14 +177,6 @@ def init_recsys(cfg: RecsysConfig, seed: int, device="cuda",
     return dict(table=table, cross=[wb(s) for s in cross],
                 mlp=[wb(s) for s in mlp], head=wb(head),
                 retrieval_proj=dense_init(proj, gen, **kw))
-
-
-def gnn_from_numpy(params: dict, device="cuda",
-                   dtype=torch.float32) -> dict:
-    """A GNN parameter pytree (nested dicts / lists of numpy arrays, the
-    reference's layout) -> the same tree of torch tensors."""
-    return pytree.tree_map(lambda a: torch.as_tensor(np.array(a)).to(
-        device=device, dtype=dtype), params)
 
 
 def numpy_gnn_params(cfg: gnn.GNNConfig, d_in: int, d_out: int,

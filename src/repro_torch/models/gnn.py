@@ -3,7 +3,7 @@ passing (the port of ``repro.models.gnn``, whose docstring holds the
 design notes).
 
 Plain functions on dict parameters (the reference's pytree as torch
-tensors: ``convert.gnn_from_numpy`` / ``convert.init_gnn``), so
+tensors: ``convert.tree_from_numpy`` / ``convert.init_gnn``), so
 parameter paths and checkpoints match the reference's.  Message passing
 is gather -> per-edge function -> scatter over receivers; the scatters
 are torch ops (``index_add_``, ``scatter_reduce_``), as the reference

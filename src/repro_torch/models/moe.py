@@ -20,7 +20,10 @@ capacity drops:
 6. the gate multiply and the combine (a scatter-add over token ids) in
    f32, then the shared-expert SwiGLU.
 
-Every step but 5 is torch ops.
+Every step but 5 is torch ops.  The expert products are differentiable
+through ``SegmentMatmulFn``: dX is the grouped-GEMM kernel again on the
+transposed weights, dW a per-block ``x^T dy`` (the reference's einsum
+transpose, which XLA computes outside any Pallas kernel).
 """
 from __future__ import annotations
 
@@ -37,20 +40,62 @@ def capacity(cfg, T: int) -> int:
     return max(8, -(-c // 8) * 8)
 
 
+class SegmentMatmulFn(torch.autograd.Function):
+    """``segment_matmul(x, w, block_groups)`` with its gradient.
+
+    dX is ``segment_matmul(dy, w^T, block_groups)``: the grouped-GEMM
+    kernel again on the card (for the bf16 MoE widths the sm90 kernel),
+    f32 accumulation, out in dy's dtype.  dW is ``x_b^T dy_b`` for every
+    ``bm``-row block b (``torch.bmm``, out in x's dtype, as the
+    reference's bf16 einsum transpose), summed into each block's group
+    in f32 and cast to w's dtype.  The group ids get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, block_groups):
+        ctx.save_for_backward(x, w, block_groups)
+        return segment_matmul(x, w, block_groups)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, groups = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = segment_matmul(dy, w.transpose(1, 2).contiguous(), groups)
+        if ctx.needs_input_grad[1]:
+            nb, (M, K), N = groups.shape[0], x.shape, dy.shape[1]
+            blocks = torch.bmm(x.reshape(nb, M // nb, K).transpose(1, 2),
+                               dy.reshape(nb, M // nb, N))    # [nb, K, N]
+            dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+            dw = dw.index_add_(0, groups.long(),
+                               blocks.float()).to(w.dtype)
+        return dx, dw, None
+
+
+def router_probs(h2: torch.Tensor, router_w: torch.Tensor) -> torch.Tensor:
+    """h2 ``[T, d]`` -> the router's softmax ``[T, n_experts]`` (f32)."""
+    return torch.softmax(h2.float() @ router_w.float(), dim=-1)
+
+
+def gates_and_aux(cfg, probs: torch.Tensor, experts: torch.Tensor):
+    """The renormalised gates ``[T, k]`` of the chosen ``experts`` and the
+    Switch load-balancing aux ``E * sum_e f_e * p_e`` (f32)."""
+    gates = torch.take_along_dim(probs, experts, dim=-1)
+    gates = gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
+    E = cfg.n_experts
+    f = torch.zeros(E, dtype=torch.float32, device=probs.device).index_add_(
+        0, experts.reshape(-1),
+        torch.full((experts.numel(),), 1.0 / experts.numel(),
+                   device=probs.device))
+    aux = E * (f * probs.mean(dim=0)).sum()
+    return gates, aux
+
+
 def route(cfg, h2: torch.Tensor, router_w: torch.Tensor):
     """h2 ``[T, d]`` -> (gates ``[T, k]`` f32, experts ``[T, k]`` int64,
     aux scalar f32)."""
-    logits = h2.float() @ router_w.float()
-    probs = torch.softmax(logits, dim=-1)                       # [T, E]
-    gates, experts = torch.topk(probs, cfg.top_k, dim=-1)       # [T, k]
-    gates = gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
-    # Switch-style load-balancing aux: E * sum_e f_e * p_e
-    E = cfg.n_experts
-    f = torch.zeros(E, dtype=torch.float32, device=h2.device).index_add_(
-        0, experts.reshape(-1),
-        torch.full((experts.numel(),), 1.0 / experts.numel(),
-                   device=h2.device))
-    aux = E * (f * probs.mean(dim=0)).sum()
+    probs = router_probs(h2, router_w)                          # [T, E]
+    experts = torch.topk(probs, cfg.top_k, dim=-1).indices      # [T, k]
+    gates, aux = gates_and_aux(cfg, probs, experts)
     return gates, experts, aux
 
 
@@ -86,13 +131,15 @@ def moe_mlp(cfg, h: torch.Tensor, p: dict):
     slot_token, slot_gatepos = dispatch_tables(cfg, experts, C)
 
     valid = slot_token >= 0                                     # [E, C]
-    xs = h2[slot_token.clamp(min=0).reshape(-1)]                # [E*C, d]
+    # index_select: its gradient is one index_add_ (the indexing
+    # gradient, a sort, took 17 ms a layer at granite-moe's width)
+    xs = h2.index_select(0, slot_token.clamp(min=0).reshape(-1))  # [E*C, d]
     xs = torch.where(valid.reshape(-1, 1), xs, 0.0)
     # the expert SwiGLU, one C-row block per expert: [E*C, d] @ [E, d, ffe]
     groups = torch.arange(E, dtype=torch.int32, device=h.device)
-    g = F.silu(segment_matmul(xs, p["moe_gate"], groups))
-    u = segment_matmul(xs, p["moe_up"], groups)
-    ys = segment_matmul(g * u, p["moe_down"], groups)           # [E*C, d]
+    g = F.silu(SegmentMatmulFn.apply(xs, p["moe_gate"], groups))
+    u = SegmentMatmulFn.apply(xs, p["moe_up"], groups)
+    ys = SegmentMatmulFn.apply(g * u, p["moe_down"], groups)    # [E*C, d]
     gate_per_slot = gates.reshape(-1)[slot_gatepos]             # [E, C] f32
     gate_per_slot = torch.where(valid, gate_per_slot, 0.0)
     # Gate-multiply and combine in f32, as the reference does.

@@ -1,19 +1,29 @@
 """Decoder-only LM: dense + MoE, GQA, local/global alternation, KV cache.
 
-The port of ``repro.models.transformer`` for serving: ``forward``,
-``prefill`` and ``decode_step`` compute what the reference's entry
-points of the same names compute, on the card (the attention of every
-prefill and forward layer goes through the hand-written flash-attention
-kernel) or, for CPU tensors, with the kernel's plain version.
+The port of ``repro.models.transformer``: ``forward`` and ``train_loss``
+over the reference's parameter tree, and ``TransformerLM`` for serving
+(``forward``, ``prefill`` and ``decode_step``).  They compute what the
+reference's entry points of the same names compute, on the card (the
+attention of every prefill and forward layer goes through the
+hand-written flash-attention kernel, the MoE expert products through the
+grouped-GEMM kernel) or, for CPU tensors, with the kernels' plain
+versions.
 
-Where the reference scans over a stacked ``[L]`` axis, the port holds
-one ``Block`` per layer and loops in Python; the weights keep the
-reference's ``[in, out]`` orientation, so ``x @ w`` is the same product.
-Numbers that have to match the reference exactly:
+The parameter tree is the reference's ``init_params`` layout: ``embed``,
+``final_norm``, ``unembed`` (untied configs) and ``layers``, a dict of
+tensors stacked on a leading ``[L]`` axis, so its leaves line up with the
+reference's in jax's order (``train/pytree.py``) and checkpoints cross
+between the packages.  Where the reference scans over ``[L]``, the port
+loops in Python; ``TransformerLM`` holds one ``Block`` per layer
+(``TransformerLM.from_tree`` builds one over views of a tree).  The
+weights keep the reference's ``[in, out]`` orientation, so ``x @ w`` is
+the same product.  Numbers that have to match the reference exactly:
 
 * layer ``i`` attends through ``layer_windows(cfg)[i]``: with
   ``alt_local_global`` even layers are local (the sliding window) and
   odd layers global, as the reference's two-layer scan body;
+* every weight is rounded to the compute dtype before it is used (the
+  reference's ``cast_for_compute``), norm scales included;
 * scalars are rounded to the compute dtype before they multiply, as
   JAX's weak typing does: the embedding scale ``sqrt(d_model)`` (68.0 in
   bf16 for Gemma-2-27B) and the query pre-scale
@@ -21,23 +31,34 @@ Numbers that have to match the reference exactly:
 * the final softcap runs on f32 logits, prefill returns the logits of
   the last position only, and its cache is zero past the prompt.
 
+Training differentiates ``forward`` with torch autograd: the attention
+through ``attention.FlashAttentionFn`` (the kernel forward, the torch-op
+``attention_blockwise`` backward), the expert products through
+``moe.SegmentMatmulFn``.  With ``cfg.remat`` each layer group (the
+reference's scan body: one layer, or a local and a global one) runs
+under ``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``;
+its weights are cast to the compute dtype inside the group, so only one
+group's cast copy lives at a time.
+
 MoE configs (``n_experts > 0``) replace the dense MLP of every layer by
-``moe.moe_mlp``, whose expert products go through the grouped-GEMM
-kernel; ``forward`` returns the aux loss summed over layers, as the
-reference does, and ``prefill`` / ``decode_step`` drop it.
+``moe.moe_mlp``; ``forward`` returns the aux loss summed over layers, as
+the reference does, and ``prefill`` / ``decode_step`` drop it.
 
 Not ported yet: the sequence-parallel residual sharding
-(``residual_spec``) and training (``train_loss``).
+(``residual_spec``).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .attention import attention_decode, attention_flash, attention_naive
-from .layers import apply_rope, cast_for_compute, rms_norm, softcap, swiglu
+from .layers import (apply_rope, cast_for_compute, rms_norm, softcap,
+                     softmax_xent, swiglu)
 from .moe import moe_mlp
 
 
@@ -94,15 +115,40 @@ class LMConfig:
     def e_pad(self) -> int:
         return max(self.n_experts_padded, self.n_experts)
 
+    def _counts(self, n_routed: int) -> int:
+        d = self.d_model
+        attn = d * self.hd * (self.n_heads * 2 + self.n_kv_heads * 2)
+        if self.is_moe:
+            mlp = (d * self.n_experts
+                   + 3 * d * self.d_expert * (n_routed
+                                              + self.n_shared_experts))
+        else:
+            mlp = 3 * d * self.d_ff
+        norms = d * (4 if self.post_norms else 2)
+        emb = self.vocab * d * (1 if self.tie_embeddings else 2)
+        return self.n_layers * (attn + mlp + norms) + emb + d
+
+    def param_count(self) -> int:
+        """The reference's count (the pad experts left out)."""
+        return self._counts(self.n_experts)
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top_k + shared experts only)."""
+        return self._counts(self.top_k if self.is_moe else 0)
+
+
+def _slots(cfg: LMConfig) -> tuple[int, ...]:
+    """The windows of one layer group (the reference's scan body)."""
+    if cfg.alt_local_global and cfg.sliding_window > 0:
+        return (cfg.sliding_window, 0)         # local, then global
+    if cfg.sliding_window > 0:
+        return (cfg.sliding_window,)
+    return (0,)
+
 
 def layer_windows(cfg: LMConfig) -> tuple[int, ...]:
     """The attention window of every layer (0 = global)."""
-    if cfg.alt_local_global and cfg.sliding_window > 0:
-        slots = (cfg.sliding_window, 0)        # local, then global
-    elif cfg.sliding_window > 0:
-        slots = (cfg.sliding_window,)
-    else:
-        slots = (0,)
+    slots = _slots(cfg)
     return tuple(slots[i % len(slots)] for i in range(cfg.n_layers))
 
 
@@ -134,6 +180,134 @@ def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
     return torch.full((), value, dtype=like.dtype, device=like.device)
 
 
+# -- the pieces of a layer: functions of (cfg, x, weights) -------------------
+def _embed(cfg, embed, tokens, dtype):
+    x = embed[tokens].to(dtype)
+    if cfg.scale_embed:
+        x = x * _scalar(cfg.d_model ** 0.5, x)
+    return x
+
+
+def _qkv(cfg, x, p, positions):
+    B, S, _ = x.shape
+    hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    h = rms_norm(x, p["attn_norm"])
+    q = (h @ p["wq"]).reshape(B, S, Hq, hd)
+    kk = (h @ p["wk"]).reshape(B, S, Hkv, hd)
+    vv = (h @ p["wv"]).reshape(B, S, Hkv, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    kk = apply_rope(kk, positions, cfg.rope_theta)
+    if cfg.query_scale:                  # fold the custom scale into q
+        q = q * _scalar(cfg.query_scale * hd ** 0.5, q)
+    return q, kk, vv
+
+
+def _attn_out(cfg, x, o, p):
+    B, S = x.shape[:2]
+    o = o.reshape(B, S, -1) @ p["wo"]
+    if cfg.post_norms:
+        o = rms_norm(o, p["post_attn_norm"])
+    return x + o
+
+
+def _mlp(cfg, x, p):
+    """The MLP half of a layer; returns the new x and the aux loss (a
+    Python 0.0 for dense layers)."""
+    h = rms_norm(x, p["mlp_norm"])
+    if cfg.is_moe:
+        o, aux = moe_mlp(cfg, h, p)
+    else:
+        o, aux = swiglu(h, p["w_gate"], p["w_up"], p["w_down"]), 0.0
+    if cfg.post_norms:
+        o = rms_norm(o, p["post_mlp_norm"])
+    return x + o, aux
+
+
+def _layer(cfg, x, p, window, positions):
+    """One prefill/forward layer on weights ``p`` in the compute dtype;
+    returns the new x, its k, v and the layer's aux loss."""
+    q, kk, vv = _qkv(cfg, x, p, positions)
+    if cfg.attn_impl == "flash":
+        o = attention_flash(q, kk, vv, causal=True, window=window,
+                            attn_softcap=cfg.attn_softcap)
+    else:
+        o = attention_naive(q, kk, vv, causal=True, window=window,
+                            attn_softcap=cfg.attn_softcap,
+                            q_positions=positions, kv_positions=positions)
+    x, aux = _mlp(cfg, _attn_out(cfg, x, o, p), p)
+    return x, kk, vv, aux
+
+
+def _logits(cfg, x, p):
+    """Final norm and unembedding; ``p`` holds ``final_norm``, ``embed``
+    and ``unembed`` (None or absent when tied), cast here to x's
+    dtype."""
+    dtype = x.dtype
+    x = rms_norm(x, p["final_norm"].to(dtype))
+    w = p.get("unembed")
+    w = (p["embed"].T if w is None else w).to(dtype)
+    logits = x @ w
+    if cfg.final_softcap:
+        logits = softcap(logits.float(), cfg.final_softcap)
+    return logits
+
+
+def _layer_group(cfg, windows, positions, dtype, x, group):
+    """One layer group (the reference's scan body) on weights in their
+    storage dtype: ``(x, the group's aux)``."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p, window in zip(group, windows):
+        x, _, _, a = _layer(cfg, x, cast_for_compute(p, dtype), window,
+                            positions)
+        aux = aux + a
+    return x, aux
+
+
+def _forward(cfg, top, layers, tokens, dtype):
+    """``forward`` over ``top`` (``embed``, ``final_norm``, ``unembed``)
+    and one weight dict per layer; each group under
+    ``torch.utils.checkpoint`` when ``cfg.remat`` and autograd records."""
+    if cfg.residual_spec is not None:
+        raise NotImplementedError(f"{cfg.name}: residual sharding is not "
+                                  "ported yet (ROADMAP §1)")
+    x = _embed(cfg, top["embed"], tokens, dtype)
+    positions = torch.arange(tokens.shape[1], device=x.device)
+    g = len(_slots(cfg))
+    windows = layer_windows(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, cfg.n_layers, g):
+        body = partial(_layer_group, cfg, windows[i:i + g], positions, dtype)
+        if cfg.remat and torch.is_grad_enabled():
+            x, a = checkpoint(body, x, layers[i:i + g], use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            x, a = body(x, layers[i:i + g])
+        aux = aux + a
+    return _logits(cfg, x, top), aux
+
+
+# -- the functional entry points over the parameter tree ---------------------
+def forward(cfg: LMConfig, params: dict, tokens: torch.Tensor,
+            compute_dtype=torch.bfloat16):
+    """tokens ``[B, S]`` -> (logits ``[B, S, V]``, aux loss: the sum over
+    layers, f32, 0 for a dense LM), differentiable in every leaf of the
+    parameter tree (f32 leaves, bf16 compute by default)."""
+    stacked = {name: torch.unbind(w) for name, w in params["layers"].items()}
+    layers = [{name: w[i] for name, w in stacked.items()}
+              for i in range(cfg.n_layers)]
+    return _forward(cfg, params, layers, tokens, compute_dtype)
+
+
+def train_loss(cfg: LMConfig, params: dict, batch: dict,
+               compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """batch = ``{tokens [B, S], labels [B, S], mask [B, S]}`` -> the
+    scalar loss: mean cross-entropy (f32) plus ``router_aux_coef * aux /
+    n_layers``."""
+    logits, aux = forward(cfg, params, batch["tokens"], compute_dtype)
+    loss = softmax_xent(logits, batch["labels"], batch.get("mask"))
+    return loss + cfg.router_aux_coef * aux / max(cfg.n_layers, 1)
+
+
 class Block(nn.Module):
     """One layer's weights, named as in the reference's ``layers`` dict."""
 
@@ -148,8 +322,8 @@ class Block(nn.Module):
 
 
 class TransformerLM(nn.Module):
-    """A decoder LM (dense or MoE); build it with ``convert.lm_from_numpy``
-    or ``convert.init_lm``."""
+    """A decoder LM (dense or MoE) for serving; build it with
+    ``convert.lm_from_numpy``, ``convert.init_lm`` or ``from_tree``."""
 
     def __init__(self, cfg: LMConfig, embed: torch.Tensor,
                  final_norm: torch.Tensor, layers: list[dict],
@@ -174,84 +348,32 @@ class TransformerLM(nn.Module):
         self.layers = nn.ModuleList(Block(w) for w in layers)
         self.windows = layer_windows(cfg)
 
-    # -- pieces ------------------------------------------------------------
-    def _embed(self, tokens, dtype):
-        x = self.embed[tokens].to(dtype)
-        if self.cfg.scale_embed:
-            x = x * _scalar(self.cfg.d_model ** 0.5, x)
-        return x
+    @classmethod
+    def from_tree(cls, cfg: LMConfig, params: dict) -> "TransformerLM":
+        """A model over views of a parameter tree (``forward``'s layout),
+        no copy: it serves the weights a training run holds.  The
+        optimizer returns new tensors each step, so build it again from
+        the tree a step returns."""
+        lay = params["layers"]
+        layers = [{name: w[i].detach() for name, w in lay.items()}
+                  for i in range(cfg.n_layers)]
+        unembed = params.get("unembed")
+        return cls(cfg, params["embed"].detach(),
+                   params["final_norm"].detach(), layers,
+                   None if unembed is None else unembed.detach())
 
-    def _qkv(self, x, p, positions):
-        cfg = self.cfg
-        B, S, _ = x.shape
-        hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-        h = rms_norm(x, p["attn_norm"])
-        q = (h @ p["wq"]).reshape(B, S, Hq, hd)
-        kk = (h @ p["wk"]).reshape(B, S, Hkv, hd)
-        vv = (h @ p["wv"]).reshape(B, S, Hkv, hd)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        kk = apply_rope(kk, positions, cfg.rope_theta)
-        if cfg.query_scale:              # fold the custom scale into q
-            q = q * _scalar(cfg.query_scale * hd ** 0.5, q)
-        return q, kk, vv
-
-    def _attn_out(self, x, o, p):
-        B, S = x.shape[:2]
-        o = o.reshape(B, S, -1) @ p["wo"]
-        if self.cfg.post_norms:
-            o = rms_norm(o, p["post_attn_norm"])
-        return x + o
-
-    def _mlp(self, x, p):
-        """The MLP half of a layer; returns the new x and the aux loss
-        (a Python 0.0 for dense layers)."""
-        h = rms_norm(x, p["mlp_norm"])
-        if self.cfg.is_moe:
-            o, aux = moe_mlp(self.cfg, h, p)
-        else:
-            o, aux = swiglu(h, p["w_gate"], p["w_up"], p["w_down"]), 0.0
-        if self.cfg.post_norms:
-            o = rms_norm(o, p["post_mlp_norm"])
-        return x + o, aux
-
-    def _layer(self, x, p, window, positions):
-        """One prefill/forward layer; returns the new x, its k, v and the
-        layer's aux loss."""
-        q, kk, vv = self._qkv(x, p, positions)
-        if self.cfg.attn_impl == "flash":
-            o = attention_flash(q, kk, vv, causal=True, window=window,
-                                attn_softcap=self.cfg.attn_softcap)
-        else:
-            o = attention_naive(q, kk, vv, causal=True, window=window,
-                                attn_softcap=self.cfg.attn_softcap,
-                                q_positions=positions,
-                                kv_positions=positions)
-        x, aux = self._mlp(self._attn_out(x, o, p), p)
-        return x, kk, vv, aux
-
-    def _logits(self, x, dtype):
-        x = rms_norm(x, self.final_norm.to(dtype))
-        w = (self.embed.to(dtype).T if self.unembed is None
-             else self.unembed.to(dtype))
-        logits = x @ w
-        if self.cfg.final_softcap:
-            logits = softcap(logits.float(), self.cfg.final_softcap)
-        return logits
+    def _top(self) -> dict:
+        return dict(embed=self.embed, final_norm=self.final_norm,
+                    unembed=self.unembed)
 
     # -- entry points --------------------------------------------------------
     @torch.no_grad()
     def forward(self, tokens: torch.Tensor, compute_dtype=torch.bfloat16):
         """tokens ``[B, S]`` -> (logits ``[B, S, V]``, aux loss: the sum
         over layers, f32, 0 for a dense LM)."""
-        S = tokens.shape[1]
-        x = self._embed(tokens, compute_dtype)
-        positions = torch.arange(S, device=x.device)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for blk, w in zip(self.layers, self.windows):
-            x, _, _, a = self._layer(x, blk.weights(compute_dtype), w,
-                                     positions)
-            aux = aux + a
-        return self._logits(x, compute_dtype), aux
+        layers = [dict(blk.named_parameters()) for blk in self.layers]
+        return _forward(self.cfg, self._top(), layers, tokens,
+                        compute_dtype)
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, cache_len: int,
@@ -267,17 +389,17 @@ class TransformerLM(nn.Module):
         B, S = tokens.shape
         if cache_len < S:
             raise ValueError(f"cache_len {cache_len} < prompt length {S}")
-        x = self._embed(tokens, compute_dtype)
+        x = _embed(cfg, self.embed, tokens, compute_dtype)
         positions = torch.arange(S, device=x.device)
         shape = (cfg.n_layers, B, cache_len, cfg.n_kv_heads, cfg.hd)
         k_cache = torch.zeros(shape, dtype=compute_dtype, device=x.device)
         v_cache = torch.zeros(shape, dtype=compute_dtype, device=x.device)
         for i, (blk, w) in enumerate(zip(self.layers, self.windows)):
-            x, kk, vv, _ = self._layer(x, blk.weights(compute_dtype), w,
-                                       positions)
+            x, kk, vv, _ = _layer(cfg, x, blk.weights(compute_dtype), w,
+                                  positions)
             k_cache[i, :, :S] = kk
             v_cache[i, :, :S] = vv
-        logits = self._logits(x[:, -1:], compute_dtype)
+        logits = _logits(cfg, x[:, -1:], self._top())
         return logits, dict(k=k_cache, v=v_cache, kv_len=S)
 
     @torch.no_grad()
@@ -298,12 +420,12 @@ class TransformerLM(nn.Module):
         pos = int(cache["kv_len"])
         if pos >= k_cache.shape[2]:
             raise ValueError(f"cache full: kv_len {pos} == cache_len")
-        x = self._embed(tokens, compute_dtype)
+        x = _embed(cfg, self.embed, tokens, compute_dtype)
         positions = torch.full((1,), pos, dtype=torch.int32,
                                device=x.device)
         for i, (blk, w) in enumerate(zip(self.layers, self.windows)):
             p = blk.weights(compute_dtype)
-            q, kk, vv = self._qkv(x, p, positions)
+            q, kk, vv = _qkv(cfg, x, p, positions)
             k_cache[i, :, pos] = kk[:, 0]
             v_cache[i, :, pos] = vv[:, 0]
             lo = max(0, pos + 1 - w) if w > 0 else 0
@@ -311,6 +433,6 @@ class TransformerLM(nn.Module):
                                  v_cache[i, :, lo:pos + 1],
                                  kv_len=pos + 1 - lo, window=w,
                                  attn_softcap=cfg.attn_softcap)
-            x, _ = self._mlp(self._attn_out(x, o, p), p)
-        logits = self._logits(x, compute_dtype)
+            x, _ = _mlp(cfg, _attn_out(cfg, x, o, p), p)
+        logits = _logits(cfg, x, self._top())
         return logits, dict(k=k_cache, v=v_cache, kv_len=pos + 1)

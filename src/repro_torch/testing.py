@@ -9,9 +9,10 @@ tolerance.
 
 bf16 rounds differently on the two devices, and a one-ulp difference
 flips a top-k choice at a near tie; then a whole expert differs for that
-token.  ``PinnedRoutes`` therefore hands the CPU run's routes to the
-card run and asserts that wherever the card's own top-k differs the
-router saw a near tie (``ROUTE_TIE``).
+token.  ``PinnedRoutes`` therefore hands the CPU run's expert choices to
+the card run (the card's gates and aux are its own router's at those
+experts, so its router gradient stays its own) and asserts that wherever
+the card's own top-k differs the router saw a near tie (``ROUTE_TIE``).
 """
 from __future__ import annotations
 
@@ -25,9 +26,10 @@ from .kernels.embedding_bag.ops import embedding_bag
 from .kernels.flash_attention.ops import flash_attention
 from .kernels.flash_attention.ref import NEG_INF, visible
 from .kernels.segment_matmul.ops import segment_matmul
-from .models import moe, recsys
+from .models import moe, recsys, transformer
 from .models.convert import (lm_from_numpy, numpy_params,
-                             numpy_recsys_params, recsys_from_numpy)
+                             numpy_recsys_params, recsys_from_numpy,
+                             tree_from_numpy)
 
 def witness_edge_ids(g, motif, tree_edges, delta: int, entry: dict) -> list:
     """The graph edge ids of one witness entry (``engine.witness_entries``
@@ -64,8 +66,9 @@ ROUTE_TIE = 5e-3
 
 class PinnedRoutes:
     """Route every MoE layer of the card run as the CPU run routed it
-    (while ``enabled``): the CPU run records its (gates, experts) per
-    ``route`` call and the card run takes them in the same order.
+    (while ``enabled``): the CPU run records its experts per ``route``
+    call and the card run takes them in the same order (a training run's
+    remat recomputes route again, in the same order on both devices).
     ``flips`` counts the tokens whose own top-k differed."""
 
     def __init__(self, enabled: bool = True):
@@ -85,19 +88,20 @@ class PinnedRoutes:
         if not self.enabled:
             return gates, experts, aux
         if h2.device.type == "cpu":
-            self.queue.append((gates, experts))
+            self.queue.append(experts)
             return gates, experts, aux
-        g, e = (t.to(h2.device) for t in self.queue.popleft())
+        e = self.queue.popleft().to(h2.device)
+        probs = moe.router_probs(h2, w)
         flip = (experts.sort(-1).values != e.sort(-1).values).any(-1)
         if bool(flip.any()):
-            probs = torch.softmax(h2.float() @ w.float(), -1)[flip]
-            top = torch.topk(probs, cfg.top_k + 1, -1).values
+            top = torch.topk(probs.detach()[flip], cfg.top_k + 1, -1).values
             gap = top[:, -2] - top[:, -1]
             assert bool((gap < ROUTE_TIE).all()), (
                 f"card routes differ from the CPU's without a near tie "
                 f"(gaps {gap.tolist()})")
             self.flips += int(flip.sum())
-        return g, e, aux
+        gates, aux = moe.gates_and_aux(cfg, probs, e)
+        return gates, e, aux
 
 
 def p_rounding_allowance(q, k, v, *, causal=True, window=0,
@@ -355,7 +359,6 @@ def train_runs(name: str, device="cuda", seed: int = 0):
     parameters without TF32.  Returns, for the CPU run and the card run,
     the three losses and the final parameters (f32 on the CPU), then the
     kernel launches of each run."""
-    from .models.convert import gnn_from_numpy
     from .train import pytree
     from .train.optimizer import AdamWConfig, adamw_init
     from .train.steps import make_train_step
@@ -368,7 +371,7 @@ def train_runs(name: str, device="cuda", seed: int = 0):
         for dev in ("cpu", device):
             p = (recsys_from_numpy(cfg, params, device=dev)
                  if cfg.family == "recsys" else
-                 gnn_from_numpy(params, device=dev))
+                 tree_from_numpy(params, device=dev))
             opt = adamw_init(p)
             step = make_train_step(loss_fn, opt_cfg)
             before = _launches()
@@ -396,4 +399,81 @@ def compare_train(runs, tol: float) -> float:
         scale = max(float(want.abs().max()), 1e-30)
         torch.testing.assert_close(got, want, rtol=tol, atol=tol * scale)
         worst = max(worst, float((got - want).abs().max()) / scale)
+    return worst
+
+
+def lm_batch(cfg, r, B: int = 2, S: int = 16) -> dict:
+    """An LM batch of numpy arrays from ``r``: random tokens, their
+    next-token labels and a mask with about a fifth zeros."""
+    tok = r.integers(0, cfg.vocab, (B, S + 1))
+    return dict(tokens=tok[:, :-1].astype(np.int32),
+                labels=tok[:, 1:].astype(np.int32),
+                mask=(r.random((B, S)) < 0.8).astype(np.float32))
+
+
+def lm_train_runs(arch: str, dtype, device="cuda", seed: int = 0,
+                  steps: int = 3):
+    """An LM smoke config's ``train_loss`` in ``dtype`` on the CPU and on
+    ``device`` from the same numpy tree and batches (f32 parameters, no
+    TF32; in bf16 an MoE config's routes pinned to the CPU's): the first
+    loss and gradient (``value_and_grad``), then ``steps`` AdamW steps.
+    Returns, for the CPU run and the card run, a dict of ``loss``,
+    ``grads`` (f32 on the CPU, jax's leaf order), ``losses``, ``params``
+    and the kernel ``launches`` per step, then the route flips."""
+    from functools import partial
+
+    from .train import pytree
+    from .train.optimizer import AdamWConfig, adamw_init
+    from .train.steps import make_train_step, value_and_grad
+    cfg = get_smoke_config(arch)
+    params = numpy_params(cfg, seed=seed)
+    r = np.random.default_rng(seed)
+    batches = [lm_batch(cfg, r) for _ in range(steps)]
+    loss_fn = partial(transformer.train_loss, cfg, compute_dtype=dtype)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    runs = []
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with PinnedRoutes(enabled=cfg.is_moe
+                          and dtype == torch.bfloat16) as pin:
+            for dev in ("cpu", device):
+                p = tree_from_numpy(params, device=dev)
+                first = to_torch(batches[0], dev)
+                loss, grads = value_and_grad(loss_fn)(p, first)
+                opt, step = adamw_init(p), make_train_step(loss_fn, opt_cfg)
+                before = _launches()
+                losses = []
+                for b in batches:
+                    p, opt, m = step(p, opt, to_torch(b, dev))
+                    losses.append(float(m["loss"]))
+                launches = {k: v / steps for k, v in _since(before).items()}
+                runs.append(dict(
+                    loss=float(loss), losses=losses, launches=launches,
+                    grads=[g.float().cpu() for g in pytree.leaves(grads)],
+                    params=[x.float().cpu() for x in pytree.leaves(p)]))
+            assert not pin.queue, "the card run took fewer routes"
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return runs, pin.flips
+
+
+def compare_lm_train(runs, tol: float) -> dict:
+    """Assert the card run (``runs[1]``) within ``tol`` of the CPU run's:
+    the first loss and the losses of the steps relatively, each gradient
+    leaf and each final parameter leaf in relative L2; return the worst
+    of each."""
+    cpu, card = runs
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp(min=1e-30))
+    worst = dict(
+        loss=abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+        losses=max(abs(a - b) / abs(b)
+                   for a, b in zip(card["losses"], cpu["losses"])),
+        grads=max(rel(a, b) for a, b in zip(card["grads"], cpu["grads"],
+                                            strict=True)),
+        params=max(rel(a, b) for a, b in zip(card["params"], cpu["params"],
+                                             strict=True)))
+    assert all(v <= tol for v in worst.values()), (worst, tol)
     return worst

@@ -684,6 +684,29 @@ def test_card_train_steps_equal_cpu(cuda_device, name):
     assert launches[1]["embedding_bag"] == (3 if name == "dcn-v2" else 0)
 
 
+@pytest.mark.parametrize("arch", ["granite-8b", "gemma2-27b", "deepseek-7b",
+                                  "qwen2-moe-a2.7b", "granite-moe-3b-a800m"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 5e-2)])
+def test_card_lm_train_equals_cpu(cuda_device, arch, dtype, tol):
+    """An LM smoke config's first loss and gradient, then three AdamW
+    steps, card against CPU from the same numpy tree and batches (f32
+    without TF32; in bf16 an MoE config's routes pinned to the CPU's).
+    Per step the card launches the flash kernel twice a layer (the
+    forward and the remat recompute) and the grouped GEMM nine times a
+    MoE layer (three products, recomputed, and three dX)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.testing import compare_lm_train, lm_train_runs
+    cfg = get_smoke_config(arch)
+    runs, _ = lm_train_runs(arch, dtype, device=cuda_device)
+    compare_lm_train(runs, tol)
+    assert runs[0]["launches"] == dict(flash_attention=0, segment_matmul=0,
+                                       embedding_bag=0)
+    assert runs[1]["launches"] == dict(
+        flash_attention=2 * cfg.n_layers,
+        segment_matmul=9 * cfg.n_layers * cfg.is_moe, embedding_bag=0)
+
+
 @pytest.mark.parametrize("weighted", [False, True])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 1e-2)])

@@ -21,7 +21,7 @@ from repro.configs import get_smoke_config as jax_smoke
 from repro.models import gnn as jg
 from repro_torch.configs import get_smoke_config
 from repro_torch.models import gnn
-from repro_torch.models.convert import gnn_from_numpy, numpy_gnn_params
+from repro_torch.models.convert import tree_from_numpy, numpy_gnn_params
 from repro_torch.testing import gnn_full_batch, to_torch
 from repro_torch.train import pytree
 from repro_torch.train.steps import value_and_grad
@@ -50,7 +50,7 @@ def held(arch, batch, d_in, d_out, seed=0, jcfg=None, cfg=None):
         lambda p, b: jg.train_loss(jcfg, p, b)))(
             jax.tree.map(jnp.asarray, params), jb)
     tl, tg = value_and_grad(lambda p, b: gnn.train_loss(cfg, p, b))(
-        gnn_from_numpy(params, device="cpu"), to_torch(batch, "cpu"))
+        tree_from_numpy(params, device="cpu"), to_torch(batch, "cpu"))
     close(float(tl), float(wl))
     flat, _ = jax.tree_util.tree_flatten_with_path(wg)
     got = pytree.flatten_with_paths(tg)
@@ -73,7 +73,7 @@ def test_forward_matches_reference(arch):
     want = jax.jit(lambda p, b: jg.forward(jcfg, p, b))(
         jax.tree.map(jnp.asarray, params), jax.tree.map(jnp.asarray, batch))
     with torch.no_grad():
-        got = gnn.forward(cfg, gnn_from_numpy(params, device="cpu"),
+        got = gnn.forward(cfg, tree_from_numpy(params, device="cpu"),
                           to_torch(batch, "cpu"))
     assert tuple(got.shape) == want.shape == (24, d_out)
     close(got.numpy(), want)

@@ -127,16 +127,17 @@ def _small_graph():
 
 
 def test_model_entry_points_default_to_the_card():
-    """``init_lm``, ``lm_from_numpy``, ``init_recsys``,
-    ``recsys_from_numpy``, ``init_gnn``, ``gnn_from_numpy``, the training
-    launcher and its ``synthetic_batch`` build on the card unless asked
-    for the CPU."""
+    """``init_lm``, ``init_lm_params``, ``lm_from_numpy``,
+    ``init_recsys``, ``recsys_from_numpy``, ``init_gnn``,
+    ``tree_from_numpy``, the training launcher and its
+    ``synthetic_batch`` build on the card unless asked for the CPU."""
     import inspect
     from repro_torch.launch import train
     from repro_torch.models import convert
-    for fn in (convert.init_lm, convert.lm_from_numpy, convert.init_recsys,
+    for fn in (convert.init_lm, convert.init_lm_params,
+               convert.lm_from_numpy, convert.init_recsys,
                convert.recsys_from_numpy, convert.init_gnn,
-               convert.gnn_from_numpy, train.build, train.synthetic_batch):
+               convert.tree_from_numpy, train.build, train.synthetic_batch):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 

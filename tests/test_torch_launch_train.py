@@ -8,9 +8,9 @@ the same CPU kernels); the manifest lists the reference's paths.  A
 fault raised inside the optimizer, after it has updated a leaf, leaves
 the step's state intact: the run retries (or skips) exactly as it does
 when the same fault is raised before the step, killed and resumed or
-not.  An LM arch exits with the stated message, a GNN arch with the
-reference's, and without a card the default device raises before
-anything is written.
+not.  A GNN arch exits with the reference's message, and without a card
+the default device raises before anything is written.  The LM archs are
+in ``test_torch_launch_train_lm.py``.
 """
 from __future__ import annotations
 
@@ -23,8 +23,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_smoke_config
-from repro_torch.launch.train import (GNN_EXIT, LM_EXIT, build, main,
-                                      synthetic_batch)
+from repro_torch.launch.train import GNN_EXIT, build, main, synthetic_batch
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import optimizer, pytree
 from repro_torch.train.fault_tolerance import run_resumable
@@ -112,14 +111,6 @@ def test_fault_inside_the_optimizer_leaves_the_state_intact(
     a, b = pytree.leaves(want), pytree.leaves(got)
     assert len(a) == len(b)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
-
-
-def test_lm_arch_exits_with_the_next_slice_message(tmp_path):
-    with pytest.raises(SystemExit) as e:
-        main(["--device", "cpu", "--arch", "granite-8b", "--ckpt-dir",
-              str(tmp_path)])
-    assert str(e.value) == LM_EXIT and "flash" in LM_EXIT
-    assert not os.listdir(tmp_path)
 
 
 def test_gnn_arch_exits_with_the_reference_message(tmp_path):

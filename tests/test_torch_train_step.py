@@ -35,8 +35,8 @@ from repro_torch.kernels.embedding_bag.ops import embedding_bag as kernel
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 from repro_torch.launch.train import synthetic_batch
 from repro_torch.models import recsys
-from repro_torch.models.convert import (gnn_from_numpy, numpy_recsys_params,
-                                        recsys_from_numpy)
+from repro_torch.models.convert import (numpy_recsys_params,
+                                        recsys_from_numpy, tree_from_numpy)
 from repro_torch.testing import TRAIN_SMOKE, smoke_train_case, to_torch
 from repro_torch.train import pytree
 from repro_torch.train.optimizer import AdamWConfig, adamw_init
@@ -59,7 +59,7 @@ def test_three_train_steps_match_reference(name, tol):
     jp = jax.tree.map(jnp.asarray, params)
     jst = jo.adamw_init(jp)
     tp = (recsys_from_numpy(cfg, params, device="cpu")
-          if cfg.family == "recsys" else gnn_from_numpy(params, device="cpu"))
+          if cfg.family == "recsys" else tree_from_numpy(params, device="cpu"))
     tst = adamw_init(tp)
     step = make_train_step(loss_fn, AdamWConfig(**OPT))
     for b in batches:
