@@ -928,7 +928,7 @@ def phase_service(g, delta: int, k: int, chunk: int, full) -> dict:
           "serve_answers": [{k_: a[k_] for k_ in (
               "id", "k", "W", "valid", "estimate", "rse", "fused_jobs",
               "windows")} for a in answers]})
-    return launches
+    return launches, dict(motifs=motifs, cells=cells, results=results)
 
 
 def phase_oracle(chunk: int, k: int) -> None:
@@ -1656,6 +1656,179 @@ def phase_gateway(g, graph_spec: str, delta: int, k: int, chunk: int,
               for ep in epochs + [ep3]],
           "obs_overhead_s": overhead, "card_equal_cpu": True,
           "launches": launches, "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
+def phase_mesh(g, motif_name: str, delta: int, k: int, chunk: int, full,
+               cohort) -> dict:
+    """The estimator's data mesh on the card, on the full graph of phase
+    ``full`` (alive since then: generating it again costs ~35 s).  The
+    launch counters are set to 0 before the 4-shard estimate and read
+    after it; the runs it is compared with do not count.  Requires:
+
+    (a) ``estimate(..., mesh=make_estimator_mesh(4))`` (4 shards, placed
+        round-robin on the visible cards) equal to phase ``full`` bit for
+        bit, with ``mesh_shape`` (4,), the sampler launched once per
+        chunk summed over the shards and the dep-sum once per dep-sum,
+        its peak memory within 5% of the meshless run's (shards on one
+        card share the lead copies; one chunk is live at a time);
+    (b) a checkpoint written meshless at k / 2 resumed on the 4-shard
+        mesh, and one written on the mesh resumed meshless, both equal
+        to ``full``;
+    (c) phase ``service``'s cohort on a 3-shard mesh equal to its
+        meshless cells, with the meshless launch counts;
+    (d) one ``python -m repro_torch.launch.estimate --mesh 4`` process
+        on the small graph printing the meshless run's numbers;
+    (e) with more than one card, ``make_estimator_mesh()`` (one shard a
+        card) equal to ``full`` as well.
+
+    Reads: the wall of the 4-shard estimate against the meshless one
+    (meshless, mesh, mesh, meshless), and the device's idle share over
+    16 chunks of each under the profiler.
+    """
+    import gc
+    import os
+
+    import torch
+    from repro_torch import EstimateConfig, Request, Session, estimate
+    from repro_torch import get_motif
+    from repro_torch.kernels.interval_weight.ops import dep_sum
+    from repro_torch.kernels.tree_sampler.ops import tree_sampler_keyed
+    from repro_torch.launch.estimate import parse_graph
+    from repro_torch.launch.mesh import make_estimator_mesh
+    t_phase = time.perf_counter()
+    motif = get_motif(motif_name)
+    n_chunks = -(-k // chunk)
+    mesh4 = make_estimator_mesh(4)
+    cards = torch.cuda.device_count()
+
+    def run(mesh, **kw):
+        """(result, wall s, peak bytes above what was live before) of
+        one synced estimate."""
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        res = estimate(g, motif, delta, kw.pop("k", k), seed=0, chunk=chunk,
+                       mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        return (res, time.perf_counter() - t0,
+                torch.cuda.max_memory_allocated() - base)
+
+    # (a) the main path on the mesh, counted
+    want = dict(interval_weight=dep_sums_of([motif_name]),
+                tree_sampler=n_chunks)
+    dep_sum.launches = 0
+    tree_sampler_keyed.launches = 0
+    res, mesh_wall, mesh_peak = run(mesh4)
+    launches = dict(interval_weight=dep_sum.launches,
+                    tree_sampler=tree_sampler_keyed.launches)
+    require(same_result(res, full), "mesh (a): the 4-shard estimate "
+            "differs from phase full")
+    require(res.mesh_shape == (4,), f"mesh (a): mesh_shape {res.mesh_shape}")
+    require(launches == want, f"mesh (a): launches {launches}, want one "
+            f"sampler launch per chunk over the shards and one dep-sum "
+            f"launch per dep-sum: {want}")
+    _, wall, peak = run(None)
+    walls = {"meshless": [wall], "mesh4": [mesh_wall]}
+    walls["mesh4"].append(run(mesh4)[1])
+    walls["meshless"].append(run(None)[1])
+    # shards sharing the card share the lead copies, and one chunk is
+    # live at a time: the mesh holds no more than the meshless run
+    require(mesh_peak <= 1.05 * peak, f"mesh (a): peak {mesh_peak} bytes "
+            f"on 4 shards of one card against {peak} meshless")
+
+    # (b) checkpoints across mesh shapes
+    path = ROOT / "build" / "mesh_checkpoint.json"
+    path.parent.mkdir(exist_ok=True)
+    for first, then in ((None, mesh4), (mesh4, None)):
+        path.unlink(missing_ok=True)
+        run(first, k=k // 2, checkpoint_path=str(path))
+        resumed = run(then, checkpoint_path=str(path))[0]
+        done = json.loads(path.read_text())["chunks_done"]
+        require(done == n_chunks and same_result(resumed, full),
+                f"mesh (b): written on {first and first.shape}, resumed on "
+                f"{then and then.shape}: not the unbroken run")
+    path.unlink()
+
+    # (c) the service cohort on 3 shards
+    dep_sum.launches = 0
+    tree_sampler_keyed.launches = 0
+    t0 = time.perf_counter()
+    session = Session(g, EstimateConfig(chunk=chunk),
+                      mesh=make_estimator_mesh(3))
+    results = [h.result() for h in session.submit_many(
+        [Request(m, delta, k, seed=s) for m, s in cohort["cells"]])]
+    cohort_wall = time.perf_counter() - t0
+    cohort_launches = dict(interval_weight=dep_sum.launches,
+                           tree_sampler=tree_sampler_keyed.launches)
+    del session
+    for (m, s), got, want_ in zip(cohort["cells"], results,
+                                  cohort["results"]):
+        require(same_result(got, want_) and got.mesh_shape == (3,),
+                f"mesh (c): cohort cell ({m}, {s}) on 3 shards differs from "
+                "the meshless cohort")
+    want = dict(interval_weight=dep_sums_of(cohort["motifs"]),
+                tree_sampler=n_chunks)
+    require(cohort_launches == want, f"mesh (c): cohort launches "
+            f"{cohort_launches}, want {want}")
+
+    # idle share: 16 chunks of each on a warm planner, profiled
+    idle = {}
+    for name, mesh in (("meshless", None), ("mesh4", mesh4)):
+        session = Session(g, EstimateConfig(chunk=chunk), mesh=mesh)
+        session.planner.plan(motif, delta)
+        prof = device_profile(lambda: session.submit(
+            Request(motif, delta, 16 * chunk)).result())
+        idle[name] = {kk: prof[kk] for kk in (
+            "profiled_wall_s", "device_busy_s", "device_idle_share",
+            "kernel_launches")}
+        del session
+    torch.cuda.empty_cache()
+
+    # (d) the CLI with --mesh 4 on the small graph
+    name, sdelta, sk, seed, _ = SMALL_CASES[0]
+    small = estimate(parse_graph(SMALL_GRAPH), get_motif(name), sdelta, sk,
+                     seed=seed, chunk=256)
+    cmd = [sys.executable, "-m", "repro_torch.launch.estimate", "--graph",
+           SMALL_GRAPH, "--motif", name, "--delta", str(sdelta), "--k",
+           str(sk), "--seed", str(seed), "--chunk", "256", "--mesh", "4"]
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                         cwd=ROOT)
+    require(out.returncode == 0, f"mesh (d): the CLI exited "
+            f"{out.returncode}: {out.stderr[-2000:]}")
+    lines = out.stdout.splitlines()
+    require("mesh={'data': 4}" in lines[0]
+            and lines[1].split("(")[0] == small.summary().split("(")[0],
+            f"mesh (d): the CLI printed {lines[:2]}, the meshless run "
+            f"{small.summary()}")
+
+    # (e) one shard a card
+    spans = None
+    if cards > 1:
+        every = make_estimator_mesh()
+        res_every = run(every)[0]
+        require(same_result(res_every, full)
+                and res_every.mesh_shape == (cards,),
+                f"mesh (e): the {cards}-card mesh differs from phase full")
+        spans = [str(d) for d in every.devices]
+
+    emit({"phase": "mesh", "motif": motif_name, "delta": delta, "k": k,
+          "chunk": chunk, "cards": cards,
+          "shards_devices": [str(d) for d in mesh4.devices],
+          "equal_full": True, "mesh_shape": list(res.mesh_shape),
+          "launches": launches, "wall_s": walls,
+          "peak_mem_bytes": {"meshless": peak, "mesh4": mesh_peak},
+          "mesh_over_meshless": sum(walls["mesh4"]) / sum(walls["meshless"]),
+          "checkpoints_across_shapes_equal": True,
+          "cohort_3_shards_equal": True, "cohort_wall_s": cohort_wall,
+          "cohort_launches": cohort_launches, "profile_16_chunks": idle,
+          "cli": lines[:2], "mesh_every_card": spans or (
+              f"not run: {cards} card visible, make_estimator_mesh() is "
+              "one shard"),
+          "phase_s": time.perf_counter() - t_phase})
     return launches
 
 
@@ -3934,7 +4107,8 @@ def main() -> None:
     launches, full = phase_full(g, args.motif, args.delta, args.k,
                                 args.chunk)
     phase_breakdown(g, args.motif, args.delta, args.chunk)
-    service = phase_service(g, args.delta, args.k, args.chunk, full)
+    service, cohort = phase_service(g, args.delta, args.k, args.chunk,
+                                    full)
     for rec in recs:
         rec["launches"] = launches[rec["name"]]
         rec["launches_service"] = service[rec["name"]]
@@ -3953,7 +4127,11 @@ def main() -> None:
                             full)
     for rec in recs:
         rec["launches_gateway"] = gateway[rec["name"]]
-    del g, full
+    mesh = phase_mesh(g, args.motif, args.delta, args.k, args.chunk, full,
+                      cohort)
+    for rec in recs:
+        rec["launches_mesh"] = mesh[rec["name"]]
+    del g, full, cohort
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4012,6 +4190,7 @@ def main() -> None:
     require(all(r["launches"] > 0 and r.get("launches_service", 1) > 0
                 and r.get("launches_stream", 1) > 0
                 and r.get("launches_gateway", 1) > 0
+                and r.get("launches_mesh", 1) > 0
                 and r.get("launches_train", 1) > 0
                 and r.get("launches_motif_gnn", 1) > 0
                 and r.get("launches_lm_train", 1) > 0

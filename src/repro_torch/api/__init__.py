@@ -26,11 +26,16 @@ structural signature form one tree cohort: one sample stream per seed
 member motif's own count lane; each result stays bit-identical to its
 solo ``estimate()``.
 
-``serve_loop`` wraps a session in the reference's NDJSON stdin/stdout
-protocol (``python -m repro_torch.launch.estimate --graph ... --serve``).
+``Session(g, cfg, mesh=launch.mesh.make_estimator_mesh())`` shards
+every window's chunk range over a data mesh's shards (one per visible
+card by default; ``make_estimator_mesh(D)`` places D shards round-robin
+on the cards, ``device="cpu"`` on the CPU); results stay bit-identical
+on any mesh shape.
 
-Not here yet (later slices of the port): live graph streams, the
-multi-tenant gateway, witnesses, the mesh and the telemetry verbs.
+``serve_loop`` wraps a session in the reference's NDJSON stdin/stdout
+protocol (``python -m repro_torch.launch.estimate --graph ... --serve``);
+live streams are ``repro_torch.stream``, the multi-tenant gateway
+``repro_torch.gateway``.
 """
 from .config import EstimateConfig
 from .serve import serve_loop

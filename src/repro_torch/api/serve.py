@@ -68,6 +68,10 @@ Coalescing: the loop blocks for the first request, then keeps reading
 until the session's coalescing window closes, drains, and emits the
 whole window's responses; concurrent requests sharing a plan key fuse
 into one tree cohort.
+
+The mesh is the handed session's (``Session(..., mesh=...)``; in stream
+mode the ``StreamingSession``'s): every drain shards over it and the
+answers are the meshless ones.
 """
 from __future__ import annotations
 

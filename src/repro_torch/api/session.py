@@ -40,7 +40,13 @@ level); a drain records the ``session.drain`` span, plan resolution
 stage, and each window a ``request.window`` event (the RSE-vs-samples
 trajectory).
 
-Not here yet: the mesh.
+The data mesh: ``Session(..., mesh=launch.mesh.make_estimator_mesh())``
+shards every window's chunk range over the mesh's shards
+(``core.engine``); results are bit-identical to the meshless ones.  The
+planner's weight DP runs once, on shard 0's device (the mesh's device
+type must be the config's); each drain's plan copies the graph and
+Weights once to every other distinct device of the mesh and drops the
+copies with the plan.
 """
 from __future__ import annotations
 
@@ -50,7 +56,7 @@ from typing import Iterator, Sequence
 
 from .. import obs
 from ..core.batch import BatchPlanner
-from ..core.engine import witness_entries
+from ..core.engine import shard_devices, witness_entries
 from ..core.estimator import EstimateResult
 from ..core.graph import TemporalGraph
 from ..core.motif import TemporalMotif, get_motif
@@ -277,20 +283,24 @@ class Session:
     ``planner`` injects an existing ``BatchPlanner`` (its preprocess
     cache then outlives this session); ``dev`` injects an existing
     device upload.  The config's ``device`` ("cuda" by default) is where
-    the graph lives and the kernels run.
+    the graph lives and the kernels run.  ``mesh`` (a data mesh of that
+    device type, ``launch.mesh.make_estimator_mesh``) shards every
+    window's chunk range; the graph then lives on shard 0's device.
     """
 
     def __init__(self, g: TemporalGraph, config: EstimateConfig | None = None,
-                 *, dev: dict | None = None,
+                 *, dev: dict | None = None, mesh=None,
                  planner: BatchPlanner | None = None):
         self.g = g
         self.config = (config or EstimateConfig()).resolve()
+        lead = shard_devices(mesh, self.config.device)[0]
+        self.mesh = mesh
         if planner is None:
             planner = BatchPlanner(
                 g, dev=dev, n_candidates=self.config.n_candidates,
                 roots_per_tree=self.config.roots_per_tree,
                 use_c2=self.config.use_c2, use_c3=self.config.use_c3,
-                device=self.config.device)
+                device=lead)
         self.planner = planner
         self.dev = planner.dev
         self.stats = SessionStats()
@@ -443,7 +453,8 @@ class Session:
             jobs.append(job)
 
         plan = plan_jobs(jobs, dev=self.dev, chunk=cfg.chunk, Lmax=cfg.Lmax,
-                         checkpoint_every=cfg.checkpoint_every)
+                         checkpoint_every=cfg.checkpoint_every,
+                         mesh=self.mesh)
         results = run_plan(
             plan, on_window=lambda job, ws, j0, n:
                 handles[job.index]._on_window(job, ws, j0, n))

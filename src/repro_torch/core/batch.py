@@ -132,12 +132,14 @@ def estimate_many(g: TemporalGraph, jobs: Iterable, seed: int = 0,
                   use_c2: bool = True, use_c3: bool = True,
                   checkpoint_every: int = 64, dev: dict | None = None,
                   planner: BatchPlanner | None = None,
-                  device: str = "cuda") -> list[EstimateResult]:
+                  device: str = "cuda", mesh=None) -> list[EstimateResult]:
     """Estimate every ``(motif, delta, k[, seed])`` job over one graph.
 
     One ``EstimateResult`` per job, in job order, each bit-identical to
     the sequential ``estimate()`` call with the same seed.  Pass a
     ``BatchPlanner`` to carry the preprocess cache across calls.
+    ``mesh`` shards every window's chunk range over a data mesh's
+    shards.
 
     A shim over the session API: the whole batch becomes ONE submit
     window of a one-shot ``Session`` (``submit_many``).
@@ -148,7 +150,7 @@ def estimate_many(g: TemporalGraph, jobs: Iterable, seed: int = 0,
                          checkpoint_every=checkpoint_every,
                          n_candidates=n_candidates, use_c2=use_c2,
                          use_c3=use_c3, device=device, seed=int(seed))
-    session = Session(g, cfg, dev=dev, planner=planner)
+    session = Session(g, cfg, dev=dev, mesh=mesh, planner=planner)
     handles = session.submit_many([
         Request(motif=j.motif, delta=int(j.delta), k=int(j.k),
                 seed=int(seed if j.seed is None else j.seed))

@@ -1,14 +1,14 @@
 """Cross-job execution engine: tree cohorts in checkpoint windows.
 
 Torch counterpart of ``repro.core.engine`` (its docstring holds the
-design notes) on one device.  Jobs whose trees share a structural
-signature, and the same ``Weights`` object, form one **tree cohort**:
-their distinct seeds become sample *streams* and their distinct trees
-count *lanes*.  Each chunk draws one ``[J, K]`` sample batch through
-the lead tree's batched sampler (one tree-sampler launch for all J
-streams) and every lane scores that same batch with its own count fn
-(``core.sampler.make_cohort_count_fn``); job (seed, tree) reads cell
-``[stream, lane]`` of the window sums.
+design notes), on one device or a data mesh.  Jobs whose trees share a
+structural signature, and the same ``Weights`` object, form one **tree
+cohort**: their distinct seeds become sample *streams* and their
+distinct trees count *lanes*.  Each chunk draws one ``[J, K]`` sample
+batch through the lead tree's batched sampler (one tree-sampler launch
+for all J streams) and every lane scores that same batch with its own
+count fn (``core.sampler.make_cohort_count_fn``); job (seed, tree)
+reads cell ``[stream, lane]`` of the window sums.
 
 Determinism contract, as the reference's: chunk ``j`` of stream ``i``
 draws from ``fold_in(base_keys[i], j)``, never from a lane index, a job
@@ -47,12 +47,32 @@ hidden fallback.  A witness window retries the same way.
 Telemetry (``repro_torch.obs``): spans ``engine.dispatch`` (per cohort
 window) with ``engine.device`` (per attempt) inside it, and
 ``engine.witness``; the profile seam starts and stops around cohort
-windows; the ``repro_sampler_samples_per_s`` gauge; ``STATS`` is a
-registry ``CounterBlock``.  All timing goes through ``obs``.
+windows; the ``repro_sampler_samples_per_s`` gauge (every shard's
+samples); ``STATS`` is a registry ``CounterBlock``.  All timing goes
+through ``obs``.
 
-Not here: the mesh (one device) and the compiled-program LRU (nothing
-is compiled).  The reference pads a cohort's stream rows to the group's
-width only to avoid a retrace; the port does not pad.
+The data mesh (``mesh=``, ``launch.mesh.EstimatorMesh``): one process,
+one shard per entry of ``mesh.devices``, as the reference's
+single-controller ``shard_map``.  Shard ``d`` of ``D`` runs window
+offsets ``d, d + D, ...`` below ``n`` on its own device (an offset past
+``n`` is never launched), keys folded on the host for its own offsets
+only; the shards' launches interleave chunk by chunk, so shards sharing
+a card run as one stream of chunks, in order, and one chunk's
+temporaries are live at a time whatever ``D``.  Each shard's ``[6, J,
+M]`` sums are copied to the host inside the dispatch's retry (a fault
+on any shard fails the whole window, which retries and halves as one)
+and summed there in int64 in shard order (``dist.collectives.
+combine``): the result is bit-identical on any mesh shape, and a
+checkpoint, which records no mesh, resumes across shapes.  Every
+distinct device of the mesh gets one exact copy of the graph arrays and
+of each cohort's Weights per plan (none where it is the lead copy's);
+the cohort key stays the lead copy's identity.  Without a mesh the
+engine is the one-shard case.  Witness windows run unsharded on shard
+0's device.  ``STATS.dispatches`` counts the mesh-wide window.
+
+Not here: the compiled-program LRU (nothing is compiled).  The
+reference pads a cohort's stream rows to the group's width only to
+avoid a retrace; the port does not pad.
 """
 from __future__ import annotations
 
@@ -65,6 +85,8 @@ from dataclasses import dataclass, field
 import torch
 
 from .. import obs
+from ..dist.collectives import combine, folded_axis_index
+from ..dist.sharding import data_axes, n_data
 from ..resilience import STATS as RSTATS
 from ..resilience import atomic_write_json, fire, is_retryable
 from ..resilience.retry import DISPATCH_POLICY, backoff_delay
@@ -77,30 +99,67 @@ from .spanning_tree import SpanningTree, tree_signature
 from .weights import Weights
 
 
-def make_engine_window_fn(trees, chunk: int, Lmax: int, device):
-    """``fn(dev, wts, base_keys [J, 2], j0, n) -> int64 [6, J, M]``:
-    chunks ``j0 .. j0+n-1`` of a J-stream, M-lane tree cohort, the six
-    sums in ``ACC_KEYS`` order.
+def shard_devices(mesh, device) -> tuple:
+    """The device of every shard: ``(device,)`` without a mesh, else
+    ``mesh.devices``.  Raises the reference's ``ValueError`` for a mesh
+    whose devices do not all lie on one ``"data"`` axis, and a
+    ``ValueError`` when the mesh's devices are not of ``device``'s
+    type."""
+    device = torch.device(device)
+    if mesh is None:
+        return (device,)
+    if data_axes(mesh) != ("data",) or n_data(mesh) != mesh.size:
+        raise ValueError(
+            f"engine meshes must be data-only (axes {mesh.axis_names}, "
+            f"data extent {n_data(mesh)} of {mesh.size} devices): chunks "
+            "round-robin over data_axes and any other axis would "
+            "recompute every chunk per shard — build one with "
+            "launch.mesh.make_estimator_mesh")
+    devices = tuple(torch.device(d) for d in mesh.devices)
+    if {d.type for d in devices} != {device.type}:
+        raise ValueError(f"mesh devices {[str(d) for d in devices]} do not "
+                         f"match the session's device {device}")
+    return devices
+
+
+def make_engine_window_fn(trees, chunk: int, Lmax: int, device, mesh=None):
+    """``fn(shards, base_keys [J, 2], j0, n) -> [int64 [6, J, M], ...]``:
+    chunks ``j0 .. j0+n-1`` of a J-stream, M-lane tree cohort, one
+    ``[6, J, M]`` sum (``ACC_KEYS`` order) per shard, on its device.
 
     ``trees`` is the tuple of signature-equal lane trees (the first one
-    drives sampling).  Per chunk: one batched sampler call, then every
-    lane's counts; the sums stay on ``device`` (the caller reads them
-    once, at the end of the window).
+    drives sampling); ``shards`` holds every shard's ``(dev, wts)`` on
+    its own device (``shard_devices(mesh, device)``).  Shard ``d`` of
+    ``D`` runs offsets ``d + i * D < n``; per chunk one batched sampler
+    call, then every lane's counts.  Shards interleave chunk by chunk
+    and an offset past ``n`` is never launched.  The sums stay on the
+    devices (the caller reads them once, at the end of the window).
     """
-    bs_fn = make_batched_sample_fn(trees[0], chunk, device)
+    devices = shard_devices(mesh, device)
+    D = len(devices)
+    bs_fns = {d: make_batched_sample_fn(trees[0], chunk, d)
+              for d in dict.fromkeys(devices)}
     cc_fn = make_cohort_count_fn(trees, chunk, Lmax=Lmax)
-    device = torch.device(device)
 
-    def window(dev, wts, base_keys, j0, n):
+    def window(shards, base_keys, j0, n):
         J = base_keys.shape[0]
-        keys = rng.fold_in(base_keys[:, None, :],
-                           torch.arange(j0, j0 + n)).transpose(0, 1)
-        keys = keys.contiguous().to(device)          # [n, J, 2]
-        sums = torch.zeros((len(ACC_KEYS), J, len(trees)),
-                           dtype=torch.int64, device=device)
-        for i in range(n):
-            out = cc_fn(dev, wts, bs_fn(dev, wts, keys[i]))
-            sums += torch.stack([out[kk] for kk in ACC_KEYS])
+        keys, sums = [], []
+        for d, on in enumerate(devices):
+            offs = torch.arange(n)[folded_axis_index(mesh, ("data",),
+                                                     {"data": d})::D]
+            keys.append(rng.fold_in(base_keys[:, None, :], j0 + offs)
+                        .transpose(0, 1).contiguous().to(on))  # [slots, J, 2]
+            sums.append(torch.zeros((len(ACC_KEYS), J, len(trees)),
+                                    dtype=torch.int64, device=on))
+        for i in range(-(-n // D)):
+            for d, on in enumerate(devices):
+                if i >= len(keys[d]):
+                    continue                 # offset d + i * D >= n
+                if i == 0:
+                    fire("engine.shard", tag=f"{on.type}:{d}")
+                dev, wts = shards[d]
+                out = cc_fn(dev, wts, bs_fns[on](dev, wts, keys[d][i]))
+                sums[d] += torch.stack([out[kk] for kk in ACC_KEYS])
         return sums
 
     return window
@@ -226,19 +285,49 @@ class JobGroup:
     # the number of distinct seed streams
     lane_trees: tuple = ()
     n_streams: int = 1
+    # every shard's (dev, wts) on its device, made once per plan by
+    # ExecutionPlan.shard_inputs (the lead objects where a shard shares
+    # their device)
+    shards: tuple = ()
 
 
 @dataclass
 class ExecutionPlan:
-    """Grouped jobs + the window config ``run_plan`` executes."""
+    """Grouped jobs + the mesh/window config ``run_plan`` executes."""
 
     jobs: list          # input order
     groups: list
     dev: dict
+    mesh: object
+    devices: tuple      # every shard's device (``shard_devices``)
     chunk: int
     Lmax: int
     checkpoint_every: int
     dispatches: int = 0
+    # the graph arrays on each distinct shard device (exact copies)
+    devs: dict = field(default_factory=dict)
+
+    @property
+    def mesh_shape(self) -> tuple | None:
+        if self.mesh is None:
+            return None
+        return tuple(int(self.mesh.shape[a]) for a in self.mesh.axis_names)
+
+    def shard_inputs(self, group: "JobGroup") -> tuple:
+        """Every shard's ``(dev, wts)`` for ``group``: the lead copies on
+        their own device, one exact copy on each other distinct device
+        (made at the group's first call and kept by the plan alone)."""
+        if not group.shards:
+            wts_on = {group.wts.W_total.device: group.wts}
+            for on in self.devices:
+                if on not in self.devs:
+                    self.devs[on] = {kk: v.to(on)
+                                     for kk, v in self.dev.items()}
+                if on not in wts_on:
+                    wts_on[on] = group.wts.to(on)
+            group.shards = tuple((self.devs[on], wts_on[on])
+                                 for on in self.devices)
+        return group.shards
 
 
 _SAMPLES_PER_S = obs.REGISTRY.gauge(
@@ -353,7 +442,8 @@ def _run_witness_window(fn, plan, group, job, j0, n) -> None:
     as one uninterrupted run.
     """
     def attempt():
-        out = fn(plan.dev, group.wts, job.base_key, j0, n, job.seed)
+        out = fn(*plan.shard_inputs(group)[0], job.base_key, j0, n,
+                 job.seed)
         return {kk: out[kk].tolist() for kk in _WIT_KEYS}
 
     with obs.span("engine.witness", trace=job.trace, backend=job.backend,
@@ -389,15 +479,17 @@ def witness_entries(wit: dict, n: int) -> tuple:
 
 
 def plan_jobs(jobs, *, dev: dict, chunk: int = 8192, Lmax: int = 16,
-              checkpoint_every: int = 64) -> ExecutionPlan:
+              checkpoint_every: int = 64, mesh=None) -> ExecutionPlan:
     """Load checkpoints and group jobs into tree cohorts.
 
     ``jobs`` is a list of ``EngineJob``s with identity fields set (index,
     motif, delta, k, seed, tree, wts, checkpoint_path).  Cohorts are
     keyed by ``(tree_signature, chunk, Lmax, device type)`` + Weights
     identity: within one, distinct trees become count lanes
-    (``job.lane``) and distinct seeds sample streams.
+    (``job.lane``) and distinct seeds sample streams.  ``mesh`` (a
+    data mesh of ``dev``'s device type) shards every window's chunks.
     """
+    devices = shard_devices(mesh, dev["t"].device)
     backend = dev["t"].device.type
     groups: OrderedDict = OrderedDict()
     for job in jobs:
@@ -429,7 +521,9 @@ def plan_jobs(jobs, *, dev: dict, chunk: int = 8192, Lmax: int = 16,
         group.lane_trees = tuple(lanes)
         group.n_streams = len({job.seed for job in group.jobs})
     return ExecutionPlan(jobs=list(jobs), groups=list(groups.values()),
-                         dev=dev, chunk=int(chunk), Lmax=int(Lmax),
+                         dev=dev, mesh=mesh, devices=devices,
+                         devs={dev["t"].device: dev},
+                         chunk=int(chunk), Lmax=int(Lmax),
                          checkpoint_every=max(1, int(checkpoint_every)))
 
 
@@ -452,15 +546,16 @@ def _retrying(site: str, tag: str, j0: int, attempt):
             time.sleep(backoff_delay(DISPATCH_POLICY, i, seed=int(j0)))
 
 
-def _attempt_dispatch(window_fn, plan, wts, base_keys, j0, n, backend):
-    """One window dispatch through the retry loop; returns the window's
-    sums as a host int64 tensor ``[6, J, M]``.  The sums are copied to
-    the host inside the loop: a fault of an asynchronous launch surfaces
-    at that copy, so it meets the retries and the ladder."""
+def _attempt_dispatch(window_fn, shards, base_keys, j0, n, backend):
+    """One mesh-wide window dispatch through the retry loop; returns the
+    window's sums as a host int64 tensor ``[6, J, M]``.  Every shard's
+    sums are copied to the host and combined inside the loop: a fault of
+    an asynchronous launch on any shard surfaces at its copy, so it
+    fails the whole window and meets the retries and the ladder."""
     def attempt():
         with obs.span("engine.device", stage="device", backend=backend,
                       j0=int(j0), n=int(n)):
-            return window_fn(plan.dev, wts, base_keys, j0, n).cpu()
+            return combine(window_fn(shards, base_keys, j0, n))
 
     return _retrying("engine.dispatch", backend, j0, attempt)
 
@@ -482,19 +577,20 @@ def _run_cohort_window(plan, group, get_fn, cjobs, base_keys, j0, n):
     """
     backend = cjobs[0].backend
     max_window = cjobs[0].max_window
+    shards = plan.shard_inputs(group)
     while True:
         try:
             window_fn = get_fn()
             if not max_window or max_window >= n:
-                return _attempt_dispatch(window_fn, plan, group.wts,
-                                         base_keys, j0, n, backend), 1
+                return _attempt_dispatch(window_fn, shards, base_keys,
+                                         j0, n, backend), 1
             total = None
             parts = 0
             done = 0
             while done < n:
                 step = min(max_window, n - done)
-                part = _attempt_dispatch(window_fn, plan, group.wts,
-                                         base_keys, j0 + done, step, backend)
+                part = _attempt_dispatch(window_fn, shards, base_keys,
+                                         j0 + done, step, backend)
                 parts += 1
                 total = part if total is None else total + part
                 done += step
@@ -553,7 +649,7 @@ def run_plan(plan: ExecutionPlan, on_window=None) -> list[EstimateResult]:
     with the samples actually drawn as ``k``.
     """
     ce = plan.checkpoint_every
-    device = plan.dev["t"].device
+    device = plan.devices[0]
     on_card = device.type == "cuda"
     for group in plan.groups:
         built: list = []
@@ -563,7 +659,8 @@ def run_plan(plan: ExecutionPlan, on_window=None) -> list[EstimateResult]:
             if not _built:
                 fire("sampler.call", tag=device.type)
                 _built.append(make_engine_window_fn(
-                    _group.lane_trees, plan.chunk, plan.Lmax, device))
+                    _group.lane_trees, plan.chunk, plan.Lmax, device,
+                    mesh=plan.mesh))
             return _built[0]
 
         witness_fns = {
@@ -598,6 +695,7 @@ def run_plan(plan: ExecutionPlan, on_window=None) -> list[EstimateResult]:
                               backend=cjobs[0].backend, j0=int(j0),
                               n=int(n), jobs=len(cjobs),
                               streams=len(keys), rung=cjobs[0].max_window,
+                              shards=len(plan.devices),
                               plan_key=str(group.key.signature)) as sp:
                     sums, n_disp = _run_cohort_window(
                         plan, group, get_fn, cjobs, torch.stack(keys),
@@ -648,7 +746,8 @@ def run_plan(plan: ExecutionPlan, on_window=None) -> list[EstimateResult]:
             tree_edges=job.tree.edge_ids, delta=int(job.delta),
             preprocess_s=job.preprocess_s, sampling_s=job.sampling_s,
             tree_select_s=job.tree_select_s, sampler_backend=job.backend,
-            fallback_reason=job.fallback_reason, fused_jobs=job.group_size,
+            fallback_reason=job.fallback_reason,
+            mesh_shape=plan.mesh_shape, fused_jobs=job.group_size,
             degraded=job.degraded, degrade_reason=job.degrade_reason,
             witnesses=(witness_entries(job.wit, job.witnesses)
                        if job.witnesses else None)))

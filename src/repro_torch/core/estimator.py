@@ -13,7 +13,9 @@ field.  This module also keeps ``choose_tree`` (Alg. 7 on its own, the
 planner's counterpart) and the ``EstimateResult`` container.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
-for the CPU; without a card they raise rather than fall back.
+for the CPU; without a card they raise rather than fall back.  With
+``mesh=`` the chunks stride over a data mesh's shards, bit-identically
+on any mesh shape (``core.engine``).
 """
 from __future__ import annotations
 
@@ -66,7 +68,7 @@ class EstimateResult:
     # the retry ladder's rungs taken ("" when none): the port never
     # swaps a kernel for its plain twin, it only halves windows
     fallback_reason: str = ""
-    mesh_shape: tuple | None = None   # always None: one device, no mesh
+    mesh_shape: tuple | None = None   # data mesh ``(D,)``; None = unsharded
     fused_jobs: int = 1            # jobs sharing this job's tree cohort
     # empirical batch-means relative standard error, filled by the
     # session layer (api/session.py); None when no session measured it
@@ -124,7 +126,7 @@ def estimate(g: TemporalGraph, motif: TemporalMotif, delta: int, k: int,
              use_c2: bool = True, use_c3: bool = True,
              checkpoint_path: str | None = None, checkpoint_every: int = 64,
              dev: dict | None = None, wts: Weights | None = None,
-             device: str = "cuda") -> EstimateResult:
+             device: str = "cuda", mesh=None) -> EstimateResult:
     """Alg. 6: the full TIMEST estimate with ``k`` samples on ``device``.
 
     Draws ``ceil(k / chunk) * chunk`` samples; chunk ``j`` from
@@ -132,7 +134,10 @@ def estimate(g: TemporalGraph, motif: TemporalMotif, delta: int, k: int,
     tree choice (and the weight DP); ``checkpoint_path`` writes the
     reference's checkpoint JSON after every window and resumes from a
     matching one.  Refuses ``k < 1`` and ``delta < 0`` with the
-    reference's messages (``api.Request``).
+    reference's messages (``api.Request``).  ``mesh`` (a data mesh of
+    ``device``'s type, ``launch.mesh.make_estimator_mesh``) shards each
+    window's chunk range over its shards; the estimate stays
+    bit-identical to the unsharded one.
 
     A one-shot ``Session`` per call: callers with several related
     queries should hold a ``Session`` and let its preprocess cache and
@@ -143,7 +148,7 @@ def estimate(g: TemporalGraph, motif: TemporalMotif, delta: int, k: int,
                          checkpoint_every=checkpoint_every,
                          n_candidates=n_candidates, use_c2=use_c2,
                          use_c3=use_c3, device=device, seed=int(seed))
-    session = Session(g, cfg, dev=dev)
+    session = Session(g, cfg, dev=dev, mesh=mesh)
     handle, = session.submit_many([Request(
         motif=motif, delta=int(delta), k=int(k), seed=int(seed),
         checkpoint_path=checkpoint_path, tree=tree, wts=wts)])

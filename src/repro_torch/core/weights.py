@@ -15,6 +15,7 @@ two interval-weight sums).  All weight arithmetic is exact int64.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -61,6 +62,11 @@ class Weights:
     def q_pad(self) -> int:
         """Window-array length (>= q; == q on unpadded graphs)."""
         return int(self.ps_win.shape[0]) - 1
+
+    def to(self, device) -> "Weights":
+        """An exact copy on ``device`` (the arrays are int64)."""
+        return dataclasses.replace(self, **{
+            k: getattr(self, k).to(device) for k in ARRAY_FIELDS})
 
 
 ARRAY_FIELDS = ("w_own", "w_prev", "ps_acc_own", "ps_acc_prev",

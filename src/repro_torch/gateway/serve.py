@@ -123,9 +123,9 @@ class _Gateway:
     """The serving wires: owns state + scheduler + emitter + counters."""
 
     def __init__(self, config: EstimateConfig, out: IO, *,
-                 max_tenants: int, quota: int, wal_dir: str | None):
+                 max_tenants: int, quota: int, wal_dir: str | None, mesh):
         self.state = GatewayState(config, max_tenants=max_tenants,
-                                  wal_dir=wal_dir)
+                                  wal_dir=wal_dir, mesh=mesh)
         self.emitter = Emitter(out)
         self.sched = FairScheduler(self._execute, quota=quota)
         # the eviction policy asks the scheduler what is idle
@@ -377,7 +377,7 @@ class _Gateway:
 def gateway_serve_loop(config: EstimateConfig | None = None,
                        infile: IO = None, outfile: IO = None, *,
                        max_tenants: int = 8, quota: int = 16,
-                       wal_dir: str | None = None,
+                       wal_dir: str | None = None, mesh=None,
                        profile_dir: str | None = None) -> int:
     """Run the gateway NDJSON loop until EOF or ``quit``.
 
@@ -386,14 +386,16 @@ def gateway_serve_loop(config: EstimateConfig | None = None,
     opened; ``quota`` is the per-tenant pending-work cap (the
     backpressure quota); ``wal_dir`` enables ``"wal": true`` stream
     tenants (WAL file paths derive from it server-side — never from the
-    wire); ``profile_dir`` enables the ``profile`` verb (profiler
-    output paths are server-side only, like WAL paths).
+    wire); ``mesh`` (a data mesh of the config's device type) shards
+    every tenant's windows; ``profile_dir`` enables the ``profile`` verb
+    (profiler output paths are server-side only, like WAL paths).
     """
     from ..api.serve import _metrics, _profile, _trace_export
     cfg = (config or EstimateConfig()).resolve()
     src = LineSource(sys.stdin if infile is None else infile)
     gw = _Gateway(cfg, sys.stdout if outfile is None else outfile,
-                  max_tenants=max_tenants, quota=quota, wal_dir=wal_dir)
+                  max_tenants=max_tenants, quota=quota, wal_dir=wal_dir,
+                  mesh=mesh)
     try:
         while True:
             line = src.readline(None)

@@ -7,7 +7,7 @@ behind an ``api.Session`` ("graph" mode) or a live edge stream behind a
 counters.  :class:`GatewayState` pools them under the wire names
 ``open_tenant``/``close_tenant`` route on.  Every tenant runs on the
 gateway config's ``device``; its graph and Weights live there until the
-tenant closes.
+tenant closes.  A gateway ``mesh`` is shared by every tenant's session.
 
 Eviction: ``open_tenant`` past ``max_tenants`` evicts the
 least-recently-active IDLE tenant (no queued or in-flight work).  A
@@ -31,6 +31,7 @@ from dataclasses import dataclass, field
 from .. import obs
 from ..api.config import EstimateConfig
 from ..api.session import Session
+from ..core.engine import shard_devices
 from ..resilience import BadRequestError, OverloadedError
 
 #: wire tenant names: path-safe, no traversal, bounded length
@@ -119,8 +120,11 @@ class GatewayState:
     """
 
     def __init__(self, config: EstimateConfig = None, *,
-                 max_tenants: int = 8, wal_dir: str = None):
+                 max_tenants: int = 8, wal_dir: str = None, mesh=None):
         self.config = (config or EstimateConfig()).resolve()
+        shard_devices(mesh, self.config.device)    # checked once, here
+        # every tenant's session (a stream's every epoch) shards over it
+        self.mesh = mesh
         self.max_tenants = max(1, int(max_tenants))
         self.wal_dir = wal_dir
         self.tenants: OrderedDict[str, Tenant] = OrderedDict()
@@ -183,7 +187,8 @@ class GatewayState:
                 store = StreamStore(horizon=horizon)
             tenant = Tenant(name, "stream", wal_path=wal_path,
                             stream=StreamingSession(store=store,
-                                                    config=self.config))
+                                                    config=self.config,
+                                                    mesh=self.mesh))
         else:
             if ":" not in str(graph):
                 raise BadRequestError(
@@ -198,7 +203,8 @@ class GatewayState:
                 # parse_graph raises a KeyError): answered bad_request,
                 # never a dead dispatcher thread
                 raise BadRequestError(str(e)) from None
-            tenant = Tenant(name, "graph", session=Session(g, self.config))
+            tenant = Tenant(name, "graph",
+                            session=Session(g, self.config, mesh=self.mesh))
         self.tenants[name] = tenant
         return tenant
 

@@ -42,6 +42,15 @@ tenants behind the ``open_tenant`` / ``close_tenant`` verbs
 ``--wal-dir DIR`` enables ``"wal": true`` stream tenants (one WAL per
 tenant under DIR, recovered on reopen).
 
+Data mesh: ``--mesh D`` shards every window's chunks over D shards
+placed round-robin on the visible cards (``--device cpu``: all on the
+CPU); ``--mesh auto`` takes one shard per visible card, or
+``--devices N`` shards (the port's counterpart of the reference's
+``--devices N``, which forces N virtual host devices).  Every mode takes
+it (one-shot, batched, serve, stream, gateway) and the results are
+bit-identical to the unsharded run; the log line's ``mesh=`` field
+names the shape.
+
 Telemetry (``repro_torch.obs``): ``--obs {off,metrics,trace}`` and
 ``--obs-ring N`` set the level and the flight recorder's capacity (the
 reference's ``REPRO_OBS`` / ``REPRO_OBS_RING``; the port reads no
@@ -79,6 +88,20 @@ def parse_graph(spec: str):
     return fns[kind](**kw)
 
 
+def build_mesh(spec: str | None, devices: int | None, device: str):
+    """``--mesh`` value -> ``EstimatorMesh`` | None: ``auto`` is one shard
+    per visible card (``--devices N``: N shards), ``D`` is D shards."""
+    if not spec or spec == "none":
+        return None
+    from .mesh import make_estimator_mesh
+    shards = devices if spec == "auto" else int(spec)
+    return make_estimator_mesh(shards, device=device)
+
+
+def _mesh_shape(mesh):
+    return None if mesh is None else mesh.shape
+
+
 def _print_exact(g, res, cache: dict) -> None:
     from ..core.exact import count_exact
     key = (res.motif, res.delta)
@@ -112,6 +135,8 @@ def main(argv=None) -> None:
     if args.profile_dir is not None and not args.serve:
         ap.error("--profile-dir requires --serve (the 'profile' verb "
                  "arms the profiler over the wire)")
+    if args.devices is not None and args.mesh != "auto":
+        ap.error("--devices sets the shard count of --mesh auto")
     obs.set_level("trace" if args.trace_out else args.obs)
     obs.set_ring(args.obs_ring)
     try:
@@ -203,6 +228,15 @@ def _parser() -> argparse.ArgumentParser:
                          "torch.profiler Chrome traces of the next N "
                          "engine windows land under DIR (never a path "
                          "from the wire)")
+    ap.add_argument("--mesh", default=None,
+                    help="shard chunks over a data mesh: 'auto' (one "
+                         "shard per visible card, or --devices) or a "
+                         "shard count; results are bit-identical to the "
+                         "unsharded run")
+    ap.add_argument("--devices", type=int, default=None,
+                    help="shards of --mesh auto, placed round-robin on "
+                         "the visible cards (all on the CPU with --device "
+                         "cpu)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default: the hand-written kernels) or cpu "
                          "(their plain torch versions)")
@@ -216,6 +250,7 @@ def _run(args) -> None:
     motifs = ([args.motif] if is_motif_spec(args.motif)
               else args.motif.split(","))
     deltas = [int(d) for d in str(args.delta).split(",")]
+    mesh = build_mesh(args.mesh, args.devices, args.device)
 
     if args.serve and args.gateway:
         from ..gateway import gateway_serve_loop
@@ -225,10 +260,11 @@ def _run(args) -> None:
                              device=args.device)
         print(f"serving GATEWAY  max_tenants={args.max_tenants}  "
               f"quota={args.tenant_quota}  wal_dir={args.wal_dir}  "
-              f"device={args.device}", file=sys.stderr, flush=True)
+              f"mesh={_mesh_shape(mesh)}  device={args.device}",
+              file=sys.stderr, flush=True)
         served = gateway_serve_loop(cfg, max_tenants=args.max_tenants,
                                     quota=args.tenant_quota,
-                                    wal_dir=args.wal_dir,
+                                    wal_dir=args.wal_dir, mesh=mesh,
                                     profile_dir=args.profile_dir)
         print(f"served {served} responses", file=sys.stderr)
         return
@@ -250,9 +286,10 @@ def _run(args) -> None:
             ss_kw = dict(store=store)
         else:
             ss_kw = dict(horizon=args.horizon)
-        with StreamingSession(config=cfg, **ss_kw) as ss:
+        with StreamingSession(config=cfg, mesh=mesh, **ss_kw) as ss:
             print(f"serving LIVE stream  horizon={args.horizon}  "
-                  f"wal={args.wal}  device={args.device}",
+                  f"wal={args.wal}  mesh={_mesh_shape(mesh)}  "
+                  f"device={args.device}",
                   file=sys.stderr, flush=True)
             served = serve_loop(None, stream=ss,
                                 profile_dir=args.profile_dir)
@@ -263,7 +300,8 @@ def _run(args) -> None:
         from ..stream import StandingQuery, StreamingSession, replay_epochs
         cfg = EstimateConfig(chunk=args.chunk, seed=args.seed,
                              device=args.device)
-        with StreamingSession(config=cfg, horizon=args.horizon) as ss:
+        with StreamingSession(config=cfg, horizon=args.horizon,
+                              mesh=mesh) as ss:
             qids = {ss.subscribe(StandingQuery(m, d, args.k,
                                                seed=args.seed)): (m, d)
                     for m in motifs for d in deltas}
@@ -293,10 +331,11 @@ def _run(args) -> None:
                              coalesce_window_s=args.coalesce_window,
                              coalesce_max_requests=args.coalesce_max,
                              device=args.device)
-        session = Session(g, cfg)
+        session = Session(g, cfg, mesh=mesh)
         # stdout is the response stream: logs go to stderr
         print(f"serving graph n={g.n} m={g.m} span={g.time_span}  "
-              f"device={args.device}  window={args.coalesce_window}s "
+              f"mesh={_mesh_shape(mesh)}  device={args.device}  "
+              f"window={args.coalesce_window}s "
               f"max={args.coalesce_max}", file=sys.stderr, flush=True)
         served = serve_loop(session, profile_dir=args.profile_dir)
         print(f"served {served} requests", file=sys.stderr)
@@ -304,7 +343,7 @@ def _run(args) -> None:
 
     print(f"graph: n={g.n} m={g.m} span={g.time_span}  "
           f"motifs={motifs} deltas={deltas}  k={args.k}  "
-          f"device={args.device}")
+          f"mesh={_mesh_shape(mesh)}  device={args.device}")
     exact_cache: dict = {}
 
     if len(motifs) > 1 or len(deltas) > 1:
@@ -314,7 +353,7 @@ def _run(args) -> None:
         from ..core.batch import estimate_many
         jobs = [(m, d, args.k) for m in motifs for d in deltas]
         for res in estimate_many(g, jobs, seed=args.seed, chunk=args.chunk,
-                                 device=args.device):
+                                 device=args.device, mesh=mesh):
             print(f"delta={res.delta}  fused={res.fused_jobs}  "
                   f"{res.summary()}")
             if args.exact:
@@ -324,7 +363,8 @@ def _run(args) -> None:
     from ..core.estimator import estimate
     res = estimate(g, get_motif(motifs[0]), deltas[0], args.k,
                    seed=args.seed, chunk=args.chunk,
-                   checkpoint_path=args.checkpoint, device=args.device)
+                   checkpoint_path=args.checkpoint, device=args.device,
+                   mesh=mesh)
     print(res.summary())
     print(f"  fail: vmap={res.fail_vmap} delta={res.fail_delta} "
           f"order={res.fail_order} overflow={res.overflow}  "

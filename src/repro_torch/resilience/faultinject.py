@@ -2,9 +2,11 @@
 (the port's copy of the JAX package's ``repro.resilience.faultinject``).
 
 Production code calls :func:`fire` at its failure-prone seams, the
-reference's five and its witness site::
+reference's five, its witness site and the port's shard site::
 
     fire("engine.dispatch", tag=device)    # before every window dispatch
+    fire("engine.shard",    tag=f"{device}:{d}")   # shard d's first chunk
+                                           # of every dispatch attempt
     fire("engine.witness",  tag=device)    # before every witness window
     fire("sampler.call",    tag=device)    # window function construction
     fire("wal.fsync")                      # before the WAL durability sync

@@ -26,7 +26,11 @@ id) and records the ``stream.advance`` span (stage ``advance``) with
 ``stream.estimate`` (the standing queries' drain) inside it; their
 ``elapsed_s`` are the result's ``advance_s`` and ``estimate_s``.
 
-Not here yet: the mesh.
+The data mesh (``mesh=``): every epoch's fresh ``Session`` gets it, so
+each epoch copies its snapshot and Weights once to every distinct
+device of the mesh other than shard 0's (none on a mesh whose shards
+share one card); the copies go with the epoch's session, since a padded
+snapshot is new every epoch.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ from dataclasses import dataclass
 from .. import obs
 from ..api.config import EstimateConfig
 from ..api.session import MAX_WITNESSES, Request, Session
+from ..core.engine import shard_devices
 from ..core.estimator import EstimateResult
 from ..core.motif import TemporalMotif, get_motif
 from .store import Epoch, StreamStore
@@ -112,18 +117,21 @@ class StreamingSession:
     ``store`` injects an existing :class:`StreamStore` (otherwise one is
     built from ``horizon`` + ``store_kw``); ``config`` is applied to
     every epoch's session, and its ``device`` ("cuda" by default) is
-    where each snapshot lives and the kernels run.  ``session`` is the
+    where each snapshot lives and the kernels run; ``mesh`` (a data mesh
+    of that device type) shards every epoch's windows.  ``session`` is the
     CURRENT epoch's ``api.Session`` (None before the first advance);
     ad-hoc one-shot requests go through :meth:`query`.
     """
 
     def __init__(self, store: StreamStore | None = None,
                  config: EstimateConfig | None = None, *,
-                 horizon: int | None = None, **store_kw):
+                 horizon: int | None = None, mesh=None, **store_kw):
         if store is not None and (horizon is not None or store_kw):
             raise ValueError("pass either an existing store OR "
                              "horizon/store kwargs, not both")
         self.config = (config or EstimateConfig()).resolve()
+        shard_devices(mesh, self.config.device)    # checked once, here
+        self.mesh = mesh
         self.store = store if store is not None else StreamStore(
             horizon=horizon, **store_kw)
         self.session: Session | None = None
@@ -194,7 +202,7 @@ class StreamingSession:
             if self.session is not None:
                 self.session.close()
                 self.session = None
-            self.session = Session(epoch.graph, self.config)
+            self.session = Session(epoch.graph, self.config, mesh=self.mesh)
             self.epoch = epoch
             sp_adv.set(epoch=epoch.index)
             results: dict[int, EstimateResult] = {}

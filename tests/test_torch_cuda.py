@@ -148,6 +148,45 @@ def test_card_cohort_equals_cpu(cuda_device):
     assert launches == windows * 1024 // 256
 
 
+def test_card_mesh_equals_meshless(cuda_device):
+    """A 3-shard mesh on the card (shards round-robin on the visible
+    cards) equals the meshless estimate field for field; the sampler is
+    launched once per chunk summed over the shards, the dep-sum as
+    often as without a mesh."""
+    from repro_torch.kernels.interval_weight.ops import dep_sum
+    from repro_torch.launch.mesh import make_estimator_mesh
+    g = powerlaw_temporal_graph(**GRAPH)
+    kw = dict(seed=0, chunk=256, checkpoint_every=3)
+    counts = []
+    for mesh in (None, make_estimator_mesh(3)):
+        n, d = tree_sampler_keyed.launches, dep_sum.launches
+        res = estimate(g, get_motif("M5-3"), 2000, 2048, mesh=mesh, **kw)
+        counts.append((tree_sampler_keyed.launches - n, dep_sum.launches - d))
+        if mesh is None:
+            plain = res
+    for f in FIELDS:
+        assert getattr(res, f) == getattr(plain, f), f
+    assert res.mesh_shape == (3,) and plain.mesh_shape is None
+    assert counts[0] == counts[1] and counts[0][0] == 2048 // 256
+
+
+def test_mesh_across_cards_equals_meshless(cuda_device):
+    """Shards on separate cards: each card gets its own copy of the
+    graph and Weights and runs its shards; the result is the meshless
+    one.  Needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    from repro_torch.launch.mesh import make_estimator_mesh
+    g = powerlaw_temporal_graph(**GRAPH)
+    kw = dict(seed=1, chunk=256, checkpoint_every=3)
+    mesh = make_estimator_mesh(2 * torch.cuda.device_count())
+    assert len(set(mesh.devices)) == torch.cuda.device_count()
+    plain = estimate(g, get_motif("M4-2"), 2000, 4096, **kw)
+    got = estimate(g, get_motif("M4-2"), 2000, 4096, mesh=mesh, **kw)
+    for f in FIELDS:
+        assert getattr(got, f) == getattr(plain, f), f
+
+
 # -- padded epoch snapshots and witnesses ---------------------------------
 @pytest.mark.parametrize("motif", ["M5-3", "M4-2"])
 @pytest.mark.parametrize("m_floor", [8192, 1 << 16])

@@ -63,6 +63,9 @@ TRAIN_SLICE = ("repro_torch.train", "repro_torch.train.pytree",
                "repro_torch.configs.gat_cora", "repro_torch.configs.gatedgcn",
                "repro_torch.configs.graphsage_reddit",
                "repro_torch.configs.graphcast", "repro_torch.testing")
+# the modules of the estimator-mesh slice
+MESH_SLICE = ("repro_torch.launch.mesh", "repro_torch.dist",
+              "repro_torch.dist.sharding", "repro_torch.dist.collectives")
 
 
 def test_import_pulls_neither_jax_nor_repro():
@@ -71,9 +74,10 @@ def test_import_pulls_neither_jax_nor_repro():
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout.splitlines()
     count, bad = out[0].split(maxsplit=1)
-    assert int(count) >= 88             # every module of the ten slices
+    assert int(count) >= 92             # every module of the 12 slices
     assert bad.strip() == "[]"
     assert set(STREAM_SLICE) <= set(out[1].split())
+    assert set(MESH_SLICE) <= set(out[1].split())
     assert set(GATEWAY_SLICE) <= set(out[1].split())
     assert set(TRAIN_SLICE) <= set(out[1].split())
 
@@ -161,6 +165,21 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
         main(["--graph", "powerlaw:n=60,m=400,time_span=5000,seed=1",
               "--motif", "M4-2", "--delta", "500", "--k", "64",
               "--chunk", "64"])
+
+
+def test_mesh_defaults_to_the_card_and_raises_without_one():
+    """``make_estimator_mesh()`` and the CLI's ``--mesh`` build on the
+    card unless asked for the CPU; without one they raise."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the defaults would run")
+    from repro_torch.launch.estimate import main
+    from repro_torch.launch.mesh import make_estimator_mesh
+    for shards in (None, 2):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make_estimator_mesh(shards)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--graph", "powerlaw:n=60,m=400,time_span=5000,seed=1",
+              "--mesh", "2", "--device", "cuda"])
 
 
 def test_stream_entry_points_default_to_the_card_and_raise_without_one(
