@@ -1,10 +1,19 @@
 """Distribution layer (the port's copy of the JAX package's
-``repro.dist``): the estimator mesh's introspection and its combine.
+``repro.dist``): shardings and collectives.
 
-``sharding`` reads a mesh's data axes; ``collectives`` holds the
-row-major shard index and the exact int64 combine of the engine's shard
-sums.  The model-side pieces of the reference (the NamedSharding specs,
-``psum_chunked``, ``sharded_embedding_lookup``, the pipeline and the
-sharded GNN) belong to the model-side distribution slice.
+* ``sharding``: mesh introspection (``data_axes``, ``n_data``,
+  ``n_model``), the reference's placement builders (``lm_param_
+  shardings``, ``lm_batch_shardings``, ``opt_state_shardings`` with
+  ZeRO, ``replicated``, the GNN and recsys builders) returning a
+  ``PartitionSpec`` per leaf, and ``shard`` / ``unshard`` of a leaf on a
+  ``launch.mesh.ModelMesh``.
+* ``collectives``: the estimator mesh's shard index and exact int64
+  combine; on a model mesh, the collectives autograd differentiates
+  (Megatron's pairs), ``psum_chunked`` and ``sharded_embedding_lookup``.
+
+Everything is mesh-shape-agnostic, as in the reference: axis names come
+from the mesh and a dimension that does not divide its axes is
+replicated.  The reference's ``pipeline`` (GPipe) and ``gnn_sharded``
+(edge-parallel message passing) are queued (ROADMAP §1).
 """
 from . import collectives, sharding  # noqa: F401

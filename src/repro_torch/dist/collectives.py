@@ -1,13 +1,48 @@
-"""The estimator mesh's shard index and combine (the port's copy of
-``repro.dist.collectives.folded_axis_index``, and the counterpart of the
-engine's ``jax.lax.psum``).
+"""Collectives of the port's distribution layer (the port's copy of
+``repro.dist.collectives``).
 
-The reference's ``psum_chunked`` and ``sharded_embedding_lookup`` belong
-to the model-side distribution slice.
+* The estimator mesh's shard index (``folded_axis_index``) and the exact
+  int64 combine of the engine's shard sums (``combine``): one process,
+  the counterpart of the engine's ``jax.lax.psum``.
+* The model side, one process per rank on ``torch.distributed``: the
+  plain collectives along a dimension (``all_gather_dim``,
+  ``reduce_scatter_dim``), the reference's ``psum_chunked`` and
+  ``sharded_embedding_lookup``, and the collectives autograd
+  differentiates, in Megatron's pairs (what GSPMD inserts for the
+  reference):
+
+  ======================  ==========================  ====================
+  op                      forward                     backward
+  ======================  ==========================  ====================
+  ``copy_to``             identity                    all-reduce
+  ``reduce_from``         all-reduce                  identity
+  ``gather_from``         all-gather along ``dim``    reduce-scatter
+  ``reduce_scatter_to``   reduce-scatter along dim    all-gather
+  ``split_to``            this rank's chunk of dim    all-gather
+  ``first_rank_grad``     identity                    rank 0 keeps the
+                                                      gradient, others 0
+  ``first_rank_value``    rank 0 keeps the value,     identity
+                          others 0
+  ======================  ==========================  ====================
+
+  A tensor that every rank of a group holds alike is *replicated*; its
+  gradient is either the full gradient on every rank (the tensor feeds
+  computations that every rank repeats) or a *partial* one, summed over
+  the ranks (it feeds each rank's own shard of a computation).
+  ``copy_to`` turns full into partial at the entry of a sharded
+  computation, ``first_rank_grad`` partial into full at the entry of a
+  repeated one; ``first_rank_value`` lets a repeated result join a sum
+  over the ranks once.  With one rank in the group every op is the
+  identity.
+
+gloo and NCCL both take every op here for CPU and CUDA tensors (gloo
+copies CUDA tensors through the host), so the code does not branch on
+the backend.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 
 def folded_axis_index(mesh, axes, coords: dict) -> int:
@@ -30,3 +65,228 @@ def combine(parts) -> torch.Tensor:
         part = part.to("cpu", torch.int64)
         total = part if total is None else total + part
     return total
+
+
+# ---------------------------------------------------------------------------
+# plain collectives (no gradient)
+# ---------------------------------------------------------------------------
+def _size(group) -> int:
+    return dist.get_world_size(group)
+
+
+# torch 2.13 names the tensor-in, tensor-out collectives ``*_single`` and
+# deprecates the older names, which torch 2.11 (the card's) has alone
+_ALL_GATHER = (getattr(dist, "all_gather_single", None)
+               or dist.all_gather_into_tensor)
+_REDUCE_SCATTER = (getattr(dist, "reduce_scatter_single", None)
+                   or dist.reduce_scatter_tensor)
+
+
+def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The group's ``x`` concatenated along ``dim`` in group-rank order."""
+    n = _size(group)
+    if n == 1:
+        return x
+    y = x.movedim(dim, 0).contiguous()
+    out = torch.empty((n * y.shape[0],) + tuple(y.shape[1:]),
+                      dtype=y.dtype, device=y.device)
+    _ALL_GATHER(out, y, group=group)
+    return out.movedim(0, dim)
+
+
+def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's chunk along ``dim`` of the sum of the group's ``x``."""
+    n = _size(group)
+    if n == 1:
+        return x
+    y = x.movedim(dim, 0).contiguous()
+    if y.shape[0] % n:
+        raise ValueError(f"reduce-scatter: dimension {y.shape[0]} does not "
+                         f"divide over {n} ranks")
+    out = torch.empty((y.shape[0] // n,) + tuple(y.shape[1:]),
+                      dtype=y.dtype, device=y.device)
+    _REDUCE_SCATTER(out, y, group=group)
+    return out.movedim(0, dim)
+
+
+def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """The group's reduction of ``x`` into a new tensor (``x`` kept)."""
+    if _size(group) == 1:
+        return x
+    out = x.clone()
+    dist.all_reduce(out, op=op, group=group)
+    return out
+
+
+def _chunk(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    n = _size(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"split: dimension {x.shape[dim]} does not divide "
+                         f"over {n} ranks")
+    size = x.shape[dim] // n
+    return x.narrow(dim, dist.get_rank(group) * size, size).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# collectives autograd differentiates
+# ---------------------------------------------------------------------------
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter_dim(g, ctx.dim, ctx.group), None, None
+
+
+class _ReduceScatterTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return reduce_scatter_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_dim(g, ctx.dim, ctx.group), None, None
+
+
+class _SplitTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _chunk(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_dim(g, ctx.dim, ctx.group), None, None
+
+
+class _FirstRankGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.keep = dist.get_rank(group) == 0
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.keep else torch.zeros_like(g)), None
+
+
+class _FirstRankValue(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return x.clone() if dist.get_rank(group) == 0 else torch.zeros_like(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _single(group) -> bool:
+    return group is None or _size(group) == 1
+
+
+def copy_to(x, group):
+    """Identity forward, all-reduce backward (Megatron's f)."""
+    return x if _single(group) else _CopyTo.apply(x, group)
+
+
+def reduce_from(x, group):
+    """All-reduce forward, identity backward (Megatron's g)."""
+    return x if _single(group) else _ReduceFrom.apply(x, group)
+
+
+def gather_from(x, dim: int, group):
+    """All-gather along ``dim`` forward, reduce-scatter backward."""
+    return x if _single(group) else _GatherFrom.apply(x, dim, group)
+
+
+def reduce_scatter_to(x, dim: int, group):
+    """Reduce-scatter along ``dim`` forward, all-gather backward."""
+    return x if _single(group) else _ReduceScatterTo.apply(x, dim, group)
+
+
+def split_to(x, dim: int, group):
+    """This rank's chunk of ``dim`` forward, all-gather backward."""
+    return x if _single(group) else _SplitTo.apply(x, dim, group)
+
+
+def first_rank_grad(x, group):
+    """Identity forward; backward keeps the gradient on the group's rank
+    0 and gives 0 elsewhere (a full gradient becomes a partial one)."""
+    return x if _single(group) else _FirstRankGrad.apply(x, group)
+
+
+def first_rank_value(x, group):
+    """``x`` on the group's rank 0 and 0 elsewhere, identity backward (a
+    result every rank repeats joins a sum over the ranks once)."""
+    return x if _single(group) else _FirstRankValue.apply(x, group)
+
+
+# ---------------------------------------------------------------------------
+# the reference's hand-rolled collectives
+# ---------------------------------------------------------------------------
+def psum_chunked(x: torch.Tensor, axis, n_chunks: int = 1, *,
+                 mesh) -> torch.Tensor:
+    """The sum of ``x`` over ``mesh.group(axis)`` in ``n_chunks``
+    sequential slabs of the flat payload (zero-padded to a multiple of
+    ``n_chunks``): equal to one all-reduce element for element, with at
+    most one slab in flight."""
+    group = mesh.group(axis)
+    if n_chunks <= 1:
+        return all_reduce(x, group)
+    flat = x.reshape(-1)
+    n = flat.shape[0]
+    pad = (-n) % n_chunks
+    chunks = torch.cat([flat, flat.new_zeros(pad)]).reshape(n_chunks, -1)
+    out = torch.stack([all_reduce(c, group) for c in chunks])
+    return out.reshape(-1)[:n].reshape(x.shape)
+
+
+def embedding_partial(table_local: torch.Tensor, idx: torch.Tensor, mesh,
+                      axis: str = "model") -> torch.Tensor:
+    """This rank's part of a lookup in a table row-sharded over
+    ``axis``: the rows of the ids in its range, 0 for every other id
+    (``-1`` included).  Summed over ``axis`` it is the full lookup."""
+    rows = table_local.shape[0]
+    offset = mesh.coord(axis) * rows
+    here = (idx >= offset) & (idx < offset + rows)
+    loc = torch.where(here, idx - offset, 0).long()
+    # index_select: its gradient is one index_add_ into the local rows
+    out = table_local.index_select(0, loc.reshape(-1)).reshape(
+        tuple(idx.shape) + (table_local.shape[1],))
+    return torch.where(here[..., None], out, 0.0)
+
+
+def sharded_embedding_lookup(table_local: torch.Tensor, idx: torch.Tensor,
+                             mesh, axis: str = "model") -> torch.Tensor:
+    """Gather ``idx`` (``-1`` = padding, a zero row) from a table whose
+    rows are sharded over ``axis`` (this rank holds ``table_local``):
+    each rank serves the ids in its row range and one all-reduce
+    assembles the full ``[*, d]`` result on every rank.  The gradient
+    reaches only the local rows (``reduce_from``: identity backward)."""
+    return reduce_from(embedding_partial(table_local, idx, mesh, axis),
+                       mesh.group(axis))

@@ -17,10 +17,28 @@ DCN-v2 ``recsys.train_loss`` from ``convert.init_recsys`` seed 0.
 GNN archs exit with the reference's message
 (``examples/motif_features_gnn.py``; ``chip_smoke.py`` phase
 ``motif_gnn`` runs that pipeline on the card).
+
+An LM trains on a model mesh with ``--mesh data=2,model=2`` (or
+``pod=..,data=..,model=..``) and ``--backend nccl|gloo``: the launcher
+spawns one process per rank (``launch.mesh.run_on_mesh``, a ``file://``
+rendezvous under ``--ckpt-dir``), each holding its pieces of the
+parameters (``lm_param_shardings``) and its share of every microbatch;
+``--zero`` shards the AdamW moments over the data axes
+(``opt_state_shardings(zero=True)``), ``--sp`` the residual stream over
+``"model"`` along the sequence (the reference's ``residual_spec``).
+Checkpoints hold the full tree, so a run resumes on any mesh shape or
+none.  Without ``--mesh`` it runs in this process, as before.
+
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch granite-moe-3b-a800m --steps 3 --mesh data=2,model=2 \
+        --zero --sp --backend gloo --device cpu --ckpt-dir build/lm_mesh
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import math
+import os
 from functools import partial
 
 import numpy as np
@@ -65,32 +83,110 @@ def opt_config(lr: float, steps: int):
                        warmup_steps=max(2, steps // 10))
 
 
+def state_specs(cfg, mesh, zero: bool = False) -> dict:
+    """The ``PartitionSpec`` of every leaf of an LM's training state on
+    ``mesh``: ``{params, opt}`` (``lm_param_shardings``,
+    ``opt_state_shardings``)."""
+    from ..dist.sharding import lm_param_shardings, opt_state_shardings
+    from ..models.transformer import abstract_params
+    shapes = abstract_params(cfg)
+    p = lm_param_shardings(cfg, shapes, mesh)
+    return dict(params=p, opt=opt_state_shardings(p, mesh, shapes,
+                                                  zero=zero))
+
+
 def build(cfg, lr: float, steps: int, accum: int = 1, device="cuda",
-          mark=None):
+          mark=None, mesh=None, zero: bool = False,
+          compute_dtype=torch.bfloat16):
     """``(state, do_step)`` for ``run_resumable``: f32 weights from seed 0
     (an LM's ``init_lm_params`` tree, DCN-v2's ``init_recsys``) with a
     fresh AdamW state, and the step that trains them (``opt_config(lr,
     steps)``; ``mark`` as in ``make_train_step``).  The step leaves the
     state it is given intact, so a step that raises can be retried or
-    skipped."""
+    skipped.  With ``mesh`` (an LM only) the state is this rank's pieces
+    under ``state_specs(cfg, mesh, zero)`` and the step a rank's.  An LM
+    computes in ``compute_dtype``."""
     from ..models import recsys, transformer
     from ..models.convert import init_lm_params, init_recsys
     from ..train.optimizer import adamw_init
     from ..train.steps import make_train_step
+    specs = None
+    if mesh is not None:
+        if cfg.family != "lm":
+            raise NotImplementedError(
+                f"{cfg.name}: only the LM family trains on a model mesh "
+                "(the recsys table sharded by rows is queued, ROADMAP §1)")
+        specs = state_specs(cfg, mesh, zero)
     if cfg.family == "lm":
-        params = init_lm_params(cfg, seed=0, device=device)
-        loss_fn = partial(transformer.train_loss, cfg)
+        params = init_lm_params(cfg, seed=0, device=device, mesh=mesh)
+        loss_fn = partial(transformer.train_loss, cfg,
+                          compute_dtype=compute_dtype, mesh=mesh)
     else:
         params = init_recsys(cfg, seed=0, device=device, dtype=torch.float32)
         loss_fn = partial(recsys.train_loss, cfg)
-    step_fn = make_train_step(loss_fn, opt_config(lr, steps),
-                              accum_steps=accum, mark=mark)
+    step_fn = make_train_step(
+        loss_fn, opt_config(lr, steps), accum_steps=accum, mark=mark,
+        mesh=mesh, param_specs=specs and specs["params"],
+        state_specs=specs and specs["opt"])
 
     def do_step(state, batch, step):
         p, o, metrics = step_fn(state["params"], state["opt"], batch)
         return dict(params=p, opt=o), {k: float(v)
                                        for k, v in metrics.items()}
-    return dict(params=params, opt=adamw_init(params)), do_step
+    opt = (adamw_init(params) if mesh is None
+           else adamw_init(params, mesh, specs["params"], specs["opt"]))
+    return dict(params=params, opt=opt), do_step
+
+
+def parse_mesh(text: str) -> dict:
+    """``"data=2,model=2"`` / ``"pod=2,data=2,model=2"`` -> extents."""
+    dims = {}
+    for part in text.split(","):
+        name, _, n = part.partition("=")
+        dims[name.strip()] = int(n)
+    if set(dims) not in ({"data", "model"}, {"pod", "data", "model"}):
+        raise ValueError(f"--mesh {text!r}: give data=,model= (and pod=)")
+    return dims
+
+
+def train(cfg, opts: dict, mesh=None):
+    """Run ``opts["steps"]`` resumable steps (``run_resumable``) of
+    ``cfg`` from seed 0, on ``mesh`` if given; returns the report."""
+    from ..train.fault_tolerance import run_resumable
+    device = opts["device"] if mesh is None else mesh.device
+    state, do_step = build(cfg, opts["lr"], opts["steps"], opts["accum"],
+                           device, mesh=mesh, zero=opts["zero"],
+                           compute_dtype=getattr(torch,
+                                                 opts["compute_dtype"]))
+    specs = None if mesh is None else state_specs(cfg, mesh, opts["zero"])
+    _, report = run_resumable(
+        do_step, state,
+        next_batch=lambda step, attempt: synthetic_batch(
+            cfg, opts["batch"], opts["seq"], step * 1000 + attempt, device),
+        total_steps=opts["steps"], ckpt_dir=opts["ckpt_dir"],
+        ckpt_every=opts["ckpt_every"], mesh=mesh, specs=specs)
+    return report
+
+
+def _rank_main(rank: int, world_size: int, init_method: str, cfg,
+               opts: dict):
+    """One rank of ``--mesh``: join the mesh, train, return the report."""
+    from .mesh import make_host_mesh
+    dims = opts["mesh"]
+    if opts["device"] == "cpu":         # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world_size))
+    mesh = make_host_mesh(dims["data"], dims["model"], dims.get("pod", 0),
+                          rank=rank, world_size=world_size,
+                          init_method=init_method, backend=opts["backend"],
+                          device=opts["device"])
+    if opts["sp"]:
+        from ..dist.sharding import data_axes
+        if opts["seq"] % dims["model"]:
+            raise ValueError(f"--sp: --seq {opts['seq']} does not divide "
+                             f"over {dims['model']} model ranks")
+        cfg = dataclasses.replace(cfg, residual_spec=(data_axes(mesh),
+                                                      "model", None))
+    return train(cfg, opts, mesh)
 
 
 def main(argv=None) -> None:
@@ -106,10 +202,24 @@ def main(argv=None) -> None:
     ap.add_argument("--ckpt-every", type=int, default=10)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu (the plain versions)")
+    ap.add_argument("--compute-dtype", default="bfloat16",
+                    choices=["bfloat16", "float32"],
+                    help="an LM's compute dtype (float32: the checks that "
+                         "hold a mesh run to a meshless one)")
+    ap.add_argument("--mesh", default=None,
+                    help="data=D,model=M (or pod=P,data=D,model=M): train "
+                         "an LM in D*M (*P) processes, one per rank")
+    ap.add_argument("--backend", choices=["nccl", "gloo"], default=None,
+                    help="the mesh's torch.distributed backend (required "
+                         "with --mesh; ranks sharing a card need gloo)")
+    ap.add_argument("--zero", action="store_true",
+                    help="shard the AdamW moments over the data axes")
+    ap.add_argument("--sp", action="store_true",
+                    help="shard the residual stream over model along the "
+                         "sequence")
     args = ap.parse_args(argv)
 
     from ..configs import get_config, get_smoke_config
-    from ..train.fault_tolerance import run_resumable
 
     cfg = (get_config(args.arch) if args.scale == "full"
            else get_smoke_config(args.arch))
@@ -118,14 +228,21 @@ def main(argv=None) -> None:
     if args.device != "cpu" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device (pass --device cpu to train on "
                            "the CPU)")
-    state, do_step = build(cfg, args.lr, args.steps, args.accum,
-                           args.device)
-    state, report = run_resumable(
-        do_step, state,
-        next_batch=lambda step, attempt: synthetic_batch(
-            cfg, args.batch, args.seq, step * 1000 + attempt, args.device),
-        total_steps=args.steps, ckpt_dir=args.ckpt_dir,
-        ckpt_every=args.ckpt_every)
+    opts = dict(vars(args))
+    if args.mesh is None:
+        if args.zero or args.sp or args.backend:
+            raise SystemExit("--zero, --sp and --backend need --mesh")
+        report = train(cfg, opts)
+    else:
+        if args.backend is None:
+            raise SystemExit("--mesh needs --backend nccl or gloo")
+        from .mesh import run_on_mesh
+        opts["mesh"] = parse_mesh(args.mesh)
+        os.makedirs(args.ckpt_dir, exist_ok=True)
+        report = run_on_mesh(
+            _rank_main, math.prod(opts["mesh"].values()),
+            os.path.join(args.ckpt_dir, f"rendezvous_{os.getpid()}"),
+            args=(cfg, opts))[0]
     losses = [m["loss"] for m in report.metrics]
     span = (f"loss {losses[0]:.4f} -> {losses[-1]:.4f}" if losses
             else "no step left to run")

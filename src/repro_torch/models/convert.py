@@ -16,6 +16,12 @@
   one tensor at a time in the target dtype: a full-width f32 copy of
   Gemma-2-27B would be 109 GB.
 
+On a model mesh, ``shard_lm_tree`` turns the reference's numpy tree into
+one rank's pieces (``dist.sharding.lm_param_shardings``) and
+``gather_lm_tree`` gathers them back, in full, on rank 0;
+``init_lm_params(..., mesh=)`` keeps only this rank's pieces of the
+same draws.
+
 Every dense weight is drawn with its fan-in on axis 0, as the
 reference's ``dense_init`` (default ``in_axis=0``) draws it.  For the MoE
 expert weights ``[E_pad, d, d_expert]`` (``init_moe_params``) that axis
@@ -28,11 +34,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..dist.sharding import lm_param_shardings, local_shape, shard, unshard
 from ..train import pytree
 from . import gnn
 from .layers import dense_init, embed_init
 from .recsys import RecsysConfig
-from .transformer import LMConfig, TransformerLM, layer_shapes
+from .transformer import (LMConfig, TransformerLM, abstract_params,
+                          layer_shapes)
 
 
 def tree_from_numpy(params, device="cuda", dtype=torch.float32):
@@ -79,31 +87,76 @@ def numpy_params(cfg: LMConfig, seed: int) -> dict:
 
 
 def init_lm_params(cfg: LMConfig, seed: int, device="cuda",
-                   dtype=torch.float32) -> dict:
+                   dtype=torch.float32, mesh=None) -> dict:
     """The reference's ``init_params`` tree drawn as it draws it
     (truncated-normal fan-in dense, fan-in on axis 0 as in the module
     docstring, ``N(0, 0.02^2)`` embedding, zero norms), from a
     ``torch.Generator`` on ``device``: the embedding, then each layer's
     weights in ``layer_shapes`` order, then the unembedding, each drawn
-    in f32 and cast to ``dtype`` into its slot before the next is made."""
-    device = torch.device(device)
+    in f32 and cast to ``dtype`` into its slot before the next is made.
+
+    With ``mesh`` (a ``launch.mesh.ModelMesh``) every rank makes the
+    same draws and keeps its pieces under ``lm_param_shardings``: equal
+    to ``shard`` of the meshless tree, one layer's full weight alive at
+    a time.  ``device`` is then the mesh's device."""
+    device = torch.device(device if mesh is None else mesh.device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     kw = dict(dtype=dtype, device=device)
     d, L = cfg.d_model, cfg.n_layers
-    embed = embed_init((cfg.vocab, d), gen, **kw)
+    specs = (None if mesh is None
+             else lm_param_shardings(cfg, abstract_params(cfg), mesh))
+
+    def keep(x, spec):
+        return x if mesh is None else shard(x, spec, mesh)
+    embed = keep(embed_init((cfg.vocab, d), gen, **kw),
+                 specs and specs["embed"])
     shapes = layer_shapes(cfg)
-    layers = {name: torch.zeros((L,) + shape, **kw)
-              for name, shape in shapes.items()}
+    layers = {}
+    for name, shape in shapes.items():
+        spec = specs and specs["layers"][name]
+        local = (shape if mesh is None
+                 else local_shape((L,) + shape, spec, mesh)[1:])
+        layers[name] = torch.zeros((L,) + tuple(local), **kw)
     for i in range(L):
         for name, shape in shapes.items():
             if len(shape) > 1:
-                layers[name][i] = dense_init(shape, gen, **kw)
+                w = dense_init(shape, gen, **kw)
+                if mesh is not None:
+                    w = shard(w[None], specs["layers"][name], mesh)[0]
+                layers[name][i] = w
     params = dict(embed=embed, final_norm=torch.zeros((d,), **kw),
                   layers=layers)
     if not cfg.tie_embeddings:
-        params["unembed"] = dense_init((d, cfg.vocab), gen, **kw)
+        params["unembed"] = keep(dense_init((d, cfg.vocab), gen, **kw),
+                                 specs and specs["unembed"])
     return params
+
+
+def shard_lm_tree(cfg: LMConfig, params: dict, mesh, shardings=None,
+                  device=None, dtype=torch.float32) -> dict:
+    """The reference's parameter tree (numpy) -> this rank's pieces as
+    tensors on ``device`` (default the mesh's), under ``shardings``
+    (default ``lm_param_shardings``)."""
+    if shardings is None:
+        shardings = lm_param_shardings(cfg, abstract_params(cfg), mesh)
+    device = mesh.device if device is None else device
+    return pytree.tree_map(
+        lambda a, spec: shard(torch.as_tensor(np.array(a), dtype=dtype),
+                              spec, mesh).to(device), params, shardings)
+
+
+def gather_lm_tree(cfg: LMConfig, tree: dict, mesh,
+                   shardings=None) -> dict | None:
+    """The inverse of ``shard_lm_tree``: every rank's pieces gathered in
+    full (a collective: every rank calls it), as the reference's numpy
+    tree on rank 0 and None on the other ranks."""
+    if shardings is None:
+        shardings = lm_param_shardings(cfg, abstract_params(cfg), mesh)
+    full = pytree.tree_map(
+        lambda x, spec: unshard(x.detach(), spec, mesh).cpu().numpy(),
+        tree, shardings)
+    return full if mesh.rank == 0 else None
 
 
 def init_lm(cfg: LMConfig, seed: int, device="cuda",

@@ -44,8 +44,37 @@ MoE configs (``n_experts > 0``) replace the dense MLP of every layer by
 ``moe.moe_mlp``; ``forward`` returns the aux loss summed over layers, as
 the reference does, and ``prefill`` / ``decode_step`` drop it.
 
-Not ported yet: the sequence-parallel residual sharding
-(``residual_spec``).
+On a model mesh (``forward`` / ``train_loss`` with ``mesh=``, one
+process per rank, ``launch.mesh.ModelMesh``) each rank holds its pieces
+of the tree as ``dist.sharding.lm_param_shardings`` places them and its
+share of the batch's rows; its ``layout`` (``layers.TensorParallel``)
+says how the one layer code runs them (what GSPMD derives from the same
+specs for the reference), and without a mesh every collective of it is
+the identity:
+
+* ``wq`` / ``wk`` / ``wv`` column-parallel, the flash kernel on each
+  rank's own heads (a GQA group stays whole: where the specs split a
+  k / v projection's columns but not whole kv heads, its output is
+  gathered over ``"model"`` first); ``wo`` and ``w_down`` /
+  ``shared_down`` row-parallel, their pieces summed over ``"model"`` in
+  f32 and rounded once (``TensorParallel.rows``), as one process's
+  product rounds once; the experts sharded over ``"model"``
+  (``moe.moe_mlp``); the embedding and unembedding over the vocabulary
+  where it divides (``dist.collectives.embedding_partial``;
+  ``layers.softmax_xent``'s vocab-parallel loss), else replicated;
+  norms and the router replicated.
+* ``cfg.residual_spec`` set (the reference's sequence parallelism,
+  ``(data axes, "model", None)``): the residual stream is sharded over
+  ``"model"`` along the sequence.  Each block's normed input is
+  all-gathered over ``"model"`` (the reference's ``_h_gather``) and its
+  row-parallel output reduce-scattered instead of all-reduced.  The
+  reference's ``_qkv_constraints`` are layout hints to GSPMD that
+  change no value and have no counterpart.
+* The loss is the global one (``layers.softmax_xent`` with ``mesh``;
+  the MoE aux from global statistics), and each rank's gradient is its
+  part of the global gradient: summed over the data axes
+  (``train.steps``) it is the reference's.  A leaf replicated over
+  ``"model"`` gets its full gradient on every model rank.
 """
 from __future__ import annotations
 
@@ -56,9 +85,11 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..dist import collectives as coll
+from ..dist.sharding import lm_param_shardings, n_model
 from .attention import attention_decode, attention_flash, attention_naive
-from .layers import (apply_rope, cast_for_compute, rms_norm, softcap,
-                     softmax_xent, swiglu)
+from .layers import (LOCAL, TensorParallel, apply_rope, cast_for_compute,
+                     rms_norm, softcap, softmax_xent)
 from .moe import moe_mlp
 
 
@@ -173,6 +204,21 @@ def layer_shapes(cfg: LMConfig) -> dict[str, tuple[int, ...]]:
     return shapes
 
 
+def abstract_params(cfg: LMConfig, dtype=torch.float32) -> dict:
+    """The parameter tree's shapes as ``meta`` tensors (no storage): the
+    counterpart of the reference's ``abstract_params``, what the
+    sharding builders read."""
+    L, d = cfg.n_layers, cfg.d_model
+    meta = dict(dtype=dtype, device="meta")
+    params = dict(embed=torch.empty((cfg.vocab, d), **meta),
+                  final_norm=torch.empty((d,), **meta),
+                  layers={name: torch.empty((L,) + shape, **meta)
+                          for name, shape in layer_shapes(cfg).items()})
+    if not cfg.tie_embeddings:
+        params["unembed"] = torch.empty((d, cfg.vocab), **meta)
+    return params
+
+
 def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
     """``value`` rounded to ``like``'s dtype (JAX's weak-typed scalar),
     filled on ``like``'s device: no host-to-device copy, which would make
@@ -180,21 +226,63 @@ def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
     return torch.full((), value, dtype=like.dtype, device=like.device)
 
 
-# -- the pieces of a layer: functions of (cfg, x, weights) -------------------
-def _embed(cfg, embed, tokens, dtype):
-    x = embed[tokens].to(dtype)
+# -- the pieces of a layer: functions of (cfg, x, weights, layout) -----------
+def layout(cfg: LMConfig, mesh) -> TensorParallel:
+    """How a rank of ``mesh`` runs the layer pieces (``LOCAL`` without
+    a mesh): the placements of ``lm_param_shardings``, sequence parallel
+    where ``cfg.residual_spec`` is set."""
+    if mesh is None:
+        return LOCAL
+    if cfg.n_heads % n_model(mesh):
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.n_heads} heads over {n_model(mesh)} model "
+            "ranks: the attention runs on whole local heads")
+    return TensorParallel(mesh, lm_param_shardings(cfg, abstract_params(cfg),
+                                                   mesh),
+                          sp=cfg.residual_spec is not None)
+
+
+def _embed(cfg, embed, tokens, dtype, tp=LOCAL):
+    if tp.vocab_embed:
+        x = tp.combine(coll.embedding_partial(embed, tokens, tp.mesh))
+    else:
+        x = tp.split(embed[tokens])
+    x = x.to(dtype)
     if cfg.scale_embed:
         x = x * _scalar(cfg.d_model ** 0.5, x)
     return x
 
 
-def _qkv(cfg, x, p, positions):
-    B, S, _ = x.shape
+def _kv(cfg, tp, h, w, name):
+    """The keys or values ``[B, S, kv heads, hd]`` of this rank's query
+    heads."""
+    B, S, _ = h.shape
     hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    h = rms_norm(x, p["attn_norm"])
-    q = (h @ p["wq"]).reshape(B, S, Hq, hd)
-    kk = (h @ p["wk"]).reshape(B, S, Hkv, hd)
-    vv = (h @ p["wv"]).reshape(B, S, Hkv, hd)
+    sharded = tp.shards(name)
+    if tp.n == 1 or (sharded and Hkv % tp.n == 0):   # whole kv heads
+        return (tp.into(h, sharded) @ w).reshape(B, S, -1, hd)
+    if sharded:                      # columns split inside a kv head
+        full = coll.gather_from(tp.col(h) @ w, -1, tp.model)
+    else:
+        full = coll.copy_to(tp.rep(h) @ w, tp.model)
+    full = full.reshape(B, S, Hkv, hd)
+    G, hq = Hq // Hkv, Hq // tp.n
+    first = tp.model_rank * hq
+    if hq % G == 0:
+        return full[:, :, first // G:(first + hq) // G].contiguous()
+    if G % hq == 0:
+        return full[:, :, first // G:first // G + 1].contiguous()
+    heads = torch.arange(first, first + hq, device=h.device) // G
+    return full.index_select(2, heads)
+
+
+def _qkv(cfg, x, p, positions, tp=LOCAL):
+    hd = cfg.hd
+    h = tp.enter(rms_norm(x, tp.norm(p["attn_norm"])))
+    B, S, _ = h.shape
+    q = (tp.col(h) @ p["wq"]).reshape(B, S, cfg.n_heads // tp.n, hd)
+    kk = _kv(cfg, tp, h, p["wk"], "wk")
+    vv = _kv(cfg, tp, h, p["wv"], "wv")
     q = apply_rope(q, positions, cfg.rope_theta)
     kk = apply_rope(kk, positions, cfg.rope_theta)
     if cfg.query_scale:                  # fold the custom scale into q
@@ -202,31 +290,35 @@ def _qkv(cfg, x, p, positions):
     return q, kk, vv
 
 
-def _attn_out(cfg, x, o, p):
-    B, S = x.shape[:2]
-    o = o.reshape(B, S, -1) @ p["wo"]
+def _attn_out(cfg, x, o, p, tp=LOCAL):
+    o = tp.rows(o.reshape(*o.shape[:2], -1), p["wo"])
+    o = tp.combine(o).to(x.dtype)
     if cfg.post_norms:
-        o = rms_norm(o, p["post_attn_norm"])
+        o = rms_norm(o, tp.norm(p["post_attn_norm"]))
     return x + o
 
 
-def _mlp(cfg, x, p):
+def _mlp(cfg, x, p, tp=LOCAL):
     """The MLP half of a layer; returns the new x and the aux loss (a
     Python 0.0 for dense layers)."""
-    h = rms_norm(x, p["mlp_norm"])
+    h = tp.enter(rms_norm(x, tp.norm(p["mlp_norm"])))
     if cfg.is_moe:
-        o, aux = moe_mlp(cfg, h, p)
+        o, aux = moe_mlp(cfg, h, p, tp)
     else:
-        o, aux = swiglu(h, p["w_gate"], p["w_up"], p["w_down"]), 0.0
+        sh = tp.shards("w_gate")
+        o = tp.out(tp.swiglu(tp.into(h, sh), p["w_gate"], p["w_up"],
+                             p["w_down"]), sh)
+        aux = 0.0
+    o = tp.combine(o).to(x.dtype)
     if cfg.post_norms:
-        o = rms_norm(o, p["post_mlp_norm"])
+        o = rms_norm(o, tp.norm(p["post_mlp_norm"]))
     return x + o, aux
 
 
-def _layer(cfg, x, p, window, positions):
+def _layer(cfg, x, p, window, positions, tp=LOCAL):
     """One prefill/forward layer on weights ``p`` in the compute dtype;
     returns the new x, its k, v and the layer's aux loss."""
-    q, kk, vv = _qkv(cfg, x, p, positions)
+    q, kk, vv = _qkv(cfg, x, p, positions, tp)
     if cfg.attn_impl == "flash":
         o = attention_flash(q, kk, vv, causal=True, window=window,
                             attn_softcap=cfg.attn_softcap)
@@ -234,77 +326,98 @@ def _layer(cfg, x, p, window, positions):
         o = attention_naive(q, kk, vv, causal=True, window=window,
                             attn_softcap=cfg.attn_softcap,
                             q_positions=positions, kv_positions=positions)
-    x, aux = _mlp(cfg, _attn_out(cfg, x, o, p), p)
+    x, aux = _mlp(cfg, _attn_out(cfg, x, o, p, tp), p, tp)
     return x, kk, vv, aux
 
 
-def _logits(cfg, x, p):
+def _logits(cfg, x, p, tp=LOCAL):
     """Final norm and unembedding; ``p`` holds ``final_norm``, ``embed``
     and ``unembed`` (None or absent when tied), cast here to x's
     dtype."""
     dtype = x.dtype
-    x = rms_norm(x, p["final_norm"].to(dtype))
+    x = tp.enter(rms_norm(x, tp.norm(p["final_norm"].to(dtype))))
     w = p.get("unembed")
     w = (p["embed"].T if w is None else w).to(dtype)
-    logits = x @ w
+    logits = tp.into(x, tp.vocab_logits) @ w
     if cfg.final_softcap:
         logits = softcap(logits.float(), cfg.final_softcap)
     return logits
 
 
-def _layer_group(cfg, windows, positions, dtype, x, group):
+def _layer_group(cfg, tp, windows, positions, dtype, x, group):
     """One layer group (the reference's scan body) on weights in their
     storage dtype: ``(x, the group's aux)``."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, window in zip(group, windows):
         x, _, _, a = _layer(cfg, x, cast_for_compute(p, dtype), window,
-                            positions)
+                            positions, tp)
         aux = aux + a
     return x, aux
 
 
-def _forward(cfg, top, layers, tokens, dtype):
+def _forward(cfg, top, layers, tokens, dtype, tp=LOCAL):
     """``forward`` over ``top`` (``embed``, ``final_norm``, ``unembed``)
     and one weight dict per layer; each group under
-    ``torch.utils.checkpoint`` when ``cfg.remat`` and autograd records."""
-    if cfg.residual_spec is not None:
-        raise NotImplementedError(f"{cfg.name}: residual sharding is not "
-                                  "ported yet (ROADMAP §1)")
-    x = _embed(cfg, top["embed"], tokens, dtype)
-    positions = torch.arange(tokens.shape[1], device=x.device)
+    ``torch.utils.checkpoint`` when ``cfg.remat`` and autograd records.
+    The aux is summed over the data ranks (identity backward)."""
+    S = tokens.shape[1]
+    if cfg.residual_spec is not None and tp.mesh is None:
+        raise ValueError(f"{cfg.name}: residual_spec shards the residual "
+                         "stream over a model mesh: pass mesh=")
+    if tp.sp and S % tp.n:
+        raise ValueError(f"sequence parallelism: {S} positions do not "
+                         f"divide over {tp.n} model ranks")
+    x = _embed(cfg, top["embed"], tokens, dtype, tp)
+    positions = torch.arange(S, device=x.device)
     g = len(_slots(cfg))
     windows = layer_windows(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(0, cfg.n_layers, g):
-        body = partial(_layer_group, cfg, windows[i:i + g], positions, dtype)
+        body = partial(_layer_group, cfg, tp, windows[i:i + g], positions,
+                       dtype)
         if cfg.remat and torch.is_grad_enabled():
             x, a = checkpoint(body, x, layers[i:i + g], use_reentrant=False,
                               preserve_rng_state=False)
         else:
             x, a = body(x, layers[i:i + g])
         aux = aux + a
-    return _logits(cfg, x, top), aux
+    return _logits(cfg, x, top, tp), coll.reduce_from(aux, tp.data)
 
 
 # -- the functional entry points over the parameter tree ---------------------
 def forward(cfg: LMConfig, params: dict, tokens: torch.Tensor,
-            compute_dtype=torch.bfloat16):
+            compute_dtype=torch.bfloat16, mesh=None):
     """tokens ``[B, S]`` -> (logits ``[B, S, V]``, aux loss: the sum over
     layers, f32, 0 for a dense LM), differentiable in every leaf of the
-    parameter tree (f32 leaves, bf16 compute by default)."""
+    parameter tree (f32 leaves, bf16 compute by default).
+
+    With ``mesh`` (one rank of a ``launch.mesh.ModelMesh``) ``params``
+    holds this rank's pieces of the tree (``lm_param_shardings``) and
+    ``tokens`` its share of the batch's rows; the logits are this rank's
+    rows and, where the vocabulary is sharded, its columns; the aux is
+    the global one (summed over the data ranks, identity backward)."""
+    return _forward(cfg, params, _unstack(cfg, params), tokens,
+                    compute_dtype, layout(cfg, mesh))
+
+
+def _unstack(cfg, params) -> list:
+    """One weight dict per layer, views of the stacked ``[L]`` leaves."""
     stacked = {name: torch.unbind(w) for name, w in params["layers"].items()}
-    layers = [{name: w[i] for name, w in stacked.items()}
-              for i in range(cfg.n_layers)]
-    return _forward(cfg, params, layers, tokens, compute_dtype)
+    return [{name: w[i] for name, w in stacked.items()}
+            for i in range(cfg.n_layers)]
 
 
 def train_loss(cfg: LMConfig, params: dict, batch: dict,
-               compute_dtype=torch.bfloat16) -> torch.Tensor:
+               compute_dtype=torch.bfloat16, mesh=None) -> torch.Tensor:
     """batch = ``{tokens [B, S], labels [B, S], mask [B, S]}`` -> the
     scalar loss: mean cross-entropy (f32) plus ``router_aux_coef * aux /
-    n_layers``."""
-    logits, aux = forward(cfg, params, batch["tokens"], compute_dtype)
-    loss = softmax_xent(logits, batch["labels"], batch.get("mask"))
+    n_layers``.  With ``mesh`` as in ``forward``: the global loss, its
+    gradient this rank's part of the global one."""
+    tp = layout(cfg, mesh)
+    logits, aux = _forward(cfg, params, _unstack(cfg, params),
+                           batch["tokens"], compute_dtype, tp)
+    loss = softmax_xent(logits, batch["labels"], batch.get("mask"),
+                        mesh=mesh, vocab_sharded=tp.vocab_logits)
     return loss + cfg.router_aux_coef * aux / max(cfg.n_layers, 1)
 
 
@@ -331,8 +444,9 @@ class TransformerLM(nn.Module):
         super().__init__()
         if cfg.residual_spec is not None:
             raise NotImplementedError(
-                f"{cfg.name}: residual sharding is not ported yet "
-                "(ROADMAP §1)")
+                f"{cfg.name}: residual sharding is not ported to serving "
+                "(it runs on one device; forward / train_loss take it "
+                "with mesh=)")
         if len(layers) != cfg.n_layers:
             raise ValueError(f"{cfg.name}: {len(layers)} layers given, "
                              f"config has {cfg.n_layers}")

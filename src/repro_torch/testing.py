@@ -13,10 +13,13 @@ token.  ``PinnedRoutes`` therefore hands the CPU run's expert choices to
 the card run (the card's gates and aux are its own router's at those
 experts, so its router gradient stays its own) and asserts that wherever
 the card's own top-k differs the router saw a near tie (``ROUTE_TIE``).
+``MeshRoutes`` does the same for the ranks of a model mesh against one
+process (each rank takes its rows of the one process's choices).
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 
 import numpy as np
 import torch
@@ -64,6 +67,23 @@ def witness_edge_ids(g, motif, tree_edges, delta: int, entry: dict) -> list:
 ROUTE_TIE = 5e-3
 
 
+def route_as(cfg, h2, w, experts, what: str):
+    """``moe.route`` at the given ``experts`` ``[T, k]``: the gates and
+    aux of this router's own probabilities there, and the number of
+    tokens whose own top-k differs, each of which must sit at a near tie
+    (``ROUTE_TIE``; ``what`` names the two runs in the error)."""
+    probs = moe.router_probs(h2, w)
+    own = torch.topk(probs, cfg.top_k, dim=-1).indices
+    flip = (own.sort(-1).values != experts.sort(-1).values).any(-1)
+    if bool(flip.any()):
+        top = torch.topk(probs.detach()[flip], cfg.top_k + 1, -1).values
+        gap = top[:, -2] - top[:, -1]
+        assert bool((gap < ROUTE_TIE).all()), (
+            f"{what} without a near tie (gaps {gap.tolist()})")
+    gates, aux = moe.gates_and_aux(cfg, probs, experts)
+    return gates, aux, int(flip.sum())
+
+
 class PinnedRoutes:
     """Route every MoE layer of the card run as the CPU run routed it
     (while ``enabled``): the CPU run records its experts per ``route``
@@ -91,17 +111,59 @@ class PinnedRoutes:
             self.queue.append(experts)
             return gates, experts, aux
         e = self.queue.popleft().to(h2.device)
-        probs = moe.router_probs(h2, w)
-        flip = (experts.sort(-1).values != e.sort(-1).values).any(-1)
-        if bool(flip.any()):
-            top = torch.topk(probs.detach()[flip], cfg.top_k + 1, -1).values
-            gap = top[:, -2] - top[:, -1]
-            assert bool((gap < ROUTE_TIE).all()), (
-                f"card routes differ from the CPU's without a near tie "
-                f"(gaps {gap.tolist()})")
-            self.flips += int(flip.sum())
-        gates, aux = moe.gates_and_aux(cfg, probs, e)
+        gates, aux, flips = route_as(cfg, h2, w, e,
+                                     "card routes differ from the CPU's")
+        self.flips += flips
         return gates, e, aux
+
+
+class MeshRoutes:
+    """Route a model mesh's MoE layers as one process routed the same
+    global batch.  Inside ``record()`` every ``route`` call keeps its
+    experts ``[T, k]`` (on the host, in call order: a remat run routes
+    each layer again in its backward, in the same order on both sides);
+    inside ``pin(data_rank)`` each call takes, in order, this data
+    rank's rows of the recorded experts (its tokens are a contiguous
+    block of the global order), its gates and aux from its own router's
+    probabilities at those experts.  A rank's own top-k may differ only
+    at a near tie (``ROUTE_TIE``); ``flips`` counts the tokens where it
+    did.  ``calls`` holds the recorded experts, to hand to the ranks."""
+
+    def __init__(self, calls=None):
+        self.calls = [] if calls is None else list(calls)
+        self.flips = 0
+
+    @contextlib.contextmanager
+    def _routing(self, fn):
+        own = moe.route
+        moe.route = fn
+        try:
+            yield self
+        finally:
+            moe.route = own
+
+    def record(self):
+        own = moe.route
+
+        def route(cfg, h2, w):
+            gates, experts, aux = own(cfg, h2, w)
+            self.calls.append(experts.cpu().numpy())
+            return gates, experts, aux
+        return self._routing(route)
+
+    def pin(self, data_rank: int):
+        queue = collections.deque(self.calls)
+
+        def route(cfg, h2, w):
+            T = h2.shape[0]
+            want = torch.as_tensor(
+                queue.popleft()[data_rank * T:(data_rank + 1) * T],
+                device=h2.device).long()
+            gates, aux, flips = route_as(
+                cfg, h2, w, want, "mesh routes differ from one process's")
+            self.flips += flips
+            return gates, want, aux
+        return self._routing(route)
 
 
 def p_rounding_allowance(q, k, v, *, causal=True, window=0,

@@ -13,6 +13,13 @@ restores in the other.  Writes go to ``<dir>.tmp``, then ``os.replace``;
 places each leaf on ``device`` (the reference's ``shardings``), or on
 the device of the matching leaf of ``like``.  numpy has no bfloat16:
 a bf16 leaf is refused (the training state is f32).
+
+A sharded run (``mesh=`` and a ``PartitionSpec`` per leaf, ``specs=``;
+``dist.sharding``) writes the same format: each leaf is gathered in
+full (a collective, leaf by leaf) and rank 0 writes it, then every rank
+waits for the manifest.  ``restore`` reads the full leaves on every rank
+and keeps the rank's piece, so a checkpoint crosses mesh shapes and a
+meshless run reads it.
 """
 from __future__ import annotations
 
@@ -39,26 +46,44 @@ def _to_numpy(leaf) -> np.ndarray:
 
 
 def save(ckpt_dir: str, step: int, tree: Pytree,
-         extra: dict | None = None) -> str:
-    """Write a checkpoint; returns the final directory path."""
+         extra: dict | None = None, mesh=None, specs=None) -> str:
+    """Write a checkpoint; returns the final directory path.  With
+    ``mesh`` every rank calls it with its pieces (``specs``: one
+    ``PartitionSpec`` per leaf) and rank 0 writes the full leaves."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + ".tmp"
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp, exist_ok=True)
+    writer = mesh is None or mesh.rank == 0
+    if writer:
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp, exist_ok=True)
+    flat = pytree.flatten_with_paths(tree)
+    spec_of = ([None] * len(flat) if mesh is None
+               else pytree.leaves(specs))
     entries = []
-    for i, (path, leaf) in enumerate(pytree.flatten_with_paths(tree)):
+    for i, ((path, leaf), spec) in enumerate(zip(flat, spec_of,
+                                                 strict=True)):
+        if mesh is not None:
+            from ..dist.sharding import unshard
+            leaf = unshard(leaf, spec, mesh)
+        if not writer:
+            continue
         arr = _to_numpy(leaf)
         fname = f"leaf_{i:05d}.npy"
         np.save(os.path.join(tmp, fname), arr)
         entries.append(dict(path=path, file=fname, shape=list(arr.shape),
                             dtype=str(arr.dtype)))
-    manifest = dict(step=step, leaves=entries, extra=extra or {}, done=True)
-    with open(os.path.join(tmp, "manifest.json"), "w") as f:
-        json.dump(manifest, f)
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.replace(tmp, final)
+    if writer:
+        manifest = dict(step=step, leaves=entries, extra=extra or {},
+                        done=True)
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.replace(tmp, final)
+    if mesh is not None:
+        import torch.distributed as dist
+        dist.barrier()
     return final
 
 
@@ -82,12 +107,15 @@ def latest_step(ckpt_dir: str) -> int | None:
     return best
 
 
-def restore(ckpt_dir: str, step: int, like: Pytree,
-            device=None) -> tuple[Pytree, dict]:
+def restore(ckpt_dir: str, step: int, like: Pytree, device=None,
+            mesh=None, specs=None) -> tuple[Pytree, dict]:
     """Restore into the structure of ``like`` (paths and shapes checked,
     each leaf cast to the dtype of its ``like`` leaf).  Returns ``(tree,
     extra)``; leaves are tensors on ``device``, else on their ``like``
-    leaf's device (the CPU for non-tensor leaves)."""
+    leaf's device (the CPU for non-tensor leaves).  With ``mesh`` the
+    leaves of ``like`` are this rank's pieces under ``specs``: each full
+    leaf read is checked against the pieces' full shape and cut to the
+    rank's piece."""
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         man = json.load(f)
@@ -95,8 +123,11 @@ def restore(ckpt_dir: str, step: int, like: Pytree,
     if len(want) != len(man["leaves"]):
         raise ValueError(f"leaf count mismatch: ckpt {len(man['leaves'])} "
                          f"vs target {len(want)}")
+    spec_of = ([None] * len(want) if mesh is None
+               else pytree.leaves(specs))
     leaves = []
-    for (path, leaf), ent in zip(want, man["leaves"]):
+    for (path, leaf), ent, spec in zip(want, man["leaves"], spec_of,
+                                       strict=True):
         if ent["path"] != path:
             raise ValueError(f"leaf path mismatch: {ent['path']} vs {path}")
         arr = np.load(os.path.join(d, ent["file"]))
@@ -107,9 +138,16 @@ def restore(ckpt_dir: str, step: int, like: Pytree,
             ref = np.asarray(leaf)
             shape, dtype = ref.shape, torch.from_numpy(ref.copy()).dtype
             dev = device if device is not None else "cpu"
+        full = torch.from_numpy(arr)
+        if mesh is not None:
+            from ..dist.sharding import shard
+            shape = tuple(n * mesh.extent(a) if a is not None else n
+                          for n, a in zip(shape, spec.padded(len(shape))))
         if tuple(arr.shape) != shape:
             raise ValueError(f"{path}: shape {arr.shape} != {shape}")
-        leaves.append(torch.from_numpy(arr).to(device=dev, dtype=dtype))
+        if mesh is not None:
+            full = shard(full, spec, mesh)
+        leaves.append(full.to(device=dev, dtype=dtype))
     return pytree.unflatten(tdef, leaves), man.get("extra", {})
 
 

@@ -41,7 +41,8 @@ class RunReport:
 def run_resumable(step_fn: Callable, state: Any, next_batch: Callable,
                   total_steps: int, ckpt_dir: str, ckpt_every: int = 10,
                   max_retries: int = 2, keep: int = 3,
-                  fail_injector: Callable | None = None) -> tuple[Any, RunReport]:
+                  fail_injector: Callable | None = None, mesh=None,
+                  specs=None) -> tuple[Any, RunReport]:
     """Run ``total_steps`` of ``state = step_fn(state, batch, step)``.
 
     * resumes from the latest complete checkpoint in ``ckpt_dir``;
@@ -51,12 +52,19 @@ def run_resumable(step_fn: Callable, state: Any, next_batch: Callable,
       it (skip-and-log) so one poisoned batch cannot wedge the job;
       non-retryable failures skip immediately without burning retries;
     * ``fail_injector(step, attempt)`` raising is the test hook.
+
+    On a model mesh every rank runs it with its pieces of ``state``
+    (``specs``: a ``PartitionSpec`` per leaf): checkpoints hold the full
+    tree, written by rank 0 (``checkpoint.save``), and a resume reads
+    them on every rank.  The ranks' steps are collective, so a failure
+    must reach every rank alike (the injector's faults do).
     """
     report = RunReport()
     start = 0
     last = ckpt.latest_step(ckpt_dir)
     if last is not None:
-        state, extra = ckpt.restore(ckpt_dir, last, state)
+        state, extra = ckpt.restore(ckpt_dir, last, state, mesh=mesh,
+                                    specs=specs)
         start = int(extra.get("next_step", last))
         report.resumed_from = last
     for step in range(start, total_steps):
@@ -79,8 +87,10 @@ def run_resumable(step_fn: Callable, state: Any, next_batch: Callable,
         report.steps_run += 1
         if (step + 1) % ckpt_every == 0 or step == total_steps - 1:
             ckpt.save(ckpt_dir, step + 1, state,
-                      extra=dict(next_step=step + 1))
-            ckpt.prune(ckpt_dir, keep=keep)
+                      extra=dict(next_step=step + 1), mesh=mesh,
+                      specs=specs)
+            if mesh is None or mesh.rank == 0:
+                ckpt.prune(ckpt_dir, keep=keep)
     return state, report
 
 

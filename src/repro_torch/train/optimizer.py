@@ -11,6 +11,18 @@ the parameters.
 as the reference's jitted step does: a step that raises part-way leaves
 the state it was given intact, so ``run_resumable`` can retry or skip
 it.  Beyond the new state it holds one leaf-sized temporary at a time.
+
+On a model mesh (``mesh=``, one rank of a ``launch.mesh.ModelMesh``)
+each leaf is this rank's piece under its ``PartitionSpec``
+(``dist.sharding``) and the gradients are already summed over the data
+axes.  ``global_norm`` sums each leaf's local squares, reduces them over
+the axes that shard the leaf and counts a replicated leaf once.  With
+ZeRO (moment specs from ``opt_state_shardings(zero=True)``, which shard
+a moment's dimension over the data axes where its parameter is
+replicated) a rank keeps only its slice of ``mu`` and ``nu`` and is
+handed only the matching slice of the summed gradient (``train.steps``
+reduce-scatters it): it updates that slice of the parameter and
+all-gathers the updated slices over the data axes.
 """
 from __future__ import annotations
 
@@ -56,32 +68,88 @@ def cosine_lr(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * torch.where(s < cfg.warmup_steps, warm, cos)
 
 
-@torch.no_grad()
-def global_norm(tree: Pytree) -> torch.Tensor:
-    sq = [torch.sum(torch.square(x.float())) for x in pytree.leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(sq)))
+def _sharding_axes(spec) -> tuple:
+    """The entries of a ``PartitionSpec`` that shard (names or tuples)."""
+    return tuple(a for a in spec if a is not None)
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: Pytree, max_norm: float):
+def global_norm(tree: Pytree, mesh=None, specs=None) -> torch.Tensor:
+    """The L2 norm over every leaf.  With ``mesh`` each leaf is a piece
+    under its spec in ``specs``: the squares of the leaves sharded over
+    the same axes are summed, then over those axes' ranks."""
+    if mesh is None:
+        sq = [torch.sum(torch.square(x.float()))
+              for x in pytree.leaves(tree)]
+        return torch.sqrt(torch.sum(torch.stack(sq)))
+    from ..dist.collectives import all_reduce
+    buckets: dict = {}
+    for x, spec in zip(pytree.leaves(tree), pytree.leaves(specs),
+                       strict=True):
+        buckets.setdefault(_sharding_axes(spec), []).append(
+            torch.sum(torch.square(x.float())))
+    total = []
+    for axes, sq in buckets.items():
+        s = torch.sum(torch.stack(sq))
+        for a in axes:
+            s = all_reduce(s, mesh.group(a))
+        total.append(s)
+    return torch.sqrt(torch.sum(torch.stack(total)))
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads: Pytree, max_norm: float, mesh=None,
+                        specs=None):
     """``(grads * min(1, max_norm / norm), norm)``, new f32 gradients."""
-    gn = global_norm(grads)
+    gn = global_norm(grads, mesh, specs)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
     return pytree.tree_map(lambda g: g.float() * scale, grads), gn
 
 
-def _moment(p):
-    if torch.is_floating_point(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-    return torch.zeros((), dtype=torch.float32, device=p.device)
+def zero_dim(p_spec, m_spec, ndim: int):
+    """``(dim, axes)`` where a moment's spec shards a dimension its
+    parameter's does not (ZeRO), else None."""
+    for i, (a, b) in enumerate(zip(p_spec.padded(ndim),
+                                   m_spec.padded(ndim))):
+        if a != b:
+            return i, b
+    return None
 
 
-def adamw_init(params: Pytree) -> AdamState:
-    leaves = pytree.leaves(params)
-    device = leaves[0].device if leaves else "cpu"
+def _moment(p, zero=None, mesh=None):
+    if not torch.is_floating_point(p):
+        return torch.zeros((), dtype=torch.float32, device=p.device)
+    shape = list(p.shape)
+    if zero is not None:
+        dim, axes = zero
+        shape[dim] //= mesh.extent(axes)
+    return torch.zeros(shape, dtype=torch.float32, device=p.device)
+
+
+def zero_dims(params, mesh, param_specs, state_specs) -> list:
+    """Per leaf of ``params``, ``zero_dim`` of its specs (all None
+    without a mesh or moment specs)."""
+    flat = pytree.leaves(params)
+    if mesh is None or state_specs is None:
+        return [None] * len(flat)
+    return [zero_dim(ps, ms, p.dim()) for p, ps, ms in zip(
+        flat, pytree.leaves(param_specs), pytree.leaves(state_specs.mu),
+        strict=True)]
+
+
+def adamw_init(params: Pytree, mesh=None, param_specs=None,
+               state_specs=None) -> AdamState:
+    """Zero moments and step.  On a mesh with ZeRO moment specs
+    (``state_specs``) each moment is this rank's slice."""
+    flat, tdef = pytree.flatten(params)
+    device = flat[0].device if flat else "cpu"
+    zeros = zero_dims(params, mesh, param_specs, state_specs)
+
+    def moments():
+        return pytree.unflatten(tdef, [_moment(p, z, mesh)
+                                       for p, z in zip(flat, zeros)])
     return AdamState(step=torch.zeros((), dtype=torch.int32, device=device),
-                     mu=pytree.tree_map(_moment, params),
-                     nu=pytree.tree_map(_moment, params))
+                     mu=moments(), nu=moments())
 
 
 def _adamw_leaf(cfg, lr, b1c, b2c, p, g, m, v):
@@ -100,12 +168,34 @@ def _adamw_leaf(cfg, lr, b1c, b2c, p, g, m, v):
     return torch.sub(pf, upd.mul_(lr)).to(p.dtype), m2, v2
 
 
+def _adamw_zero_leaf(cfg, lr, b1c, b2c, p, g, m, v, zero, mesh):
+    """``_adamw_leaf`` on this rank's slice along the ZeRO dimension
+    (``g`` is that slice already), the updated slices all-gathered over
+    the data axes."""
+    if not torch.is_floating_point(p):
+        return p, m, v
+    from ..dist.collectives import all_gather_dim
+    dim, axes = zero
+    size = p.shape[dim] // mesh.extent(axes)
+    p_s, m2, v2 = _adamw_leaf(cfg, lr, b1c, b2c,
+                              p.narrow(dim, mesh.coord(axes) * size, size),
+                              g, m, v)
+    return all_gather_dim(p_s, dim, mesh.group(axes)), m2, v2
+
+
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, grads: Pytree, state: AdamState,
-                 params: Pytree):
+                 params: Pytree, mesh=None, param_specs=None,
+                 state_specs=None):
     """Returns ``(new_params, new_state, metrics)`` with metrics
-    ``grad_norm`` (before clipping) and ``lr``."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    ``grad_norm`` (before clipping) and ``lr``.  On a mesh the leaves
+    are this rank's pieces under ``param_specs``, the moments and the
+    gradients (summed over the data axes) under ``state_specs`` (ZeRO:
+    see the module docstring)."""
+    grad_specs = (param_specs if state_specs is None or mesh is None
+                  else state_specs.mu)
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, mesh,
+                                       grad_specs)
     step = state.step + 1
     lr = cosine_lr(cfg, step)
     b1c = 1 - cfg.b1 ** step.float()
@@ -115,8 +205,10 @@ def adamw_update(cfg: AdamWConfig, grads: Pytree, state: AdamState,
                               for t in (grads, state.mu, state.nu))
     if not len(flat_p) == len(flat_g) == len(flat_m) == len(flat_v):
         raise ValueError("adamw_update: trees of different structure")
-    out = [_adamw_leaf(cfg, lr, b1c, b2c, p, g, m, v)
-           for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v)]
+    zeros = zero_dims(params, mesh, param_specs, state_specs)
+    out = [_adamw_leaf(cfg, lr, b1c, b2c, p, g, m, v) if z is None
+           else _adamw_zero_leaf(cfg, lr, b1c, b2c, p, g, m, v, z, mesh)
+           for p, g, m, v, z in zip(flat_p, flat_g, flat_m, flat_v, zeros)]
     new_p = pytree.unflatten(tdef, [o[0] for o in out])
     new_m = pytree.unflatten(tdef, [o[1] for o in out])
     new_v = pytree.unflatten(tdef, [o[2] for o in out])

@@ -18,6 +18,18 @@ opt_state, batch, rng=None) -> (params, opt_state, metrics)``:
 
 ``loss_fn(params, batch) -> scalar`` is any differentiable torch
 function of a parameter tree (``train/pytree.py``).
+
+On a model mesh (``mesh=``, one rank of a ``launch.mesh.ModelMesh``;
+``loss_fn`` a mesh-aware loss such as ``transformer.train_loss(...,
+mesh=mesh)``) every rank is handed the same global batch.  Microbatch
+``i`` is rows ``[i B/A, (i+1) B/A)`` (the reference's reshape) and data
+rank ``r`` takes its contiguous share of them; ``loss_fn`` returns the
+global loss and this rank's part of the gradient.  The gradients of the
+leaves that the data axes do not shard (``param_specs``) are summed over
+them once a step, after accumulation: reduce-scattered where ZeRO
+shards the leaf's moments (``state_specs``), so a rank holds the slice
+of the summed gradient its moments update, all-reduced elsewhere.  The
+optimizer then runs on the rank's pieces (``adamw_update``).
 """
 from __future__ import annotations
 
@@ -26,6 +38,7 @@ from typing import Callable
 import torch
 
 from ..core import rng as _rng
+from ..dist.sharding import data_axes, n_data, n_model
 from . import pytree
 from .optimizer import AdamWConfig, adamw_update
 
@@ -88,27 +101,71 @@ def value_and_grad(loss_fn: Callable,
     return run
 
 
+def data_share(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Data rank ``r``'s contiguous share of a microbatch's rows."""
+    n, r = n_data(mesh), mesh.coord(data_axes(mesh))
+    if x.shape[0] % n:
+        raise ValueError(f"a microbatch of {x.shape[0]} rows does not "
+                         f"divide over {n} data ranks")
+    size = x.shape[0] // n
+    return x[r * size:(r + 1) * size]
+
+
+def sum_over_data(grads, mesh, param_specs, state_specs=None):
+    """Each leaf the data axes do not shard, summed over them: reduce-
+    scattered along its ZeRO dimension where ``state_specs`` gives one
+    (the rank keeps the slice its moments update), else all-reduced."""
+    from ..dist.collectives import all_reduce, reduce_scatter_dim
+    from .optimizer import zero_dims
+    da = data_axes(mesh)
+    group = mesh.group(da)
+    flat, tdef = pytree.flatten(grads)
+    specs = (pytree.leaves(param_specs) if param_specs is not None
+             else [()] * len(flat))
+    zeros = zero_dims(grads, mesh, param_specs, state_specs)
+    out = []
+    for g, spec, zero in zip(flat, specs, zeros, strict=True):
+        if any(a in (da, *da) for a in spec if a is not None):
+            out.append(g)
+        elif zero is not None and torch.is_floating_point(g):
+            out.append(reduce_scatter_dim(g, zero[0], group))
+        else:
+            out.append(all_reduce(g, group))
+    return pytree.unflatten(tdef, out)
+
+
 def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig,
                     accum_steps: int = 1, compress_grads: bool = False,
-                    mark: Callable[[str], None] | None = None):
+                    mark: Callable[[str], None] | None = None, mesh=None,
+                    param_specs=None, state_specs=None):
     """``loss_fn(params, batch) -> scalar``; returns the step function.
 
     With ``accum_steps > 1`` every tensor in ``batch`` must have a leading
-    axis divisible by ``accum_steps``.
+    axis divisible by ``accum_steps``.  ``mesh`` / ``param_specs`` /
+    ``state_specs``: the module docstring.
     """
     mark = mark or _no_mark
     grads_of = value_and_grad(loss_fn, mark)
+    zero = state_specs is not None and state_specs.mu != param_specs
+    if compress_grads and mesh is not None and (n_model(mesh) > 1 or zero):
+        raise NotImplementedError(
+            "compress_grads on a model axis or with ZeRO: the quantizer "
+            "needs each full leaf's max and draws of its full shape "
+            "(ROADMAP §1)")
+
+    def share(x):
+        return x if mesh is None else data_share(x, mesh)
 
     def step(params, opt_state, batch, rng=None):
         if accum_steps == 1:
-            loss, grads = grads_of(params, batch)
+            loss, grads = grads_of(params, pytree.tree_map(share, batch))
         else:
             split = pytree.tree_map(
                 lambda x: x.reshape((accum_steps, x.shape[0] // accum_steps)
                                     + tuple(x.shape[1:])), batch)
             loss, grads = None, None
             for a in range(accum_steps):
-                mb = pytree.tree_map(lambda x: x[a], split)
+                mb = pytree.tree_map(lambda x: share(x[a]), split)
                 l, g = grads_of(params, mb)
                 g = pytree.tree_map(lambda x: x.float(), g)
                 if grads is None:
@@ -116,14 +173,18 @@ def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig,
                 else:
                     loss = loss + l.float()
                     grads = pytree.tree_map(torch.Tensor.add_, grads, g)
+        if mesh is not None:
+            grads = sum_over_data(grads, mesh, param_specs, state_specs)
+        if accum_steps > 1:
             loss = loss / accum_steps
             grads = pytree.tree_map(lambda g: g / accum_steps, grads)
         if compress_grads:
             key = rng if rng is not None else _rng.PRNGKey(0)
             grads = _compress_tree(grads, key)
         mark("optimizer")
-        params, opt_state, om = adamw_update(opt_cfg, grads, opt_state,
-                                             params)
+        params, opt_state, om = adamw_update(
+            opt_cfg, grads, opt_state, params, mesh=mesh,
+            param_specs=param_specs, state_specs=state_specs)
         mark("end")
         return params, opt_state, dict(loss=loss, **om)
 

@@ -775,3 +775,65 @@ def test_embedding_bag_backward_on_card_equals_plain_autograd(
     want = t2.grad.to(dtype).float()
     torch.testing.assert_close(t1.grad.float(), want, rtol=tol,
                                atol=tol * float(want.abs().max()))
+
+
+def _mesh_vs_meshless(device, tmp_path, arch, dims, backend):
+    """``train_loss`` and its gathered gradient on a model mesh of ranks
+    on the card (``run_on_mesh``) against the meshless card run, f32
+    (no TF32), sequence parallel where the model axis is > 1: the loss
+    and every leaf within 1e-5 in relative L2."""
+    from functools import partial
+
+    import numpy as np
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import run_on_mesh
+    from repro_torch.models import transformer
+    from repro_torch.models.convert import numpy_params, tree_from_numpy
+    from repro_torch.testing import lm_batch
+    from repro_torch.train import pytree
+    from repro_torch.train.steps import value_and_grad
+    from torch_dist_workers import lm_grads
+    cfg = get_smoke_config(arch)
+    params = numpy_params(cfg, seed=0)
+    batch = lm_batch(cfg, np.random.default_rng(1), B=4)
+    case = dict(arch=arch, dims=dims, sp=dims[1] > 1, dtype="float32",
+                params=params, batch=batch, device="cuda", backend=backend)
+    got = run_on_mesh(lm_grads, dims[0] * dims[1],
+                      str(tmp_path / "rendezvous"), args=([case],),
+                      timeout_s=300)[0][0]
+    loss, grads = value_and_grad(partial(
+        transformer.train_loss, cfg, compute_dtype=torch.float32))(
+        tree_from_numpy(params, device=device),
+        {k: torch.as_tensor(v, device=device) for k, v in batch.items()})
+    assert got["loss"] == pytest.approx(float(loss), rel=1e-5)
+    for a, b in zip(got["grads"], pytree.leaves(grads), strict=True):
+        b = b.float().cpu().numpy()
+        assert np.linalg.norm(a - b) <= 1e-5 * max(np.linalg.norm(b),
+                                                    1e-30)
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "granite-moe-3b-a800m"])
+def test_mesh_of_one_rank_over_nccl_equals_meshless(cuda_device, tmp_path,
+                                                   arch):
+    _mesh_vs_meshless(cuda_device, tmp_path, arch, (1, 1), "nccl")
+
+
+@pytest.mark.parametrize("dims", [(2, 2), (4, 1)])
+def test_mesh_over_nccl_one_card_per_rank_equals_meshless(
+        cuda_device, tmp_path, dims):
+    """NCCL refuses two ranks on one card: this runs where the machine
+    has a card per rank."""
+    if torch.cuda.device_count() < dims[0] * dims[1]:
+        pytest.skip(f"{dims[0] * dims[1]} ranks need as many cards")
+    _mesh_vs_meshless(cuda_device, tmp_path, "granite-moe-3b-a800m", dims,
+                      "nccl")
+
+
+def test_mesh_over_gloo_sharing_one_card_equals_meshless(cuda_device,
+                                                         tmp_path):
+    """Four ranks on the one card over gloo (it copies CUDA tensors
+    through the host), ``(data=2, model=2)`` with sequence parallelism:
+    both kernels at each rank's shapes."""
+    _mesh_vs_meshless(cuda_device, tmp_path, "granite-moe-3b-a800m", (2, 2),
+                      "gloo")

@@ -66,6 +66,13 @@ TRAIN_SLICE = ("repro_torch.train", "repro_torch.train.pytree",
 # the modules of the estimator-mesh slice
 MESH_SLICE = ("repro_torch.launch.mesh", "repro_torch.dist",
               "repro_torch.dist.sharding", "repro_torch.dist.collectives")
+# the modules the model-side distribution slice extended
+MODEL_MESH_SLICE = MESH_SLICE + (
+    "repro_torch.models.transformer", "repro_torch.models.moe",
+    "repro_torch.models.layers", "repro_torch.models.convert",
+    "repro_torch.train.optimizer", "repro_torch.train.steps",
+    "repro_torch.train.checkpoint", "repro_torch.train.fault_tolerance",
+    "repro_torch.launch.train")
 
 
 def test_import_pulls_neither_jax_nor_repro():
@@ -80,6 +87,7 @@ def test_import_pulls_neither_jax_nor_repro():
     assert set(MESH_SLICE) <= set(out[1].split())
     assert set(GATEWAY_SLICE) <= set(out[1].split())
     assert set(TRAIN_SLICE) <= set(out[1].split())
+    assert set(MODEL_MESH_SLICE) <= set(out[1].split())
 
 
 def _imports(path: Path):
@@ -180,6 +188,33 @@ def test_mesh_defaults_to_the_card_and_raises_without_one():
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["--graph", "powerlaw:n=60,m=400,time_span=5000,seed=1",
               "--mesh", "2", "--device", "cuda"])
+
+
+def test_model_mesh_defaults_to_the_card_and_raises_without_one(tmp_path):
+    """``make_host_mesh`` / ``make_production_mesh`` put their ranks on
+    the card unless asked for the CPU; without one they raise before a
+    process group is joined, and the launcher's ``--mesh`` raises before
+    it starts a process."""
+    import inspect
+
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+    from repro_torch.launch.train import main
+    for fn in (make_host_mesh, make_production_mesh):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the defaults would run")
+    rdv = tmp_path / "rendezvous"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_host_mesh(2, 2, rank=0, world_size=4,
+                       init_method=f"file://{rdv}", backend="gloo")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_production_mesh(rank=0, world_size=256,
+                             init_method=f"file://{rdv}", backend="nccl")
+    assert not torch.distributed.is_initialized() and not rdv.exists()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--arch", "granite-8b", "--mesh", "data=2,model=2",
+              "--backend", "gloo", "--ckpt-dir", str(tmp_path / "run")])
+    assert not (tmp_path / "run").exists()
 
 
 def test_stream_entry_points_default_to_the_card_and_raise_without_one(
