@@ -76,6 +76,17 @@ port's two paths:
   heads, 24 of 48 experts); step 1 against one process, a 2-layer f32
   check four ranks against one process, ``(1, 1)`` over NCCL against one
   process, ``(2, 2)`` over NCCL where there are four cards.
+* the rest of the model mesh, each on four gloo ranks sharing the card:
+  the reference's sharded GNN cells at minibatch_lg (gatedgcn, graphcast
+  grid-sharded, gat-cora) trained edge-parallel on ``(data=4, model=1)``,
+  step 1 against one process (phase ``gnn_train_dist``); DCN-v2 at full
+  size on ``(data=2, model=2)``, the table sharded by rows and looked up
+  through the EmbeddingBag kernel on each rank's rows (one launch a rank
+  a step), step 1 against one process, serve_bulk and retrieval_cand
+  bit-equal to one process, the sharded quantizer bit-equal to the
+  meshless one on the table gradient, the kernel at a rank's shapes
+  (phase ``recsys_train_dist``); GPipe on ``(pod=4, data=1, model=1)``
+  at width 4096 against serial application (phase ``pipeline``).
 
 Each phase prints one JSON line; the line before the last is the
 ``kernels`` record and the last line is ``{"ok": true, "device": ...}``.
@@ -234,6 +245,22 @@ DIST_NORM_GRAD_TOL = 5e-3
 DIST_NORM_LEAVES = ("['attn_norm']", "['mlp_norm']", "['final_norm']")
 DIST_CONTEXT_BYTES = 1 << 30
 DIST_F32_TOL = 1e-4
+# the reference's sharded GNN cells one card holds (launch/specs.py PERF:
+# sharded_gnn=True on minibatch_lg, remat_group 4 for gatedgcn and
+# graphcast) trained edge-parallel on make_host_mesh(data=4, model=1),
+# four gloo ranks sharing the card, 3 f32 AdamW steps; step 1 held to one
+# process within TRAIN_FULL_TOL
+GNN_DIST = dict(data=4, steps=3, cells=("gatedgcn", "graphcast", "gat-cora"),
+                remat_group={"gatedgcn": 4, "graphcast": 4})
+# DCN-v2 at full size on make_host_mesh(data=2, model=2): the reference's
+# _recsys_cell layout (no ZeRO: the four ranks' summed peak was predicted
+# to fit the card), 3 steps; the quantizer's key
+RECSYS_DIST = dict(data=2, model=2, steps=3, zero=False, key=0)
+# GPipe on make_host_mesh(pod=4, data=1, model=1): tanh(h @ W) stages at
+# granite-8b's d_model, 8 microbatches of 2048 rows, f32 without TF32;
+# against serial application (the same products) within tol
+PIPELINE = dict(stages=4, d=4096, microbatches=8, rows=2048, reps=2,
+                tol=1e-5)
 # examples/motif_features_gnn.py's pipeline
 MOTIF_GNN = dict(graph=dict(n_accounts=300, m=4_000, time_span=150_000,
                             n_rings=20, ring_size=5, n_smurf=16, seed=0),
@@ -2564,7 +2591,15 @@ def phase_embedding_bag() -> dict:
     torch.cuda.synchronize()
     require(torch.equal(got, want),
             "embedding_bag serve_bulk: kernel != plain version bit for bit")
-    del got, want
+    # the f32-output mode (a row-sharded table's partial bags): the f32
+    # sums, equal to the plain version's and, rounded, to the bf16 output
+    got32 = embedding_bag(table, gid, out_dtype=torch.float32)
+    want32 = embedding_bag_ref(table, gid, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    require(got32.dtype == torch.float32 and torch.equal(got32, want32)
+            and torch.equal(got32.to(table.dtype), got),
+            "embedding_bag serve_bulk f32 output: kernel != plain version")
+    del got, want, got32, want32
     n = gid.shape[0]
     nbytes = n * 8 + 2 * n * cfg.embed_dim * table.element_size()
     ones = torch.ones((n, 1), dtype=table.dtype, device="cuda")
@@ -2587,7 +2622,7 @@ def phase_embedding_bag() -> dict:
                library_weighted=bool(lib_kw),
                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
                max_abs_err=0.0)
-    emit({"phase": "embedding_bag", "equal": True,
+    emit({"phase": "embedding_bag", "equal": True, "equal_f32_output": True,
           **{k: v for k, v in rec.items()
              if k not in ("name", "route", "source", "replaces")}})
     del ones
@@ -4247,10 +4282,29 @@ def dist_f32_check(mesh, seq: int) -> dict:
                 route_flips=pinned.flips)
 
 
-def progress(rank: int, text: str) -> None:
+def progress(rank: int, text: str, phase: str = "lm_train_dist") -> None:
     """Rank 0's progress through a phase on the mesh, on stderr."""
     if rank == 0:
-        print(f"lm_train_dist rank 0: {text}", file=sys.stderr, flush=True)
+        print(f"{phase} rank 0: {text}", file=sys.stderr, flush=True)
+
+
+def dist_rank_mesh(rank: int, world_size: int, init_method: str, data: int,
+                   model: int, pod: int = 0, backend: str = "gloo"):
+    """This rank's ``make_host_mesh`` on the card (gloo where ranks share
+    it: NCCL refuses two ranks on one card), f32 products without TF32,
+    the allocator's segments expandable (four processes share the
+    card)."""
+    import warnings
+
+    import torch
+    from repro_torch.launch.mesh import make_host_mesh
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return make_host_mesh(data, model, pod, rank=rank,
+                          world_size=world_size, init_method=init_method,
+                          backend=backend, device="cuda")
 
 
 def dist_train_rank(rank: int, world_size: int, init_method: str,
@@ -4258,28 +4312,21 @@ def dist_train_rank(rank: int, world_size: int, init_method: str,
     """One rank of phase ``lm_train_dist``: the depth probes, the
     training steps and the f32 check (``phase_lm_train_dist``)."""
     import statistics
-    import warnings
 
     import torch
     import torch.distributed as dist
     from repro_torch.dist.collectives import all_gather_dim
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.segment_matmul.ops import segment_matmul
-    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.train import build, state_specs, synthetic_batch
     from repro_torch.models.moe import capacity
     from repro_torch.testing import MeshRoutes
     from repro_torch.train import pytree
     from repro_torch.train import steps as steps_mod
-    with warnings.catch_warnings():     # four processes share the card:
-        warnings.simplefilter("ignore")  # segments that grow fragment less
-        torch.cuda.memory._set_allocator_settings("expandable_segments:True")
-    torch.backends.cuda.matmul.allow_tf32 = False
     dt = DIST_TRAIN
     data, model = dt["dims"]
-    mesh = make_host_mesh(data, model, rank=rank, world_size=world_size,
-                          init_method=init_method, backend=backend,
-                          device="cuda")
+    mesh = dist_rank_mesh(rank, world_size, init_method, data, model,
+                          backend=backend)
     world = dist.group.WORLD
     clock = CollectiveClock()
     seq, accum, steps = dt["seq"], dt["accum"], dt["steps"]
@@ -4599,6 +4646,662 @@ def phase_lm_train_dist() -> dict:
     return dict(depth=depth, launches=launches, kernels=kernels)
 
 
+def on_rank0(mesh, fn):
+    """``fn()`` on rank 0 alone while the other ranks wait; every rank
+    gets its result."""
+    import torch.distributed as dist
+    box = [fn() if mesh.rank == 0 else None]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def gnn_dist_cell(arch: str) -> tuple:
+    """``(cfg, d_in, d_out, numpy batch)`` of the reference's sharded
+    minibatch_lg cell of ``arch`` (``launch/specs.py`` ``_gnn_cell`` with
+    its ``PERF`` entry): the sampled subgraph consumed as one padded
+    graph, ``n = 1024 (1 + 15)(1 + 10)`` = 180,224 nodes and ``16,384 x
+    10 + 1024 x 15`` = 179,200 edges (a multiple of 512: no pad), random
+    from numpy seed 0; GraphCast with its 7,208 mesh nodes, 360,448 g2m
+    and m2g edges (every grid node twice) and 57,856 mesh edges (57,664
+    padded), and the grid mask of the sharded cell."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import GNN_SHAPES
+    from repro_torch.testing import gnn_full_batch
+    sh = GNN_SHAPES["minibatch_lg"]
+    f1, f2 = sh["fanout"]
+    n1 = sh["batch_nodes"] * (1 + f1)
+    n, e = n1 * (1 + f2), n1 * f2 + sh["batch_nodes"] * f1
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(
+        cfg, sample_sizes=(f1, f2),
+        remat_group=GNN_DIST["remat_group"].get(arch, cfg.remat_group))
+    d_in = sh["d_feat"]
+    d_out = cfg.n_vars if cfg.kind == "graphcast" else sh["n_classes"]
+    batch = gnn_full_batch(cfg, np.random.default_rng(0), n, e, d_in,
+                           sh["n_classes"])
+    if cfg.kind == "graphcast":
+        batch["grid_mask"] = np.ones(n, np.float32)
+    return cfg, d_in, d_out, batch
+
+
+def gnn_dist_rank(rank: int, world_size: int, init_method: str) -> dict:
+    """One rank of phase ``gnn_train_dist``: for each cell, step 1's loss
+    and every leaf's f64 gradient norm (``make_sharded_gnn_loss`` on the
+    rank's piece, the gradient summed over the data axes), then
+    ``GNN_DIST["steps"]`` f32 AdamW steps of ``make_train_step`` cutting
+    the rank's piece (``local_batch``): step times, the host's time in
+    collectives, collective calls, the peak."""
+    import statistics
+    from functools import partial
+
+    import torch
+    from repro_torch.dist.gnn_sharded import local_batch, \
+        make_sharded_gnn_loss
+    from repro_torch.dist.sharding import gnn_param_shardings
+    from repro_torch.models.convert import numpy_gnn_params, tree_from_numpy
+    from repro_torch.testing import to_torch
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.steps import (make_train_step, sum_over_data,
+                                         value_and_grad)
+    mesh = dist_rank_mesh(rank, world_size, init_method, GNN_DIST["data"], 1)
+    clock = CollectiveClock()
+    steps = GNN_DIST["steps"]
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=steps)
+    out = {}
+    for arch in GNN_DIST["cells"]:
+        cfg, d_in, d_out, batch = gnn_dist_cell(arch)
+        params = tree_from_numpy(numpy_gnn_params(cfg, d_in, d_out, seed=0),
+                                 device=mesh.device)
+        full = to_torch(batch, mesh.device)
+        del batch
+        cut = partial(local_batch, cfg, mesh=mesh)
+        loss_fn = make_sharded_gnn_loss(cfg, mesh, full)
+        specs = gnn_param_shardings(params, mesh)
+        local = cut(full)
+        edges = {k: len(v) for k, v in local.items()
+                 if k.endswith("senders")}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, grads = value_and_grad(loss_fn)(params, local)
+        grads = sum_over_data(grads, mesh, specs)
+        first = dict(loss=float(loss), leaf_norms_f64=leaf_norms_f64(grads))
+        first_s = time.perf_counter() - t0
+        del grads, local
+        step = make_train_step(loss_fn, opt_cfg, mesh=mesh,
+                               param_specs=specs, share=cut)
+        opt = adamw_init(params)
+        times, coll, calls, losses = [], [], [], []
+        for s in range(steps):
+            torch.cuda.synchronize()
+            c0, n0, t1 = clock.seconds, clock.calls, time.perf_counter()
+            params, opt, m = step(params, opt, full)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+            coll.append(clock.seconds - c0)
+            calls.append(clock.calls - n0)
+            losses.append(float(m["loss"]))
+        out[arch] = dict(
+            first=first, first_s=first_s, local_edges=edges,
+            step_ms=[1e3 * t for t in times],
+            step_ms_median_2_3=1e3 * statistics.median(times[1:]),
+            collective_ms=[1e3 * c for c in coll],
+            collective_calls_per_step=calls, losses=losses,
+            optimizer_grad_norm_f32=float(m["grad_norm"]),
+            peak_bytes=torch.cuda.max_memory_allocated())
+        progress(rank, f"{arch}: steps {[round(t, 3) for t in times]} s",
+                 "gnn_train_dist")
+        del params, opt, full, step, loss_fn
+        free_card()
+    return dict(rank=rank, coords=mesh.coords, cells=out)
+
+
+def ogb_products_cards() -> dict:
+    """The arithmetic behind leaving the ``ogb_products`` cells off one
+    card: each cell's edge tensors alone (f32, 61,859,328 padded edges;
+    ranks sharing a card share its memory, so sharding edges over them
+    lowers no summed peak) against one card's memory less
+    ``DIST_TRAIN_MARGIN``; the cards they need at the least (edge
+    tensors divide over the cards, node tensors do not)."""
+    import math
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import GNN_SHAPES
+    sh = GNN_SHAPES["ogb_products"]
+    n = sh["n_nodes"]
+    e = -(-sh["n_edges"] // 512) * 512
+    card = torch.cuda.get_device_properties(0).total_memory
+    usable = card * (1 - DIST_TRAIN_MARGIN)
+    gat, ggcn, gc = (get_config(a) for a in ("gat-cora", "gatedgcn",
+                                              "graphcast"))
+    d, dg = ggcn.d_hidden, gc.d_hidden
+    g2 = 2 * n                                    # g2m = m2g edges
+    cells = {
+        "gat-cora": (2 * e * gat.n_heads * sh["n_classes"] * 4,
+                     "the last layer's z[senders] and its message, "
+                     f"[E, {gat.n_heads}, {sh['n_classes']}] f32 each"),
+        "gatedgcn": ((5 * GNN_DIST["remat_group"]["gatedgcn"]
+                      + ggcn.n_layers // GNN_DIST["remat_group"]["gatedgcn"])
+                     * e * d * 4,
+                     f"a remat group's {GNN_DIST['remat_group']['gatedgcn']}"
+                     f" layers x 5 [E, {d}] f32 tensors, and the edge "
+                     "state at each group boundary"),
+        "graphcast": (2 * g2 * (3 * dg + 3 * dg) * 4,
+                      f"g2m and m2g: [2n, {3 * dg}] edge inputs and three "
+                      f"[2n, {dg}] MLP tensors each"),
+    }
+    out = {"edges": e, "nodes": n, "card_bytes": card,
+           "usable_bytes": usable}
+    for arch, (nbytes, what) in cells.items():
+        out[arch] = dict(edge_bytes=nbytes, what=what,
+                         cards_at_least=math.ceil(nbytes / usable))
+    out["gat-cora"]["z_senders_bytes"] = out["gat-cora"]["edge_bytes"] / 2
+    return out
+
+
+def phase_gnn_train_dist() -> None:
+    """The reference's sharded GNN cells that one card holds
+    (``launch/specs.py`` ``PERF``: ``sharded_gnn=True`` on minibatch_lg;
+    ``gnn_dist_cell``), each trained edge-parallel on
+    ``make_host_mesh(data=4, model=1)``: four gloo ranks sharing the
+    card (``gnn_dist_rank``), ``GNN_DIST["steps"]`` f32 AdamW steps.
+    Step 1's loss and every leaf's f64 gradient norm held to one process
+    on the card (this process, before the ranks start) within
+    ``TRAIN_FULL_TOL``; every rank's losses equal.  The GNN path runs no
+    hand-written kernel (the reference's has no Pallas kernel): its
+    launches are torch ops, its collectives counted per step.  The
+    ``ogb_products`` cells are left off with their arithmetic
+    (``ogb_products_cards``)."""
+    from functools import partial
+
+    import torch
+    from repro_torch.launch.mesh import run_on_mesh
+    from repro_torch.models import gnn
+    from repro_torch.models.convert import numpy_gnn_params, tree_from_numpy
+    from repro_torch.testing import to_torch
+    torch.backends.cuda.matmul.allow_tf32 = False       # f32, as the ranks
+    one = {}
+    for arch in GNN_DIST["cells"]:
+        free_card()
+        cfg, d_in, d_out, batch = gnn_dist_cell(arch)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        one[arch] = first_step(
+            partial(gnn.train_loss, cfg),
+            tree_from_numpy(numpy_gnn_params(cfg, d_in, d_out, seed=0),
+                            device="cuda"),
+            to_torch(batch, "cuda"), by_leaf=True)
+        one[arch].update(seconds=time.perf_counter() - t0,
+                         peak_bytes=torch.cuda.max_memory_allocated())
+    free_card()
+    rdv = ROOT / "build" / "repro_torch" / "rendezvous"
+    t0 = time.perf_counter()
+    ranks = run_on_mesh(gnn_dist_rank, GNN_DIST["data"],
+                        str(rdv / "gnn_4x1"), timeout_s=900)
+    mesh_s = time.perf_counter() - t0
+    for arch in GNN_DIST["cells"]:
+        cells = [r["cells"][arch] for r in ranks]
+        r0 = cells[0]
+        require(all(c["losses"] == r0["losses"] for c in cells),
+                f"gnn_train_dist {arch}: the ranks' losses differ: "
+                f"{[c['losses'] for c in cells]}")
+        mine = {k: v for k, v in one[arch].items()
+                if k in ("loss", "leaf_norms_f64")}
+        rel = hold_first_step(f"gnn_train_dist {arch} step 1 against one "
+                              "process", r0["first"], mine, TRAIN_FULL_TOL,
+                              r0["losses"])
+        cfg, d_in, d_out, _ = gnn_dist_cell(arch)
+        emit({"phase": "gnn_train_dist", "arch": arch,
+              "shape": "minibatch_lg", "mesh": {"data": GNN_DIST["data"],
+                                                "model": 1},
+              "backend": "gloo",
+              "ranks_on": f"cuda:0 x {GNN_DIST['data']} (one card)",
+              "d_hidden": cfg.d_hidden, "n_layers": cfg.n_layers,
+              "remat_group": cfg.remat_group, "d_in": d_in, "d_out": d_out,
+              "local_edges": {r["rank"]: r["cells"][arch]["local_edges"]
+                              for r in ranks},
+              "steps": GNN_DIST["steps"],
+              "step_ms_median_2_3": max(c["step_ms_median_2_3"]
+                                        for c in cells),
+              "step_ms": {r["rank"]: r["cells"][arch]["step_ms"]
+                          for r in ranks},
+              "collective_ms": {r["rank"]: r["cells"][arch]["collective_ms"]
+                                for r in ranks},
+              "collective_calls_per_step": r0["collective_calls_per_step"],
+              "kernel_launches_per_rank": 0, "losses": r0["losses"],
+              "first_step": {"mesh_loss": r0["first"]["loss"],
+                             "one_process_loss": one[arch]["loss"],
+                             "max_rel_err": max(rel.values()),
+                             "tol": TRAIN_FULL_TOL,
+                             "mesh_s": r0["first_s"],
+                             "one_process_s": one[arch]["seconds"]},
+              "optimizer_grad_norm_f32": r0["optimizer_grad_norm_f32"],
+              "peak_bytes": {r["rank"]: r["cells"][arch]["peak_bytes"]
+                             for r in ranks},
+              "peak_bytes_summed": sum(c["peak_bytes"] for c in cells),
+              "peak_bytes_one_process": one[arch]["peak_bytes"]})
+    emit({"phase": "gnn_train_dist", "mesh_run_s": mesh_s,
+          "ogb_products_not_run": ogb_products_cards()})
+
+
+def recsys_one_process_first(cfg, batch) -> dict:
+    """Step 1 of ``launch.train.build``'s DCN-v2 loss (seed-0 f32
+    weights, bf16 forward) in one process on the card: the loss and each
+    leaf's f64 gradient norm."""
+    from functools import partial
+
+    import torch
+    from repro_torch.models import recsys
+    from repro_torch.models.convert import init_recsys
+    params = init_recsys(cfg, seed=0, device="cuda", dtype=torch.float32)
+    out = first_step(partial(recsys.train_loss, cfg), params, batch,
+                     by_leaf=True)
+    del params
+    free_card()
+    return out
+
+
+def recsys_dist_rank(rank: int, world_size: int, init_method: str) -> dict:
+    """One rank of phase ``recsys_train_dist`` (``phase_recsys_train_
+    dist``)."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import RECSYS_SHAPES
+    from repro_torch.core import rng
+    from repro_torch.dist.collectives import all_gather_dim
+    from repro_torch.dist.sharding import data_axes, unshard
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag
+    from repro_torch.launch.train import build, state_specs, synthetic_batch
+    from repro_torch.models import recsys
+    from repro_torch.models.layers import cast_for_compute
+    from repro_torch.train import steps as steps_mod
+    from repro_torch.train.steps import compress_decompress, data_share
+    rd = RECSYS_DIST
+    mesh = dist_rank_mesh(rank, world_size, init_method, rd["data"],
+                          rd["model"])
+    clock = CollectiveClock()
+    cfg = get_config("dcn-v2")
+    B, steps = RECSYS_SHAPES["train_batch"]["batch"], rd["steps"]
+    batches = [synthetic_batch(cfg, B, 0, s * 1000, mesh.device)
+               for s in range(steps)]
+    t0 = time.perf_counter()
+    one = on_rank0(mesh, lambda: recsys_one_process_first(cfg, batches[0]))
+    one_s = time.perf_counter() - t0
+    free_card()
+    progress(rank, f"one process, step 1: loss {one['loss']:.6f}",
+             "recsys_train_dist")
+
+    t0 = time.perf_counter()
+    state, do_step = build(cfg, 3e-4, steps + 1, device="cuda", mesh=mesh,
+                           zero=rd["zero"])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    specs = state_specs(cfg, mesh, rd["zero"])
+    captured = {}
+    own_update = steps_mod.adamw_update
+
+    def capture(opt_cfg, grads, opt_state, params, **kw):
+        # step 1's gradient as the optimizer receives it (summed over
+        # the data axes): every leaf's f64 norm, the table's piece kept
+        # on the host for the quantizer's check
+        if not captured:
+            captured["leaf_norms_f64"] = leaf_norms_f64(
+                grads, mesh, kw["state_specs"].mu)
+            captured["table"] = grads["table"].cpu()
+        return own_update(opt_cfg, grads, opt_state, params, **kw)
+    steps_mod.adamw_update = capture
+    times, coll, launches, losses, peaks = [], [], [], [], []
+    for s in range(steps):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        n0, c0, t1 = embedding_bag.launches, clock.seconds, \
+            time.perf_counter()
+        state, m = do_step(state, batches[s], s)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        coll.append(clock.seconds - c0)
+        launches.append(embedding_bag.launches - n0)
+        losses.append(m["loss"])
+        peaks.append(torch.cuda.max_memory_allocated())
+        progress(rank, f"step {s + 1}: {times[-1]:.2f} s, collectives "
+                 f"{coll[-1]:.2f} s, loss {losses[-1]:.6f}",
+                 "recsys_train_dist")
+    steps_mod.adamw_update = own_update
+    local_rows = state["params"]["table"].shape[0]
+    del batches
+
+    # serving on the mesh, bf16 weights: serve_bulk (each data rank its
+    # rows) and retrieval_cand, against one process on the same rows
+    # with the full table (gathered over model)
+    sp = cast_for_compute(state["params"], torch.bfloat16)
+    del state
+    free_card()
+    one_p = dict(sp, table=unshard(sp["table"],
+                                   specs["params"]["table"], mesh))
+    r = np.random.default_rng(0)
+    nb = RECSYS_SHAPES["serve_bulk"]["batch"]
+    bulk = dict(dense=torch.as_tensor(r.standard_normal((nb, cfg.n_dense)),
+                                      dtype=torch.float32).cuda(),
+                sparse=recsys_ids(cfg, nb, r))
+    mine = {k: data_share(v, mesh) for k, v in bulk.items()}
+    n0 = embedding_bag.launches
+    feats = recsys.sparse_features(cfg, sp, mine["sparse"], mesh)
+    serve_launches = embedding_bag.launches - n0
+    equal = dict(serve_bulk_features=torch.equal(
+        feats, recsys.sparse_features(cfg, one_p, mine["sparse"])))
+    del feats
+    logits = recsys.forward(cfg, sp, mine, mesh=mesh)
+    equal["serve_bulk_logits"] = torch.equal(
+        logits, recsys.forward(cfg, one_p, mine))
+    gathered = all_gather_dim(logits.float(), 0,
+                              mesh.group(data_axes(mesh)))
+    whole = recsys.forward(cfg, one_p, bulk).float()
+    full_batch_diff = float((gathered - whole).abs().max())
+    serve_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        recsys.forward(cfg, sp, mine, mesh=mesh)
+        torch.cuda.synchronize()
+        serve_ms.append(1e3 * (time.perf_counter() - t1))
+    del logits, gathered, whole, bulk, mine
+    n_cand = RECSYS_SHAPES["retrieval_cand"]["n_candidates"]
+    q = dict(dense=torch.as_tensor(r.standard_normal((1, cfg.n_dense)),
+                                   dtype=torch.float32).cuda(),
+             sparse=recsys_ids(cfg, 1, r),
+             cand_ids=torch.as_tensor(
+                 r.integers(0, cfg.table_sizes[0], n_cand)).cuda())
+    scores = recsys.serve_retrieval(cfg, sp, q, mesh=mesh)
+    equal["retrieval_cand_scores"] = torch.equal(
+        scores, recsys.serve_retrieval(cfg, one_p, q))
+    retrieval_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        recsys.serve_retrieval(cfg, sp, q, mesh=mesh)
+        torch.cuda.synchronize()
+        retrieval_ms.append(1e3 * (time.perf_counter() - t1))
+    del sp, one_p, scores, q
+    free_card()
+
+    # the sharded quantizer on step 1's table gradient: this rank's rows
+    # against the meshless quantizer on the gathered leaf, same key
+    g = captured.pop("table").to(mesh.device)
+    spec = specs["opt"].mu["table"]
+    key = rng.PRNGKey(rd["key"])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    got = compress_decompress(g, key, mesh, spec)
+    torch.cuda.synchronize()
+    quant_ms = 1e3 * (time.perf_counter() - t1)
+    full = unshard(g, spec, mesh)
+    del g
+    t1 = time.perf_counter()
+    want = compress_decompress(full, key)
+    torch.cuda.synchronize()
+    quant_full_ms = 1e3 * (time.perf_counter() - t1)
+    off = mesh.coord("model") * local_rows
+    equal["quantizer_table_rows"] = torch.equal(got,
+                                                want[off:off + local_rows])
+    leaf_elems = full.numel()
+    del got, want, full
+    free_card()
+    return dict(rank=rank, coords=mesh.coords, one_process=one,
+                one_process_s=one_s, init_s=init_s, local_rows=local_rows,
+                step_ms=[1e3 * t for t in times],
+                step_s=statistics.median(times[1:]),
+                collective_ms=[1e3 * c for c in coll],
+                launches_per_step=launches, losses=losses,
+                peak_bytes=max(peaks), first_step=dict(loss=losses[0],
+                                                       **captured),
+                serve_bulk_launches=serve_launches,
+                serve_bulk_ms=serve_ms, retrieval_ms=retrieval_ms,
+                full_batch_max_abs_diff=full_batch_diff, equal=equal,
+                quantizer_ms=quant_ms, quantizer_full_leaf_ms=quant_full_ms,
+                table_leaf_elements=leaf_elems)
+
+
+def eb_rank_case(cfg) -> dict:
+    """The EmbeddingBag kernel at one rank's shapes on the mesh of phase
+    ``recsys_train_dist``: data rank 0's 32,768 rows of the first
+    ``train_batch`` (26 bags of one id each) into model rank 0's
+    31,494,144 local rows of the bf16 table, foreign ids ``-1``, the f32
+    output mode; held to its plain version bit for bit, timed beside its
+    bound (the bytes of this run's ids: every id read, the rows of the
+    local ids read, the f32 output written) and ``F.embedding_bag``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.shapes import RECSYS_SHAPES
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import recsys
+    rd = RECSYS_DIST
+    rows = cfg.v_total // rd["model"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    table = (torch.randn((rows, cfg.embed_dim), generator=gen,
+                         device="cuda").mul_(0.01).to(torch.bfloat16))
+    B = RECSYS_SHAPES["train_batch"]["batch"]
+    sparse = synthetic_batch(cfg, B, 0, 0, "cuda")["sparse"][:B // rd["data"]]
+    gid = (sparse.long() + recsys.table_offsets(cfg, "cuda")).reshape(-1, 1)
+    lid = recsys.local_ids(gid, 0, rows, cfg.v_total)  # model rank 0's
+    got = embedding_bag(table, lid, out_dtype=torch.float32)
+    want = embedding_bag_ref(table, lid, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), "embedding_bag at a rank's shapes: "
+            "kernel != plain version bit for bit")
+    n, valid = lid.shape[0], int((lid >= 0).sum())
+    nbytes = n * 8 + valid * cfg.embed_dim * 2 + n * cfg.embed_dim * 4
+    w = (lid >= 0).to(table.dtype)
+    safe = lid.clamp(min=0)
+    return dict(
+        case=f"a rank of (data={rd['data']}, model={rd['model']}): "
+             f"{B // rd['data']} x {cfg.n_sparse} bags of one id into "
+             f"{rows} local rows, {valid} of {n} ids local, bf16 table, "
+             "f32 output", bags=n, local_ids=valid, bytes=nbytes,
+        ms=cuda_ms(lambda: embedding_bag(table, lid,
+                                         out_dtype=torch.float32), reps=20),
+        plain_ms=cuda_ms(lambda: embedding_bag_ref(
+            table, lid, out_dtype=torch.float32), reps=3),
+        library_ms=cuda_ms(lambda: F.embedding_bag(
+            safe, table, mode="sum", per_sample_weights=w), reps=20),
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        max_abs_err=0.0)
+
+
+def phase_recsys_train_dist() -> tuple[int, dict]:
+    """DCN-v2 at full size (the 62,988,288 x 16 table) trained on
+    ``make_host_mesh(data=2, model=2)``: four gloo ranks sharing the
+    card, the reference's ``_recsys_cell`` layout (the table by rows
+    over ``"model"``, every other leaf replicated, no ZeRO),
+    ``launch.train.build``'s step on ``synthetic_batch`` traffic at
+    train_batch 65,536 (32,768 rows a data rank), f32 state, bf16
+    forward, ``RECSYS_DIST["steps"]`` steps (``recsys_dist_rank``):
+
+    1. step 1's loss within ``TRAIN_FULL_TOL`` and every leaf's f64
+       gradient norm within ``BF16_GRAD_TOL`` of one process on the card
+       (rank 0, before the mesh builds its state);
+    2. one EmbeddingBag launch a rank a step, on the rank's rows;
+    3. serve_bulk (262,144 rows) and retrieval_cand (1 M candidates) on
+       the mesh: the lookups, logits and scores bit-equal to one process
+       on the same rows (bags of one id), the full batch's one-process
+       logits beside the gathered ones (a reading);
+    4. the sharded quantizer on step 1's table-gradient leaf bit-equal,
+       on every rank's rows, to the meshless one on the gathered leaf;
+    5. the kernel at one rank's shapes (``eb_rank_case``).
+    Returns the launches summed over the ranks and the kernel's
+    readings."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import RECSYS_SHAPES
+    from repro_torch.launch.mesh import run_on_mesh
+    rd = RECSYS_DIST
+    world = rd["data"] * rd["model"]
+    free_card()
+    rdv = ROOT / "build" / "repro_torch" / "rendezvous"
+    t0 = time.perf_counter()
+    ranks = run_on_mesh(recsys_dist_rank, world, str(rdv / "recsys_2x2"),
+                        timeout_s=900)
+    mesh_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    for r in ranks:
+        require(r["launches_per_step"] == [1] * rd["steps"]
+                and r["serve_bulk_launches"] == 1,
+                f"recsys_train_dist rank {r['rank']}: embedding_bag "
+                f"launches {r['launches_per_step']} a step, "
+                f"{r['serve_bulk_launches']} a serve_bulk lookup")
+        require(r["losses"] == r0["losses"]
+                and all(map(torch.isfinite, map(torch.as_tensor,
+                                                r["losses"]))),
+                f"recsys_train_dist: losses "
+                f"{[x['losses'] for x in ranks]}")
+        require(all(r["equal"].values()),
+                f"recsys_train_dist rank {r['rank']}: not equal to one "
+                f"process: {r['equal']}")
+    one = r0["one_process"]
+    first = r0["first_step"]
+    rel = dict(
+        loss=hold_first_step("recsys_train_dist step 1 loss",
+                             {"loss": first["loss"]}, {"loss": one["loss"]},
+                             TRAIN_FULL_TOL),
+        leaves=hold_first_step(
+            "recsys_train_dist step 1 gradient against one process",
+            {"g": first["leaf_norms_f64"]}, {"g": one["leaf_norms_f64"]},
+            BF16_GRAD_TOL))
+    cfg = get_config("dcn-v2")
+    t0 = time.perf_counter()
+    kernel = eb_rank_case(cfg)
+    free_card()
+    emit({"phase": "recsys_train_dist", "arch": cfg.name,
+          "mesh": {"data": rd["data"], "model": rd["model"]},
+          "backend": "gloo", "ranks_on": f"cuda:0 x {world} (one card)",
+          "zero": rd["zero"], "local_rows": r0["local_rows"],
+          "batch": RECSYS_SHAPES["train_batch"]["batch"],
+          "steps": rd["steps"], "mesh_run_s": mesh_s,
+          "step_ms_median_2_3": 1e3 * max(r["step_s"] for r in ranks),
+          "step_ms": {r["rank"]: r["step_ms"] for r in ranks},
+          "collective_ms": {r["rank"]: r["collective_ms"] for r in ranks},
+          "losses": r0["losses"],
+          "embedding_bag_launches_per_step": {r["rank"]:
+                                              r["launches_per_step"]
+                                              for r in ranks},
+          "peak_bytes": {r["rank"]: r["peak_bytes"] for r in ranks},
+          "peak_bytes_summed": sum(r["peak_bytes"] for r in ranks),
+          "init_s": r0["init_s"],
+          "first_step": {"mesh_loss": first["loss"],
+                         "one_process_loss": one["loss"],
+                         "loss_rel_err": rel["loss"]["loss"],
+                         "max_leaf_rel_err": max(rel["leaves"].values()),
+                         "leaf_rel_err": rel["leaves"],
+                         "tol": TRAIN_FULL_TOL,
+                         "leaf_tol": BF16_GRAD_TOL,
+                         "one_process_s": r0["one_process_s"]},
+          "serve_bulk_ms": {r["rank"]: r["serve_bulk_ms"] for r in ranks},
+          "retrieval_cand_ms": {r["rank"]: r["retrieval_ms"]
+                                for r in ranks},
+          "serve_full_batch_max_abs_diff": r0["full_batch_max_abs_diff"],
+          "equal": {r["rank"]: r["equal"] for r in ranks},
+          "quantizer_ms": {r["rank"]: r["quantizer_ms"] for r in ranks},
+          "quantizer_full_leaf_ms": r0["quantizer_full_leaf_ms"],
+          "table_leaf_elements": r0["table_leaf_elements"],
+          "kernel": kernel, "kernel_s": time.perf_counter() - t0})
+    return sum(sum(r["launches_per_step"]) for r in ranks), kernel
+
+
+def pipeline_rank(rank: int, world_size: int, init_method: str) -> dict:
+    """One rank of phase ``pipeline``: ``gpipe_forward`` of ``tanh(h @
+    W)`` stages (``PIPELINE``), a warm-up then timed runs; rank 0 also
+    applies the stages serially, each microbatch through each stage (the
+    same products), while the others wait."""
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist.pipeline import gpipe_forward
+    pl = PIPELINE
+    mesh = dist_rank_mesh(rank, world_size, init_method, 1, 1,
+                          pod=pl["stages"])
+    clock = CollectiveClock()
+    gen = torch.Generator(device=mesh.device).manual_seed(0)
+    d = pl["d"]
+    ws = torch.randn((pl["stages"], d, d), generator=gen,
+                     device=mesh.device) * d ** -0.5
+    xs = torch.randn((pl["microbatches"], pl["rows"], d), generator=gen,
+                     device=mesh.device)
+
+    def stage(w, h):
+        return torch.tanh(h @ w)
+    out = gpipe_forward(stage, ws, xs, mesh)
+    times, coll = [], []
+    for _ in range(pl["reps"]):
+        dist.barrier()
+        torch.cuda.synchronize()
+        c0, t0 = clock.seconds, time.perf_counter()
+        out = gpipe_forward(stage, ws, xs, mesh)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        coll.append(clock.seconds - c0)
+
+    def serial():
+        outs = []
+        for x in xs:
+            for w in ws:
+                x = stage(w, x)
+            outs.append(x)
+        return torch.stack(outs)
+    res = {}
+    if rank == 0:
+        want = serial()
+        res = dict(max_abs_err=float((out - want).abs().max()),
+                   serial_ms=cuda_ms(serial, reps=3))
+        del want
+    dist.barrier()
+    return dict(rank=rank, ms=[1e3 * t for t in times],
+                ms_median=1e3 * statistics.median(times),
+                collective_ms=[1e3 * c for c in coll],
+                peak_bytes=torch.cuda.max_memory_allocated(), **res)
+
+
+def phase_pipeline() -> None:
+    """``dist.pipeline.gpipe_forward`` on ``make_host_mesh(pod=4, data=1,
+    model=1)``: four gloo ranks sharing the card, ``tanh(h @ W)`` stages
+    at width 4096 (granite-8b's ``d_model``), 8 microbatches of 2048
+    rows, f32 without TF32; within ``PIPELINE["tol"]`` of serial
+    application on the card, each timed.  Forward only, as the
+    reference; the stage-to-stage shift is an all-gather over gloo."""
+    from repro_torch.launch.mesh import run_on_mesh
+    pl = PIPELINE
+    free_card()
+    rdv = ROOT / "build" / "repro_torch" / "rendezvous"
+    t0 = time.perf_counter()
+    ranks = run_on_mesh(pipeline_rank, pl["stages"], str(rdv / "gpipe_4"),
+                        timeout_s=600)
+    r0 = ranks[0]
+    require(r0["max_abs_err"] <= pl["tol"],
+            f"pipeline: gpipe_forward against serial, max |err| "
+            f"{r0['max_abs_err']} (tol {pl['tol']})")
+    emit({"phase": "pipeline", "mesh": {"pod": pl["stages"], "data": 1,
+                                        "model": 1},
+          "backend": "gloo", "ranks_on": f"cuda:0 x {pl['stages']}",
+          "stages": pl["stages"], "d": pl["d"],
+          "microbatches": pl["microbatches"], "rows": pl["rows"],
+          "steps": pl["microbatches"] + pl["stages"] - 1,
+          "max_abs_err": r0["max_abs_err"], "tol": pl["tol"],
+          "gpipe_ms_median": max(r["ms_median"] for r in ranks),
+          "gpipe_ms": {r["rank"]: r["ms"] for r in ranks},
+          "collective_ms": {r["rank"]: r["collective_ms"] for r in ranks},
+          "serial_ms": r0["serial_ms"],
+          "peak_bytes": {r["rank"]: r["peak_bytes"] for r in ranks},
+          "phase_s": time.perf_counter() - t0})
+
+
 def get_full_depth() -> int:
     from repro_torch.configs import get_config
     return get_config(FULL_TRAIN["arch"]).n_layers
@@ -4709,6 +5412,11 @@ def main() -> None:
     full = phase_lm_train_full()
     free_card()
     on_mesh = phase_lm_train_dist()
+    free_card()
+    phase_gnn_train_dist()
+    eb["launches_train_dist"], eb_dist = phase_recsys_train_dist()
+    eb.update({f"train_dist_{k}": v for k, v in eb_dist.items()})
+    phase_pipeline()
     # each kernel's launches on each LM-training path it serves: the sm90
     # flash kernel at full width and in lm100m, the sm90 grouped GEMM at
     # full width and in the bf16 MoE smoke configs, the CUDA-core kernels
@@ -4748,6 +5456,7 @@ def main() -> None:
                 and r.get("launches_motif_gnn", 1) > 0
                 and r.get("launches_lm_train", 1) > 0
                 and r.get("launches_lm_train_dist", 1) > 0
+                and r.get("launches_train_dist", 1) > 0
                 and r.get("launches_lm_train_learn", 1) > 0
                 and r.get("launches_lm_train_small", 1) > 0
                 and r.get("launches_lm_train_check", 1) > 0 for r in recs),

@@ -198,6 +198,20 @@ def bits32(key: torch.Tensor, n: int, *, partitionable: bool = True
     return torch.cat([y0, y1])[:n]
 
 
+def _unit_f32(b: torch.Tensor) -> torch.Tensor:
+    """uint32 draws -> jax's float32 ``uniform`` values in ``[0, 1)``."""
+    one = (b >> 9) | 0x3F800000
+    return (one.to(torch.int32).view(torch.float32) - 1.0).clamp(min=0.0)
+
+
+def uniform_at(key: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Entries ``idx`` (flat, int64) of ``uniform(key, shape, float32)``
+    in the partitionable mode, where element ``i`` depends on ``(key,
+    i)`` alone: a slice of a leaf's draws without drawing the leaf."""
+    b0, b1 = _hash(key, idx >> 32, idx & _M32)
+    return _unit_f32(b0 ^ b1)
+
+
 def uniform(key: torch.Tensor, shape, dtype=torch.float32, *,
             partitionable: bool = True) -> torch.Tensor:
     """``jax.random.uniform(key, shape, dtype)`` in ``[0, 1)``, bit for bit:
@@ -209,9 +223,8 @@ def uniform(key: torch.Tensor, shape, dtype=torch.float32, *,
     for s in shape:
         n *= s
     if dtype == torch.float32:
-        b = bits32(key, n, partitionable=partitionable)
-        one = (b >> 9) | 0x3F800000
-        f = one.to(torch.int32).view(torch.float32) - 1.0
+        return _unit_f32(bits32(key, n, partitionable=partitionable)
+                         ).reshape(shape)
     elif dtype == torch.float64:
         b = bits(key, n, partitionable=partitionable)
         one = ((b >> 12) & ((1 << 52) - 1)) | 0x3FF0000000000000

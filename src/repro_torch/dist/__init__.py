@@ -1,5 +1,6 @@
 """Distribution layer (the port's copy of the JAX package's
-``repro.dist``): shardings and collectives.
+``repro.dist``): shardings, collectives, the edge-parallel GNN and
+GPipe.
 
 * ``sharding``: mesh introspection (``data_axes``, ``n_data``,
   ``n_model``), the reference's placement builders (``lm_param_
@@ -9,11 +10,14 @@
   ``launch.mesh.ModelMesh``.
 * ``collectives``: the estimator mesh's shard index and exact int64
   combine; on a model mesh, the collectives autograd differentiates
-  (Megatron's pairs), ``psum_chunked`` and ``sharded_embedding_lookup``.
+  (Megatron's pairs, shard_map's psum and pmean transposes, the
+  ``ppermute`` shift), ``psum_chunked`` and ``sharded_embedding_lookup``.
+* ``gnn_sharded``: edge-parallel GNN message passing (the sharded loss
+  and the cut of a batch into a rank's piece).
+* ``pipeline``: GPipe over the ``"pod"`` axis (``gpipe_forward``).
 
 Everything is mesh-shape-agnostic, as in the reference: axis names come
 from the mesh and a dimension that does not divide its axes is
-replicated.  The reference's ``pipeline`` (GPipe) and ``gnn_sharded``
-(edge-parallel message passing) are queued (ROADMAP §1).
+replicated.
 """
-from . import collectives, sharding  # noqa: F401
+from . import collectives, gnn_sharded, pipeline, sharding  # noqa: F401

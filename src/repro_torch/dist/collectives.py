@@ -23,6 +23,9 @@
                                                       gradient, others 0
   ``first_rank_value``    rank 0 keeps the value,     identity
                           others 0
+  ``psum``                all-reduce                  all-reduce
+  ``divide_grad``         identity                    divided by ``n``
+  ``ppermute``            shift along the group       shift back
   ======================  ==========================  ====================
 
   A tensor that every rank of a group holds alike is *replicated*; its
@@ -35,9 +38,19 @@
   over the ranks once.  With one rank in the group every op is the
   identity.
 
+  ``psum`` and ``divide_grad`` are shard_map's transposes, for the
+  edge-parallel GNN (``models.gnn``, ``dist.gnn_sharded``): a psum
+  transposes to a psum, and a loss that every rank of ``n`` holds whole
+  hands each ``1/n`` of its gradient, so that the step's sum of the
+  gradients over the ranks counts the repeated computations once.
+  ``pmax`` (no gradient) is the reference's ``pmax``; ``ppermute`` its
+  shift of GPipe's stages (``dist.pipeline``).
+
 gloo and NCCL both take every op here for CPU and CUDA tensors (gloo
 copies CUDA tensors through the host), so the code does not branch on
-the backend.
+the backend, but for ``ppermute``: gloo takes no send / recv of CUDA
+tensors, so there the shift is an all-gather that keeps the
+predecessor's slice; NCCL (one rank per card) sends and receives.
 """
 from __future__ import annotations
 
@@ -244,6 +257,82 @@ def first_rank_value(x, group):
     """``x`` on the group's rank 0 and 0 elsewhere, identity backward (a
     result every rank repeats joins a sum over the ranks once)."""
     return x if _single(group) else _FirstRankValue.apply(x, group)
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+class _DivideGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, n):
+        ctx.n = n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
+def _shift(x: torch.Tensor, group, shift: int) -> torch.Tensor:
+    """Group rank ``i``'s ``x`` on group rank ``(i + shift) % n``."""
+    n = _size(group)
+    me = dist.get_rank(group)
+    src = (me - shift) % n
+    if dist.get_backend(group) == "gloo":
+        return all_gather_dim(x.unsqueeze(0), 0, group)[src].clone()
+    out = torch.empty_like(x)
+    dst = dist.get_global_rank(group, (me + shift) % n)
+    ops = [dist.P2POp(dist.isend, x.contiguous(), dst, group),
+           dist.P2POp(dist.irecv, out, dist.get_global_rank(group, src),
+                      group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, shift):
+        ctx.group, ctx.shift = group, shift
+        return _shift(x, group, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shift(g, ctx.group, -ctx.shift), None, None
+
+
+def psum(x, group):
+    """All-reduce forward and backward: the reference's ``psum`` under
+    ``shard_map``, whose transpose is a psum."""
+    return x if _single(group) else _Psum.apply(x, group)
+
+
+def pmax(x: torch.Tensor, group) -> torch.Tensor:
+    """The group's elementwise max of ``x`` (no gradient)."""
+    x = x.detach()
+    return x if _single(group) else all_reduce(x, group, dist.ReduceOp.MAX)
+
+
+def divide_grad(x, n: int):
+    """Identity forward; backward divides the gradient by ``n`` (a
+    result every one of ``n`` ranks holds whole, as the reference's
+    closing ``pmean`` transposes)."""
+    return x if n == 1 else _DivideGrad.apply(x, n)
+
+
+def ppermute(x, group, shift: int = 1):
+    """Group rank ``i``'s ``x`` on group rank ``(i + shift) % n`` (the
+    reference's ``ppermute`` with ``perm = [(i, (i + shift) % n)]``);
+    backward shifts the gradient back."""
+    return x if _single(group) else _Ppermute.apply(x, group, shift)
 
 
 # ---------------------------------------------------------------------------

@@ -29,6 +29,10 @@
 // width or address does not allow 16-byte loads take one element per
 // load.
 //
+// An f32-output mode (flags bit 3) writes a bf16 table's bag sums in f32,
+// unrounded: a table sharded by rows sums its ranks' partial bags in f32
+// and rounds once, as one process rounds its whole bag once.
+//
 // What it leaves on the table: latency hiding.  Each thread has one row
 // load in flight per slot; several bags per thread, or prefetching the
 // next slot's id, would keep more of the scattered reads in flight.
@@ -89,10 +93,33 @@ struct Chunk<bf16, 1> {
   }
 };
 
-template <typename T, typename I, int VEC>
+// VEC f32 sums stored as O: the table's dtype (one chunk store) or f32
+// (VEC / 4 float4 stores, one store per element when VEC is 1)
+template <typename T, typename O, int VEC>
+struct Store {
+  static __device__ __forceinline__ void to(O* dst, const float* acc) {
+    using C = Chunk<T, VEC>;
+    *reinterpret_cast<typename C::V*>(dst) = C::from_f32(acc);
+  }
+};
+template <int VEC>
+struct Store<bf16, float, VEC> {
+  static __device__ __forceinline__ void to(float* dst, const float* acc) {
+    if constexpr (VEC == 1) {
+      dst[0] = acc[0];
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; e += 4)
+        *reinterpret_cast<float4*>(dst + e) =
+            make_float4(acc[e], acc[e + 1], acc[e + 2], acc[e + 3]);
+    }
+  }
+};
+
+template <typename T, typename O, typename I, int VEC>
 __global__ void __launch_bounds__(256)
 embedding_bag_kernel(const T* __restrict__ table, const I* __restrict__ idx,
-                     const float* __restrict__ weights, T* __restrict__ out,
+                     const float* __restrict__ weights, O* __restrict__ out,
                      int64_t V, int64_t B, int bag, int d, int tpr) {
   using C = Chunk<T, VEC>;
   const int64_t gt = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -116,11 +143,11 @@ embedding_bag_kernel(const T* __restrict__ table, const I* __restrict__ idx,
 #pragma unroll
       for (int e = 0; e < VEC; ++e) acc[e] = fmaf(wj, f[e], acc[e]);
     }
-    *reinterpret_cast<typename C::V*>(out + b * d + c0) = C::from_f32(acc);
+    Store<T, O, VEC>::to(out + b * d + c0, acc);
   }
 }
 
-template <typename T, typename I>
+template <typename T, typename O, typename I>
 int launch_typed(const void* table, const void* idx, const void* w,
                  void* out, int64_t V, int64_t B, int bag, int d, int vec,
                  cudaStream_t s) {
@@ -134,12 +161,12 @@ int launch_typed(const void* table, const void* idx, const void* w,
   const T* t = static_cast<const T*>(table);
   const I* ix = static_cast<const I*>(idx);
   const float* wf = static_cast<const float*>(w);
-  T* o = static_cast<T*>(out);
+  O* o = static_cast<O*>(out);
   if (vec)
-    embedding_bag_kernel<T, I, VW><<<(unsigned)blocks, 256, 0, s>>>(
+    embedding_bag_kernel<T, O, I, VW><<<(unsigned)blocks, 256, 0, s>>>(
         t, ix, wf, o, V, B, bag, d, tpr);
   else
-    embedding_bag_kernel<T, I, 1><<<(unsigned)blocks, 256, 0, s>>>(
+    embedding_bag_kernel<T, O, I, 1><<<(unsigned)blocks, 256, 0, s>>>(
         t, ix, wf, o, V, B, bag, d, tpr);
   return (int)cudaGetLastError();
 }
@@ -147,7 +174,8 @@ int launch_typed(const void* table, const void* idx, const void* w,
 }  // namespace
 
 // flags: bit 0 = bf16 table (else f32), bit 1 = int64 ids (else int32),
-// bit 2 = 16-byte loads allowed.  weights may be null (all ones).
+// bit 2 = 16-byte loads allowed, bit 3 = f32 output of a bf16 table (else
+// the table's dtype).  weights may be null (all ones).
 extern "C" int embedding_bag_launch(const void* table, const void* idx,
                                     const void* weights, void* out,
                                     int64_t V, int64_t d, int64_t B,
@@ -158,15 +186,23 @@ extern "C" int embedding_bag_launch(const void* table, const void* idx,
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int vec = (int)((flags >> 2) & 1);
   const int b16 = (int)(flags & 1), i64 = (int)((flags >> 1) & 1);
+  const int o32 = (int)((flags >> 3) & 1);
+  if (o32 && !b16) return (int)cudaErrorInvalidValue;
+  if (b16 && o32 && i64)
+    return launch_typed<bf16, float, int64_t>(table, idx, weights, out, V,
+                                              B, (int)bag, (int)d, vec, s);
+  if (b16 && o32)
+    return launch_typed<bf16, float, int32_t>(table, idx, weights, out, V,
+                                              B, (int)bag, (int)d, vec, s);
   if (b16 && i64)
-    return launch_typed<bf16, int64_t>(table, idx, weights, out, V, B,
-                                       (int)bag, (int)d, vec, s);
+    return launch_typed<bf16, bf16, int64_t>(table, idx, weights, out, V, B,
+                                             (int)bag, (int)d, vec, s);
   if (b16)
-    return launch_typed<bf16, int32_t>(table, idx, weights, out, V, B,
-                                       (int)bag, (int)d, vec, s);
+    return launch_typed<bf16, bf16, int32_t>(table, idx, weights, out, V, B,
+                                             (int)bag, (int)d, vec, s);
   if (i64)
-    return launch_typed<float, int64_t>(table, idx, weights, out, V, B,
-                                        (int)bag, (int)d, vec, s);
-  return launch_typed<float, int32_t>(table, idx, weights, out, V, B,
-                                      (int)bag, (int)d, vec, s);
+    return launch_typed<float, float, int64_t>(table, idx, weights, out, V,
+                                               B, (int)bag, (int)d, vec, s);
+  return launch_typed<float, float, int32_t>(table, idx, weights, out, V, B,
+                                             (int)bag, (int)d, vec, s);
 }

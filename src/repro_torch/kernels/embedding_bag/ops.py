@@ -4,8 +4,10 @@
 package's ``embedding_bag`` computes: per bag the weighted sum of the
 table rows its slots name, with ``-1`` slots as padding (weight 0) and
 missing weights as ones; the sum is in f32 and the output in the
-table's dtype.  The kernel applies those slot rules itself, so the ids
-(int32 or int64) and weights go to it as they are.  It takes the plain
+table's dtype (``out_dtype=torch.float32`` on a bf16 table: the f32
+sums, unrounded, for partial bags that are added before one rounding).
+The kernel applies those slot rules itself, so the ids (int32 or int64)
+and weights go to it as they are.  It takes the plain
 torch version (``ref.py``) for CPU tensors and launches the CUDA kernel
 for CUDA tensors; on any other device, or on inputs the kernel does not
 take, it raises.  ``embedding_bag.launches`` counts the kernel launches.
@@ -22,7 +24,7 @@ from .ref import embedding_bag_ref
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 5 + [ctypes.c_void_p]
 
 
-def _check_inputs(table, idx, weights):
+def _check_inputs(table, idx, weights, out_dtype):
     if table.dim() != 2 or idx.dim() != 2:
         raise ValueError("embedding_bag: table must be [V, d] and idx "
                          f"[B, bag], got {tuple(table.shape)}, "
@@ -30,6 +32,9 @@ def _check_inputs(table, idx, weights):
     if table.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError("embedding_bag: table must be float32 or bfloat16, "
                          f"got {table.dtype}")
+    if out_dtype not in (table.dtype, torch.float32):
+        raise ValueError(f"embedding_bag: out_dtype must be the table's "
+                         f"({table.dtype}) or float32, got {out_dtype}")
     if idx.dtype not in (torch.int32, torch.int64):
         raise ValueError(f"embedding_bag: idx must be int32 or int64, got "
                          f"{idx.dtype}")
@@ -46,12 +51,15 @@ def _check_inputs(table, idx, weights):
         raise ValueError("embedding_bag: inputs on different devices")
 
 
-def embedding_bag(table, idx, weights=None):
-    """EmbeddingBag(sum) with ``-1`` padding (see the kernel source)."""
-    _check_inputs(table, idx, weights)
+def embedding_bag(table, idx, weights=None, out_dtype=None):
+    """EmbeddingBag(sum) with ``-1`` padding (see the kernel source);
+    the output in ``out_dtype`` (the table's or float32; default the
+    table's)."""
+    out_dtype = table.dtype if out_dtype is None else out_dtype
+    _check_inputs(table, idx, weights, out_dtype)
     device = table.device
     if device.type == "cpu":
-        return embedding_bag_ref(table, idx, weights)
+        return embedding_bag_ref(table, idx, weights, out_dtype)
     if device.type != "cuda":
         raise ValueError(f"embedding_bag: no kernel for device {device}")
     V, d = table.shape
@@ -59,13 +67,14 @@ def embedding_bag(table, idx, weights=None):
     table, idx = table.contiguous(), idx.contiguous()
     if weights is not None:
         weights = weights.to(torch.float32).contiguous()
-    out = torch.empty((B, d), dtype=table.dtype, device=device)
+    out = torch.empty((B, d), dtype=out_dtype, device=device)
     if out.numel() == 0:
         return out
     vec = int(d * table.element_size() % 16 == 0
               and table.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
     flags = (int(table.dtype == torch.bfloat16)
-             | int(idx.dtype == torch.int64) << 1 | vec << 2)
+             | int(idx.dtype == torch.int64) << 1 | vec << 2
+             | int(out_dtype != table.dtype) << 3)
     lib = _build.library("embedding_bag")
     fn = lib.embedding_bag_launch
     fn.argtypes = _ARGTYPES

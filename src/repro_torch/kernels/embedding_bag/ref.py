@@ -17,12 +17,13 @@ import torch
 
 
 def embedding_bag_ref(table: torch.Tensor, idx: torch.Tensor,
-                      weights: torch.Tensor | None = None) -> torch.Tensor:
+                      weights: torch.Tensor | None = None,
+                      out_dtype=None) -> torch.Tensor:
     """table ``[V, d]``; idx ``[B, bag]`` (-1 = empty); weights ``[B, bag]``
-    or None -> ``[B, d]`` in ``table.dtype``."""
+    or None -> ``[B, d]`` in ``out_dtype`` (default ``table.dtype``)."""
     valid = idx >= 0
     w = (torch.ones(idx.shape, dtype=torch.float32, device=idx.device)
          if weights is None else weights.float())
     w = torch.where(valid, w, 0.0)
     rows = table[idx.clamp(0, table.shape[0] - 1)].float()    # [B, bag, d]
-    return (rows * w[..., None]).sum(dim=1).to(table.dtype)
+    return (rows * w[..., None]).sum(dim=1).to(out_dtype or table.dtype)

@@ -18,14 +18,16 @@ GNN archs exit with the reference's message
 (``examples/motif_features_gnn.py``; ``chip_smoke.py`` phase
 ``motif_gnn`` runs that pipeline on the card).
 
-An LM trains on a model mesh with ``--mesh data=2,model=2`` (or
+Both families train on a model mesh with ``--mesh data=2,model=2`` (or
 ``pod=..,data=..,model=..``) and ``--backend nccl|gloo``: the launcher
 spawns one process per rank (``launch.mesh.run_on_mesh``, a ``file://``
 rendezvous under ``--ckpt-dir``), each holding its pieces of the
-parameters (``lm_param_shardings``) and its share of every microbatch;
-``--zero`` shards the AdamW moments over the data axes
-(``opt_state_shardings(zero=True)``), ``--sp`` the residual stream over
-``"model"`` along the sequence (the reference's ``residual_spec``).
+parameters (``lm_param_shardings``; DCN-v2's ``recsys_param_
+shardings``: the table by rows over ``"model"``, looked up through the
+EmbeddingBag kernel on each rank's rows) and its share of every
+microbatch; ``--zero`` shards the AdamW moments over the data axes
+(``opt_state_shardings(zero=True)``), ``--sp`` an LM's residual stream
+over ``"model"`` along the sequence (the reference's ``residual_spec``).
 Checkpoints hold the full tree, so a run resumes on any mesh shape or
 none.  Without ``--mesh`` it runs in this process, as before.
 
@@ -84,13 +86,19 @@ def opt_config(lr: float, steps: int):
 
 
 def state_specs(cfg, mesh, zero: bool = False) -> dict:
-    """The ``PartitionSpec`` of every leaf of an LM's training state on
-    ``mesh``: ``{params, opt}`` (``lm_param_shardings``,
-    ``opt_state_shardings``)."""
-    from ..dist.sharding import lm_param_shardings, opt_state_shardings
+    """The ``PartitionSpec`` of every leaf of an LM's or DCN-v2's training
+    state on ``mesh``: ``{params, opt}`` (``lm_param_shardings`` or
+    ``recsys_param_shardings``, ``opt_state_shardings``)."""
+    from ..dist.sharding import (lm_param_shardings, opt_state_shardings,
+                                 recsys_param_shardings)
+    from ..models.convert import abstract_recsys
     from ..models.transformer import abstract_params
-    shapes = abstract_params(cfg)
-    p = lm_param_shardings(cfg, shapes, mesh)
+    if cfg.family == "lm":
+        shapes = abstract_params(cfg)
+        p = lm_param_shardings(cfg, shapes, mesh)
+    else:
+        shapes = abstract_recsys(cfg)
+        p = recsys_param_shardings(shapes, mesh)
     return dict(params=p, opt=opt_state_shardings(p, mesh, shapes,
                                                   zero=zero))
 
@@ -103,27 +111,23 @@ def build(cfg, lr: float, steps: int, accum: int = 1, device="cuda",
     fresh AdamW state, and the step that trains them (``opt_config(lr,
     steps)``; ``mark`` as in ``make_train_step``).  The step leaves the
     state it is given intact, so a step that raises can be retried or
-    skipped.  With ``mesh`` (an LM only) the state is this rank's pieces
-    under ``state_specs(cfg, mesh, zero)`` and the step a rank's.  An LM
+    skipped.  With ``mesh`` the state is this rank's pieces under
+    ``state_specs(cfg, mesh, zero)`` and the step a rank's.  The forward
     computes in ``compute_dtype``."""
     from ..models import recsys, transformer
     from ..models.convert import init_lm_params, init_recsys
     from ..train.optimizer import adamw_init
     from ..train.steps import make_train_step
-    specs = None
-    if mesh is not None:
-        if cfg.family != "lm":
-            raise NotImplementedError(
-                f"{cfg.name}: only the LM family trains on a model mesh "
-                "(the recsys table sharded by rows is queued, ROADMAP §1)")
-        specs = state_specs(cfg, mesh, zero)
+    specs = None if mesh is None else state_specs(cfg, mesh, zero)
     if cfg.family == "lm":
         params = init_lm_params(cfg, seed=0, device=device, mesh=mesh)
         loss_fn = partial(transformer.train_loss, cfg,
                           compute_dtype=compute_dtype, mesh=mesh)
     else:
-        params = init_recsys(cfg, seed=0, device=device, dtype=torch.float32)
-        loss_fn = partial(recsys.train_loss, cfg)
+        params = init_recsys(cfg, seed=0, device=device, dtype=torch.float32,
+                             mesh=mesh)
+        loss_fn = partial(recsys.train_loss, cfg,
+                          compute_dtype=compute_dtype, mesh=mesh)
     step_fn = make_train_step(
         loss_fn, opt_config(lr, steps), accum_steps=accum, mark=mark,
         mesh=mesh, param_specs=specs and specs["params"],
@@ -181,6 +185,8 @@ def _rank_main(rank: int, world_size: int, init_method: str, cfg,
                           device=opts["device"])
     if opts["sp"]:
         from ..dist.sharding import data_axes
+        if cfg.family != "lm":
+            raise ValueError("--sp shards an LM's residual stream")
         if opts["seq"] % dims["model"]:
             raise ValueError(f"--sp: --seq {opts['seq']} does not divide "
                              f"over {dims['model']} model ranks")
@@ -204,11 +210,11 @@ def main(argv=None) -> None:
                     help="cuda (the default) or cpu (the plain versions)")
     ap.add_argument("--compute-dtype", default="bfloat16",
                     choices=["bfloat16", "float32"],
-                    help="an LM's compute dtype (float32: the checks that "
-                         "hold a mesh run to a meshless one)")
+                    help="the forward's compute dtype (float32: the checks "
+                         "that hold a mesh run to a meshless one)")
     ap.add_argument("--mesh", default=None,
                     help="data=D,model=M (or pod=P,data=D,model=M): train "
-                         "an LM in D*M (*P) processes, one per rank")
+                         "in D*M (*P) processes, one per rank")
     ap.add_argument("--backend", choices=["nccl", "gloo"], default=None,
                     help="the mesh's torch.distributed backend (required "
                          "with --mesh; ranks sharing a card need gloo)")

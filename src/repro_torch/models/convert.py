@@ -34,7 +34,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..dist.sharding import lm_param_shardings, local_shape, shard, unshard
+from ..dist.sharding import (lm_param_shardings, local_shape,
+                              recsys_param_shardings, shard, unshard)
 from ..train import pytree
 from . import gnn
 from .layers import dense_init, embed_init
@@ -209,19 +210,39 @@ def numpy_recsys_params(cfg: RecsysConfig, seed: int) -> dict:
                                 * proj[0] ** -0.5).astype(np.float32))
 
 
+def abstract_recsys(cfg: RecsysConfig) -> dict:
+    """The DCN-v2 tree as meta tensors (the shapes
+    ``recsys_param_shardings`` reads)."""
+    cross, mlp, head, proj = _recsys_shapes(cfg)
+
+    def t(*shape):
+        return torch.empty(shape, device="meta")
+
+    def wb(shape):
+        return dict(W=t(*shape), b=t(shape[1]))
+    return dict(table=t(cfg.v_total, cfg.embed_dim),
+                cross=[wb(x) for x in cross], mlp=[wb(x) for x in mlp],
+                head=wb(head), retrieval_proj=t(*proj))
+
+
 def init_recsys(cfg: RecsysConfig, seed: int, device="cuda",
-                dtype=torch.bfloat16) -> dict:
+                dtype=torch.bfloat16, mesh=None) -> dict:
     """Random DCN-v2 weights as the reference's ``init_params`` draws them
     (table ``N(0, 0.01^2)``, truncated-normal fan-in dense weights, zero
     biases), from a ``torch.Generator`` on ``device``, each tensor drawn
-    in f32 and cast to ``dtype`` before the next is made."""
-    device = torch.device(device)
+    in f32 and cast to ``dtype`` before the next is made.  With ``mesh``
+    every rank makes the same draws and keeps its rows of the table
+    (``recsys_param_shardings``) on the mesh's device."""
+    device = torch.device(device if mesh is None else mesh.device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     kw = dict(dtype=dtype, device=device)
     cross, mlp, head, proj = _recsys_shapes(cfg)
     table = torch.randn((cfg.v_total, cfg.embed_dim), generator=gen,
                         dtype=torch.float32, device=device)
+    if mesh is not None:
+        spec = recsys_param_shardings(abstract_recsys(cfg), mesh)["table"]
+        table = shard(table, spec, mesh)
     table = table.mul_(0.01).to(dtype)
 
     def wb(shape):

@@ -31,9 +31,17 @@ per graph, where the reference maps ``forward`` over the graphs with
 graph's last node, which reaches no output.
 
 Remat (``cfg.remat``, every ``remat_group`` layers) is
-``torch.utils.checkpoint``.  ``shard_map`` message passing (the
-reference's ``axes`` arguments, ``cfg.shard_axes``) is not ported:
-anything but ``axes=()`` raises ``NotImplementedError``.
+``torch.utils.checkpoint``.
+
+**Edge-parallel message passing** (the reference's ``shard_map``
+``axes``, ``cfg.shard_axes`` / ``cfg.grid_sharded``): ``forward`` and
+``train_loss`` take ``mesh=`` (one rank of a ``launch.mesh.ModelMesh``)
+and every layer an ``EdgeAxes``, bound to the mesh's group over
+``cfg.shard_axes``.  Each rank aggregates its own slice of the edges and
+``EdgeAxes.sum`` / ``.max`` combine the partial node aggregates over
+the group (``dist.collectives.psum`` / ``pmax``, the reference's psum /
+pmax); ``LOCAL`` (no mesh) makes them identities, so one layer code
+serves both.  ``dist.gnn_sharded`` builds the sharded loss.
 """
 from __future__ import annotations
 
@@ -43,6 +51,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..dist import collectives as coll
 from .layers import cast_for_compute, dense_init, layer_norm, softmax_xent
 
 
@@ -67,11 +76,28 @@ class GNNConfig:
     family: str = "gnn"
 
 
-def _no_axes(axes) -> None:
-    if axes:
-        raise NotImplementedError(
-            "sharded message passing (shard_map axes) is not ported; "
-            "pass axes=()")
+class EdgeAxes:
+    """The mesh axes a rank's edge slice is sharded over: ``sum`` and
+    ``max`` combine partial node aggregates over them (all-reduce; the
+    sum's backward all-reduces too, as shard_map transposes a psum).
+    Without axes every reduction is the identity (``LOCAL``)."""
+
+    def __init__(self, mesh=None, axes=()):
+        self.axes = tuple(axes)
+        self.group = None
+        if self.axes:
+            if mesh is None:
+                raise ValueError(f"edge axes {self.axes} need mesh=")
+            self.group = mesh.group(self.axes)
+
+    def sum(self, x):
+        return coll.psum(x, self.group)
+
+    def max(self, x):
+        return coll.pmax(x, self.group)
+
+
+LOCAL = EdgeAxes()
 
 
 # ---------------------------------------------------------------------------
@@ -88,30 +114,28 @@ def _safe(receivers, n):
     return torch.clamp(receivers.long(), max=n - 1)
 
 
-def seg_sum(x, idx, n, axes=()):
-    _no_axes(axes)
+def seg_sum(x, idx, n, axes=LOCAL):
     out = x.new_zeros((n + 1,) + tuple(x.shape[1:]))
-    return out.index_add(0, _trash(idx, n), x)[:n]
+    return axes.sum(out.index_add(0, _trash(idx, n), x)[:n])
 
 
-def seg_mean(x, idx, n, axes=()):
+def seg_mean(x, idx, n, axes=LOCAL):
     s = seg_sum(x, idx, n, axes)
     cnt = seg_sum(x.new_ones((x.shape[0], 1)), idx, n, axes)
     return s / torch.clamp(cnt, min=1)
 
 
-def seg_max(x, idx, n, axes=()):
+def seg_max(x, idx, n, axes=LOCAL):
     """Per-segment max; ``-inf`` for an empty segment.  Not
     differentiated (the softmax's max carries no gradient)."""
-    _no_axes(axes)
     out = x.new_full((n + 1,) + tuple(x.shape[1:]), float("-inf"))
     index = _trash(idx, n).reshape((-1,) + (1,) * (x.dim() - 1))
     out.scatter_reduce_(0, index.expand_as(x), x, reduce="amax",
                         include_self=True)
-    return out[:n]
+    return axes.max(out[:n])
 
 
-def edge_softmax(logits, receivers, n, axes=()):
+def edge_softmax(logits, receivers, n, axes=LOCAL):
     """Per-receiving-node softmax over incoming edges.  logits [E, H]."""
     mx = seg_max(logits.detach(), receivers, n, axes)
     safe = _safe(receivers, n)
@@ -123,7 +147,8 @@ def edge_softmax(logits, receivers, n, axes=()):
 # ---------------------------------------------------------------------------
 # GAT (Velickovic et al., arXiv:1710.10903)
 # ---------------------------------------------------------------------------
-def _gat_layer(p, h, senders, receivers, n, heads, d_out, concat, axes=()):
+def _gat_layer(p, h, senders, receivers, n, heads, d_out, concat,
+               axes=LOCAL):
     z = (h @ p["W"]).reshape(-1, heads, d_out)             # [N, H, D]
     al = torch.einsum("nhd,hd->nh", z, p["a_src"])          # [N, H]
     ar = torch.einsum("nhd,hd->nh", z, p["a_dst"])
@@ -139,7 +164,7 @@ def _gat_layer(p, h, senders, receivers, n, heads, d_out, concat, axes=()):
 # ---------------------------------------------------------------------------
 # GatedGCN (Dwivedi & Bresson benchmark, arXiv:2003.00982)
 # ---------------------------------------------------------------------------
-def _gatedgcn_layer(p, h, e, senders, receivers, n, axes=()):
+def _gatedgcn_layer(p, h, e, senders, receivers, n, axes=LOCAL):
     """Returns (h', e'): gated message passing with edge-feature state."""
     hs = h[senders]
     e_new = e @ p["E"] + hs @ p["A"] + h[_safe(receivers, n)] @ p["B"]
@@ -156,7 +181,7 @@ def _gatedgcn_layer(p, h, e, senders, receivers, n, axes=()):
 # ---------------------------------------------------------------------------
 # GraphSAGE (Hamilton et al., arXiv:1706.02216), mean aggregator
 # ---------------------------------------------------------------------------
-def _sage_layer(p, h_dst, h_src, senders, receivers, n_dst, axes=()):
+def _sage_layer(p, h_dst, h_src, senders, receivers, n_dst, axes=LOCAL):
     """Bipartite-friendly: dst nodes aggregate from src-node neighbours."""
     agg = seg_mean(h_src[senders], receivers, n_dst, axes)
     return h_dst @ p["W_self"] + agg @ p["W_neigh"]
@@ -173,7 +198,8 @@ def _mlp(ps, x):
     return x
 
 
-def _interaction(p, h_src, h_dst, e, senders, receivers, n_dst, axes=()):
+def _interaction(p, h_src, h_dst, e, senders, receivers, n_dst,
+                 axes=LOCAL):
     """Interaction-network block (GraphCast processor/enc/dec unit)."""
     e_in = torch.cat([e, h_src[senders], h_dst[_safe(receivers, n_dst)]],
                      dim=-1)
@@ -274,13 +300,14 @@ def _layer_groups(cfg, fn, state, layers):
 
 
 def forward(cfg: GNNConfig, params: dict, batch: dict,
-            compute_dtype=torch.float32) -> torch.Tensor:
+            compute_dtype=torch.float32, mesh=None) -> torch.Tensor:
     """Dispatch on cfg.kind and the batch's structure; node (or grid)
-    outputs."""
-    _no_axes(cfg.shard_axes)
+    outputs.  With ``cfg.shard_axes`` the batch holds this rank of
+    ``mesh``'s edges (``dist.gnn_sharded``)."""
+    ax = EdgeAxes(mesh, cfg.shard_axes)
     params = cast_for_compute(params, compute_dtype)
     if cfg.kind == "graphcast":
-        return _forward_graphcast(cfg, params, batch)
+        return _forward_graphcast(cfg, params, batch, ax)
     if "blocks" in batch:
         return _forward_minibatch(cfg, params, batch)
     h = batch["feats"].to(compute_dtype)
@@ -291,7 +318,7 @@ def forward(cfg: GNNConfig, params: dict, batch: dict,
         for i, p in enumerate(params["layers"]):
             last = i == L - 1
             h = _gat_layer(p, h, snd, rcv, n, cfg.n_heads,
-                           p["a_src"].shape[1], concat=not last)
+                           p["a_src"].shape[1], concat=not last, axes=ax)
             if not last:
                 h = F.elu(h)
         return h
@@ -299,13 +326,13 @@ def forward(cfg: GNNConfig, params: dict, batch: dict,
         h = h @ params["embed_h"]
         e = h.new_ones((snd.shape[0], 1)) @ params["embed_e"]
         h, e = _layer_groups(
-            cfg, lambda st, p: _gatedgcn_layer(p, *st, snd, rcv, n),
+            cfg, lambda st, p: _gatedgcn_layer(p, *st, snd, rcv, n, ax),
             (h, e), params["layers"])
         return h @ params["readout"]
     if cfg.kind == "sage":
         L = len(params["layers"])
         for i, p in enumerate(params["layers"]):
-            h_new = _sage_layer(p, h, h, snd, rcv, n)
+            h_new = _sage_layer(p, h, h, snd, rcv, n, ax)
             h = F.relu(h_new) if i < L - 1 else h_new
         return h
     raise ValueError(cfg.kind)
@@ -328,9 +355,15 @@ def _forward_minibatch(cfg: GNNConfig, params: dict, batch: dict):
     return h
 
 
-def _forward_graphcast(cfg: GNNConfig, params: dict, batch: dict):
+def _forward_graphcast(cfg: GNNConfig, params: dict, batch: dict, ax):
     """Encoder (grid->mesh), processor (mesh), decoder (mesh->grid);
-    ``mesh_feats [n_mesh, F]`` fixes ``n_mesh``."""
+    ``mesh_feats [n_mesh, F]`` fixes ``n_mesh``.
+
+    Under ``cfg.grid_sharded`` the grid arrays and the grid-incident
+    edges are this rank's rows with local grid ids, the mesh state and
+    the mesh edges every rank's: g2m sums over ``ax``, the processor
+    aggregates locally (its edges are replicated: a sum would count them
+    once per rank) and the decoder writes the rank's own grid rows."""
     hg = _mlp(params["embed_grid"], batch["feats"])          # [Ng, d]
     hm = _mlp(params["embed_mesh"], batch["mesh_feats"])     # [Nm, d]
     n_mesh = hm.shape[0]
@@ -342,15 +375,16 @@ def _forward_graphcast(cfg: GNNConfig, params: dict, batch: dict):
         return _mlp(params[f"embed_e_{name}"], hg.new_ones((snd.shape[0], 1)))
     g2m_s, g2m_r = edges("g2m")
     hm, _ = _interaction(params["g2m"], hg, hm, edge_embed("g2m", g2m_s),
-                         g2m_s, g2m_r, n_mesh)
+                         g2m_s, g2m_r, n_mesh, ax)
+    ax_grid = LOCAL if cfg.grid_sharded else ax
     m_s, m_r = edges("mesh")
     hm, _ = _layer_groups(
         cfg, lambda st, p: _interaction(p, st[0], st[0], st[1], m_s, m_r,
-                                        n_mesh),
+                                        n_mesh, ax_grid),
         (hm, edge_embed("mesh", m_s)), params["processor"])
     m2g_s, m2g_r = edges("m2g")
     hg2, _ = _interaction(params["m2g"], hm, hg, edge_embed("m2g", m2g_s),
-                          m2g_s, m2g_r, hg.shape[0])
+                          m2g_s, m2g_r, hg.shape[0], ax_grid)
     return _mlp(params["readout"], hg2)
 
 
@@ -395,13 +429,16 @@ def _batched_molecules(cfg: GNNConfig, batch: dict) -> dict:
     return out
 
 
-def train_loss(cfg: GNNConfig, params: dict, batch: dict) -> torch.Tensor:
+def train_loss(cfg: GNNConfig, params: dict, batch: dict,
+               mesh=None) -> torch.Tensor:
+    """The reference's loss (``mesh`` as in ``forward``)."""
     if "feats_batched" in batch:      # molecule: graph-level regression
         B, n = batch["feats_batched"].shape[:2]
-        out = forward(cfg, params, _batched_molecules(cfg, batch))
+        out = forward(cfg, params, _batched_molecules(cfg, batch),
+                      mesh=mesh)
         pred = out.reshape(B, n, -1).mean(dim=1)             # [B, C]
         return ((pred - batch["graph_label"]) ** 2).mean(dim=-1).mean()
-    out = forward(cfg, params, batch)
+    out = forward(cfg, params, batch, mesh=mesh)
     if cfg.kind == "graphcast":
         return torch.mean((out - batch["target"]) ** 2)
     labels = batch["labels"]

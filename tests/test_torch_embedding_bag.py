@@ -95,3 +95,24 @@ def test_wrapper_refuses(bad, match):
     with pytest.raises(ValueError, match=match):
         embedding_bag(args["table"], args["idx"], args["w"])
     assert embedding_bag.launches == before
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_out_dtype_rules(dtype):
+    """``out_dtype``: the table's dtype (the default) or float32.  On a
+    bf16 table float32 gives the f32 bag sums unrounded (a sharded
+    table's partial bags, added before one rounding); rounded they are
+    the default output bit for bit.  Anything else is refused."""
+    (tt, ti, tw), (jt, ji, jw) = _inputs((300, 16, 24, 4, True, 0.2),
+                                         dtype, 9)
+    default = embedding_bag(tt, ti, tw)
+    assert default.dtype == tt.dtype
+    assert torch.equal(embedding_bag(tt, ti, tw, out_dtype=tt.dtype),
+                       default)
+    f32 = embedding_bag(tt, ti, tw, out_dtype=torch.float32)
+    assert f32.dtype == torch.float32
+    assert torch.equal(f32.to(tt.dtype), default)
+    want = np.asarray(embedding_bag_ref(jt.astype(jnp.float32), ji, jw))
+    np.testing.assert_allclose(f32.numpy(), want, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="out_dtype"):
+        embedding_bag(tt, ti, tw, out_dtype=torch.float16)

@@ -114,13 +114,20 @@ def test_graphcast_molecule_path_matches_reference_vmap():
 
 
 def test_sharded_axes_are_not_ported():
+    """Edge axes need the mesh whose group combines the partial
+    aggregates (the reference's ``shard_map`` supplies it; the port takes
+    ``mesh=``): without one they are refused, and ``LOCAL`` (no axes)
+    reduces nothing.  The mesh runs are ``test_torch_dist_gnn.py``."""
     cfg = dataclasses.replace(get_smoke_config("gatedgcn"),
                               shard_axes=("data",))
     x = torch.ones(3, 2)
-    with pytest.raises(NotImplementedError):
-        gnn.seg_sum(x, torch.zeros(3, dtype=torch.long), 2, axes=("data",))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="need mesh="):
+        gnn.EdgeAxes(None, ("data",))
+    with pytest.raises(ValueError, match="need mesh="):
         gnn.forward(cfg, {}, {})
+    got = gnn.seg_sum(x, torch.zeros(3, dtype=torch.long), 2,
+                      axes=gnn.LOCAL)
+    assert torch.equal(got, torch.tensor([[3.0, 3.0], [0.0, 0.0]]))
 
 
 def test_segment_primitives_match_reference():

@@ -73,6 +73,14 @@ MODEL_MESH_SLICE = MESH_SLICE + (
     "repro_torch.train.optimizer", "repro_torch.train.steps",
     "repro_torch.train.checkpoint", "repro_torch.train.fault_tolerance",
     "repro_torch.launch.train")
+# the modules of the slice that finished ``dist/``: the edge-parallel GNN,
+# DCN-v2's row-sharded table, GPipe and compression on sharded leaves
+DIST_SLICE = ("repro_torch.dist.gnn_sharded", "repro_torch.dist.pipeline",
+              "repro_torch.dist.collectives", "repro_torch.models.gnn",
+              "repro_torch.models.recsys", "repro_torch.models.convert",
+              "repro_torch.kernels.embedding_bag.ops",
+              "repro_torch.train.steps", "repro_torch.core.rng",
+              "repro_torch.launch.train")
 
 
 def test_import_pulls_neither_jax_nor_repro():
@@ -88,6 +96,7 @@ def test_import_pulls_neither_jax_nor_repro():
     assert set(GATEWAY_SLICE) <= set(out[1].split())
     assert set(TRAIN_SLICE) <= set(out[1].split())
     assert set(MODEL_MESH_SLICE) <= set(out[1].split())
+    assert set(DIST_SLICE) <= set(out[1].split())
 
 
 def _imports(path: Path):

@@ -260,3 +260,244 @@ def collectives_checks(rank, world_size, init_method):
                                                             "data")) == 2
     seen["pod"] = True
     return seen
+
+
+def gnn_cases(rank, world_size, init_method, cases):
+    """For each case ``{cfg (GNNConfig fields), dims, params, batch,
+    step}``: the edge-parallel loss (``dist.gnn_sharded``) on this rank's
+    piece of the numpy batch and its gradient summed over the data axes;
+    with ``step`` (AdamW settings) also one ``make_train_step`` step
+    that cuts its own piece (``share``).  Rank 0 returns the loss, every
+    gradient leaf and the stepped leaves (jax's leaf order); every rank
+    its loss."""
+    from repro_torch.dist import gnn_sharded
+    from repro_torch.dist.sharding import gnn_param_shardings
+    from repro_torch.models.convert import tree_from_numpy
+    from repro_torch.models.gnn import GNNConfig
+    from repro_torch.testing import to_torch
+    from repro_torch.train import pytree
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.steps import (make_train_step, sum_over_data,
+                                         value_and_grad)
+    out = []
+    for case in cases:
+        mesh = mesh_of(case["dims"], rank, world_size, init_method)
+        cfg = GNNConfig(**case["cfg"])
+        params = tree_from_numpy(case["params"], device="cpu")
+        full = to_torch(case["batch"], "cpu")
+        loss_fn = gnn_sharded.make_sharded_gnn_loss(cfg, mesh, full)
+        local = gnn_sharded.local_batch(cfg, full, mesh)
+        loss, grads = value_and_grad(loss_fn)(params, local)
+        grads = sum_over_data(grads, mesh, None)
+        res = dict(loss=float(loss), grads=None, stepped=None)
+        if case.get("step"):
+            step = make_train_step(
+                loss_fn, AdamWConfig(**case["step"]), mesh=mesh,
+                param_specs=gnn_param_shardings(params, mesh),
+                share=partial(gnn_sharded.local_batch, cfg, mesh=mesh))
+            p, _, m = step(params, adamw_init(params), full)
+            res["stepped"] = ([x.numpy() for x in pytree.leaves(p)],
+                              float(m["grad_norm"]))
+        if rank == 0:
+            res["grads"] = [g.numpy() for g in pytree.leaves(grads)]
+        out.append(res)
+    return out
+
+
+def _recsys_state(cfg, params_np, mesh, zero, dtype=torch.float32):
+    """This rank's pieces of a numpy DCN-v2 tree and the specs."""
+    from repro_torch.dist.sharding import (opt_state_shardings,
+                                           recsys_param_shardings,
+                                           shard_tree)
+    from repro_torch.models.convert import abstract_recsys, recsys_from_numpy
+    shapes = abstract_recsys(cfg)
+    p_specs = recsys_param_shardings(shapes, mesh)
+    o_specs = opt_state_shardings(p_specs, mesh, shapes, zero=zero)
+    full = recsys_from_numpy(cfg, params_np, device="cpu", dtype=dtype)
+    return full, shard_tree(full, p_specs, mesh), p_specs, o_specs
+
+
+def recsys_cases(rank, world_size, init_method, cases):
+    """For each case ``{dims, zero, dtype, params, batch, serve,
+    retrieval}`` (DCN-v2 smoke): the mesh's ``train_loss`` and every
+    gradient leaf (summed over the data axes, ZeRO-scattered where
+    ``zero``, gathered in full); the mesh's ``forward`` on the serve
+    batch (each data rank its rows, gathered) and ``serve_retrieval``;
+    whether the serve lookups and logits are bit-equal to one process on
+    the same weights; on each rank whether its table gradient is zero
+    outside the rows the batch names, and whether ``init_recsys(...,
+    mesh=)`` keeps the meshless draws' rows.  Rank 0 returns the numbers;
+    every rank its flags."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.dist.collectives import all_gather_dim
+    from repro_torch.dist.sharding import data_axes, unshard
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag
+    from repro_torch.models import recsys
+    from repro_torch.models.layers import cast_for_compute
+    from repro_torch.train import pytree
+    from repro_torch.train.steps import (data_share, sum_over_data,
+                                         value_and_grad)
+    cfg = get_smoke_config("dcn-v2")
+    out = []
+    for case in cases:
+        mesh = mesh_of(case["dims"], rank, world_size, init_method)
+        dtype = getattr(torch, case["dtype"])
+        full, params, p_specs, o_specs = _recsys_state(
+            cfg, case["params"], mesh, case["zero"])
+        batch = {k: data_share(torch.as_tensor(v), mesh)
+                 for k, v in case["batch"].items()}
+        before = embedding_bag.launches
+        loss, grads = value_and_grad(partial(
+            recsys.train_loss, cfg, compute_dtype=dtype, mesh=mesh))(
+            params, batch)
+        # the rows this rank's shard holds that no id of the whole batch
+        # names get no gradient (the step's sum over data adds zeros)
+        rows = params["table"].shape[0]
+        off = mesh.coord("model") * rows
+        ids = torch.as_tensor(case["batch"]["sparse"]).long()
+        gid = torch.where(ids >= 0, ids + recsys.table_offsets(cfg)[None],
+                          -1).reshape(-1)
+        named = torch.zeros(rows, dtype=torch.bool)
+        here = (gid >= off) & (gid < off + rows)
+        named[gid[here] - off] = True
+        untouched = bool((grads["table"][~named] == 0).all())
+        grads = sum_over_data(grads, mesh, p_specs, o_specs)
+        g_full = [unshard(g.float(), s, mesh).numpy() for g, s in zip(
+            pytree.leaves(grads), pytree.leaves(o_specs.mu), strict=True)]
+        # serving: bf16 weights, each data rank its rows of the batch
+        sp = cast_for_compute(params, torch.bfloat16)
+        one = cast_for_compute(full, torch.bfloat16)
+        serve = {k: torch.as_tensor(v) for k, v in case["serve"].items()}
+        mine = {k: data_share(v, mesh) for k, v in serve.items()}
+        feats = recsys.sparse_features(cfg, sp, mine["sparse"], mesh)
+        logits = recsys.forward(cfg, sp, mine, mesh=mesh)
+        group = mesh.group(data_axes(mesh))
+        logits_all = all_gather_dim(logits.float(), 0, group)
+        feats_equal = torch.equal(
+            feats, recsys.sparse_features(cfg, one, mine["sparse"]))
+        logits_equal = torch.equal(logits, recsys.forward(cfg, one, mine))
+        retr = {k: torch.as_tensor(v) for k, v in case["retrieval"].items()}
+        scores = recsys.serve_retrieval(cfg, sp, retr, mesh=mesh)
+        scores_equal = torch.equal(scores,
+                                   recsys.serve_retrieval(cfg, one, retr))
+        # the launcher's initialisation on the mesh: the meshless draws'
+        # rows (the f32 training tree)
+        from repro_torch.dist.sharding import shard_tree
+        from repro_torch.models.convert import init_recsys
+        init_equal = all(torch.equal(a, b) for a, b in zip(
+            pytree.leaves(init_recsys(cfg, 0, "cpu", torch.float32, mesh)),
+            pytree.leaves(shard_tree(init_recsys(cfg, 0, "cpu",
+                                                 torch.float32), p_specs,
+                                     mesh)), strict=True))
+        res = dict(untouched=untouched, feats_equal=feats_equal,
+                   init_equal=init_equal,
+                   logits_equal=logits_equal, scores_equal=scores_equal,
+                   launches=embedding_bag.launches - before,
+                   local_rows=rows)
+        if rank == 0:
+            res.update(loss=float(loss), grads=g_full,
+                       logits=logits_all.float().numpy(),
+                       scores=scores.numpy())
+        out.append(res)
+    return out
+
+
+def compression_cases(rank, world_size, init_method, cases):
+    """For each case ``{dims, zero, params, batches, opt}`` (DCN-v2 smoke,
+    f32): each rank quantizes its pieces of a gradient tree (``grads``,
+    numpy, the full leaves every rank is handed) under the layout the
+    step leaves them in (the moment specs: model-sharded rows, ZeRO
+    slices), gathered; and with ``batches``, ``make_train_step(
+    compress_grads=True)`` on the mesh, its losses and final params
+    gathered.  Rank 0 returns them."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import rng
+    from repro_torch.dist.sharding import shard, unshard
+    from repro_torch.models import recsys
+    from repro_torch.train import pytree
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.steps import _compress_tree, make_train_step
+    cfg = get_smoke_config("dcn-v2")
+    out = []
+    for case in cases:
+        mesh = mesh_of(case["dims"], rank, world_size, init_method)
+        full, params, p_specs, o_specs = _recsys_state(
+            cfg, case["params"], mesh, case["zero"])
+        key = rng.PRNGKey(case["key"])
+        res = {}
+        if "grads" in case:
+            g_specs = pytree.leaves(o_specs.mu)
+            pieces = [shard(torch.as_tensor(g), s, mesh) for g, s in
+                      zip(pytree.leaves(case["grads"]), g_specs,
+                          strict=True)]
+            tdef = pytree.flatten(case["grads"])[1]
+            q = _compress_tree(pytree.unflatten(tdef, pieces), key, mesh,
+                               o_specs.mu)
+            res["quantized"] = [unshard(x, s, mesh).numpy() for x, s in
+                                zip(pytree.leaves(q), g_specs, strict=True)]
+        if "batches" in case:
+            step = make_train_step(partial(recsys.train_loss, cfg,
+                                           compute_dtype=torch.float32,
+                                           mesh=mesh),
+                                   AdamWConfig(**case["opt"]),
+                                   compress_grads=True, mesh=mesh,
+                                   param_specs=p_specs, state_specs=o_specs)
+            opt = adamw_init(params, mesh, p_specs, o_specs)
+            losses = []
+            for i, b in enumerate(case["batches"]):
+                params, opt, m = step(params, opt,
+                                      {k: torch.as_tensor(v)
+                                       for k, v in b.items()},
+                                      rng.PRNGKey(case["key"] + i))
+                losses.append(float(m["loss"]))
+            res["losses"] = losses
+            res["params"] = [unshard(x, s, mesh).numpy() for x, s in zip(
+                pytree.leaves(params), pytree.leaves(p_specs), strict=True)]
+        out.append(res if rank == 0 else None)
+    return out
+
+
+def pipeline_cases(rank, world_size, init_method, case):
+    """``gpipe_forward`` of ``tanh(h @ W)`` stages on the case's mesh
+    (the stage count on ``"pod"``), and the ``ValueError`` of a stack
+    one stage short; then ``ppermute``, ``psum`` and ``divide_grad``
+    under autograd over the pod group, with rank-specific inputs and
+    upstream gradients.  Every rank returns its output and what it
+    saw."""
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist.pipeline import gpipe_forward
+    mesh = mesh_of(case["dims"], rank, world_size, init_method)
+    group, pod = mesh.group("pod"), mesh.coord("pod")
+    n = mesh.extent("pod")
+
+    def of(p, salt):
+        return torch.arange(6, dtype=torch.float32).reshape(2, 3) * (
+            p + 1) + salt
+    seen = {}
+    for shift in (1, -1, 2):
+        x = of(pod, 0.5).requires_grad_()
+        y = C.ppermute(x, group, shift)
+        (g,) = torch.autograd.grad(y, x, of(pod, 0.25))
+        seen[f"ppermute {shift}"] = (
+            torch.equal(y, of((pod - shift) % n, 0.5))
+            and torch.equal(g, of((pod + shift) % n, 0.25)))
+    x = of(pod, 0.5).requires_grad_()
+    y = C.psum(x, group)
+    (g,) = torch.autograd.grad(y, x, of(pod, 0.25))
+    seen["psum"] = (torch.equal(y, sum(of(p, 0.5) for p in range(n)))
+                    and torch.equal(g, sum(of(p, 0.25) for p in range(n))))
+    x = of(pod, 0.5).requires_grad_()
+    y = C.divide_grad(x, 4)
+    (g,) = torch.autograd.grad(y, x, of(pod, 0.25))
+    seen["divide_grad"] = torch.equal(y, x) and torch.equal(
+        g, of(pod, 0.25) / 4)
+    x = of(pod, 0.5)
+    seen["pmax"] = torch.equal(C.pmax(x, group), of(n - 1, 0.5))
+    ws, xs = torch.as_tensor(case["ws"]), torch.as_tensor(case["xs"])
+    out = gpipe_forward(lambda w, h: torch.tanh(h @ w), ws, xs, mesh)
+    try:
+        gpipe_forward(lambda w, h: h, ws[1:], xs, mesh)
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    return dict(out=out.numpy(), raised=raised, seen=seen)
