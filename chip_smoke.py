@@ -59,8 +59,8 @@ port's two paths:
 * LM training: card against CPU for the five LM smoke configs (first
   loss, every gradient leaf, three AdamW steps, f32 and bf16) and a
   killed-and-resumed run equal to the straight one;
-  ``examples/train_lm.py``'s ~100 M model for 200 steps (the loss falls,
-  a run resumed from step 100 matches); granite-moe-3b-a800m at full
+  ``examples/train_lm.py``'s ~100 M model for 100 steps (the loss falls,
+  a run resumed from step 50 matches); granite-moe-3b-a800m at full
   width on one card (f32 state, bf16 compute, remat), cut in depth to
   what the measured peak allows, train_4k sequences with accumulation
   4: each step launches the sm90 flash kernel (forward and recompute)
@@ -71,7 +71,7 @@ port's two paths:
   data=2, model=2)``, four spawned ranks over gloo sharing the one card
   (NCCL refuses two ranks on one card), sequence parallel and ZeRO,
   train_4k sequences one per data rank per microbatch, accumulation 4,
-  cut in depth to the four ranks' summed peaks: each rank launches the
+  2 steps at 4 layers (cuts for the run's time): each rank launches the
   sm90 flash kernel and the sm90 grouped GEMM at its own shapes (12 / 4
   heads, 24 of 48 experts); step 1 against one process, a 2-layer f32
   check four ranks against one process, ``(1, 1)`` over NCCL against one
@@ -88,8 +88,9 @@ port's two paths:
   (phase ``recsys_train_dist``); GPipe on ``(pod=4, data=1, model=1)``
   at width 4096 against serial application (phase ``pipeline``).
 
-Each phase prints one JSON line; the line before the last is the
-``kernels`` record and the last line is ``{"ok": true, "device": ...}``.
+Each phase prints one JSON line; then a ``{"phase_seconds": ...}`` line
+(the wall time of each phase call in ``main``), the ``kernels`` record
+and, last, ``{"ok": true, "device": ...}``.
 Any mismatch or error exits non-zero without that line.  Without a CUDA
 device, or outside a checkout of the repository, it fails at once.
 
@@ -184,6 +185,27 @@ MOE_CHECK_TOL = 1e-3
 KERNEL_TOL = {"bfloat16": dict(rtol=1e-2, atol_rel=2e-3, rel_l2_max=2e-3),
               "float32": dict(rtol=1e-4, atol_rel=5e-5, rel_l2_max=1e-5)}
 FAULT_FACTOR = 10
+# the CUDA-core flash kernel beyond the f32 check, each against its plain
+# version under KERNEL_TOL[dtype]: (dtype, B, Sq, Skv, Hq, Hkv, D, causal,
+# window, softcap); every head dim in f32, the bf16 head dims the sm90
+# kernel does not take, Sq = 1000 against Skv = 1003 (ragged both),
+# GQA with G = 2, one window, one softcap (q x 8 there: the scores reach
+# the cap)
+FLASH_SIMT_SHAPES = (
+    ("float32", 1, 1000, 1003, 8, 4, 16, True, 0, 0.0),
+    ("float32", 1, 1000, 1003, 8, 4, 32, True, 256, 0.0),
+    ("float32", 1, 1000, 1003, 8, 4, 64, True, 0, 30.0),
+    ("float32", 1, 1000, 1003, 8, 4, 128, False, 0, 0.0),
+    ("float32", 1, 1000, 1003, 8, 4, 256, True, 0, 0.0),
+    ("bfloat16", 1, 1000, 1003, 8, 4, 16, True, 0, 0.0),
+    ("bfloat16", 1, 1000, 1003, 8, 4, 32, False, 0, 0.0),
+    ("bfloat16", 1, 1000, 1003, 8, 4, 256, True, 256, 50.0))
+# the f32 grouped GEMM beyond the f32 check's products, against its plain
+# version under KERNEL_TOL["float32"]: (case, E, C, K, N); the decode
+# step's 8 rows an expert, and widths that allow no 16-byte load; the
+# last case's block 3 also gets an invalid group id and must come out NaN
+SM_F32_SHAPES = (("C = 8", 64, 8, 2048, 1408),
+                 ("K = 1000, N = 1003", 8, 136, 1000, 1003))
 # training: card against CPU at smoke size (f32 GNNs: the card's scatter
 # order differs; DCN-v2: the bf16 tolerance of tests/test_torch_recsys.py),
 # and the full-width first step's loss and gradient norm against the CPU
@@ -206,56 +228,59 @@ LM_IDS = ("granite-8b", "gemma2-27b", "deepseek-7b", "qwen2-moe-a2.7b",
           "granite-moe-3b-a800m")
 LM_TRAIN_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 # examples/train_lm.py's ~100 M model (its lm100m() and its settings: batch
-# 8, seq 128, accumulation 2, lr 6e-4, warmup 20) for 200 steps, resumed
-# from step 100; the resumed run is held to the straight one within
+# 8, seq 128, accumulation 2, lr 6e-4, warmup 20) for 100 steps, resumed
+# from step 50 (200 and 100 before: a cut for the run's time; the loss
+# must still fall); the resumed run is held to the straight one within
 # LEARN_RESUME_TOL (relative: each loss, each parameter leaf in L2), as
 # the card's scatter-adds may sum in another order from run to run
-LEARN = dict(batch=8, seq=128, accum=2, lr=6e-4, warmup=20, steps=200,
-             resume_at=100)
+LEARN = dict(batch=8, seq=128, accum=2, lr=6e-4, warmup=20, steps=100,
+             resume_at=50)
 LEARN_RESUME_TOL = 1e-3
 # granite-moe-3b-a800m trained at full width on one card: train_4k's
 # sequence of 4096 tokens, one sequence per microbatch, accumulation 4
-# (the reference's launch/specs.py PERF entry for this cell), 5 steps;
-# the depth is the deepest even one whose predicted step peak stays
-# FULL_TRAIN_MARGIN below the card's memory
-FULL_TRAIN = dict(arch="granite-moe-3b-a800m", seq=4096, accum=4, steps=5,
+# (the reference's launch/specs.py PERF entry for this cell), 3 steps (5
+# before: a cut for the run's time); the depth is the deepest even one
+# whose predicted step peak stays FULL_TRAIN_MARGIN below the card's
+# memory
+FULL_TRAIN = dict(arch="granite-moe-3b-a800m", seq=4096, accum=4, steps=3,
                   check_layers=2)
 FULL_TRAIN_MARGIN = 0.06
 # the same model on make_host_mesh(data=2, model=2): four ranks over gloo
 # sharing the one card (NCCL refuses two ranks on one card), sequence
 # parallel and ZeRO (the reference's launch/specs.py PERF entry for this
 # cell), train_4k sequences, one per data rank per microbatch,
-# accumulation 4 (8 sequences a step), 3 steps; the depth is the deepest
-# even one whose predicted summed peak of the four ranks stays
-# DIST_TRAIN_MARGIN below the card's memory, less DIST_CONTEXT_BYTES a
-# rank for its CUDA context and gloo's staging.  Step 1's loss and each
-# leaf's f64 gradient norm (bf16 compute) are held to the one-process run
-# within TRAIN_FULL_TOL, the norm weights' within DIST_NORM_GRAD_TOL: a
-# norm weight's gradient sums 8192 tokens' products with cancellation,
-# and the ranks round their partial sums apart (on the H100 at 700 W up
-# to 1.59e-3 there, at most 4e-4 on every other leaf); the 2-layer cut in
-# f32 (one sequence per data rank),
-# four ranks against one process, within DIST_F32_TOL per leaf (relative
-# L2: the f32 CPU-port tests hold 1e-5; on the card the reductions over
-# four ranks' partial sums and the card's scatter order add ~1e-6)
-DIST_TRAIN = dict(dims=(2, 2), seq=4096, accum=4, steps=3, check_layers=2,
-                  probe_layers=(2, 4))
+# accumulation 4 (8 sequences a step), 2 steps at a fixed depth of 4
+# layers (cuts for the run's time: 3 steps at the deepest depth the
+# four ranks' summed peak let fit, 10, probed at 2 and 4 layers, before;
+# the phase's ``reduced``).  Step 1's loss and each leaf's f64 gradient
+# norm (bf16 compute) are held to the one-process run within
+# TRAIN_FULL_TOL, the norm weights' within DIST_NORM_GRAD_TOL: a norm
+# weight's gradient sums 8192 tokens' products with cancellation, and the
+# ranks round their partial sums apart (on the H100 at 700 W up to
+# 1.59e-3 there, at most 4e-4 on every other leaf); the 2-layer cut in
+# f32 (one sequence per data rank), four ranks against one process,
+# within DIST_F32_TOL per leaf (relative L2: the f32 CPU-port tests hold
+# 1e-5; on the card the reductions over four ranks' partial sums and the
+# card's scatter order add ~1e-6).  DIST_TRAIN_MARGIN: the share of the
+# card's memory kept free where a card's fit is worked out
+DIST_TRAIN = dict(dims=(2, 2), seq=4096, accum=4, steps=2, check_layers=2,
+                  depth=4)
 DIST_TRAIN_MARGIN = 0.10
 DIST_NORM_GRAD_TOL = 5e-3
 DIST_NORM_LEAVES = ("['attn_norm']", "['mlp_norm']", "['final_norm']")
-DIST_CONTEXT_BYTES = 1 << 30
 DIST_F32_TOL = 1e-4
 # the reference's sharded GNN cells one card holds (launch/specs.py PERF:
 # sharded_gnn=True on minibatch_lg, remat_group 4 for gatedgcn and
 # graphcast) trained edge-parallel on make_host_mesh(data=4, model=1),
-# four gloo ranks sharing the card, 3 f32 AdamW steps; step 1 held to one
-# process within TRAIN_FULL_TOL
-GNN_DIST = dict(data=4, steps=3, cells=("gatedgcn", "graphcast", "gat-cora"),
+# four gloo ranks sharing the card, 2 f32 AdamW steps (3 before: a cut for
+# the run's time); step 1 held to one process within TRAIN_FULL_TOL
+GNN_DIST = dict(data=4, steps=2, cells=("gatedgcn", "graphcast", "gat-cora"),
                 remat_group={"gatedgcn": 4, "graphcast": 4})
 # DCN-v2 at full size on make_host_mesh(data=2, model=2): the reference's
 # _recsys_cell layout (no ZeRO: the four ranks' summed peak was predicted
-# to fit the card), 3 steps; the quantizer's key
-RECSYS_DIST = dict(data=2, model=2, steps=3, zero=False, key=0)
+# to fit the card), 2 steps (3 before: a cut for the run's time); the
+# quantizer's key
+RECSYS_DIST = dict(data=2, model=2, steps=2, zero=False, key=0)
 # GPipe on make_host_mesh(pod=4, data=1, model=1): tanh(h @ W) stages at
 # granite-8b's d_model, 8 microbatches of 2048 rows, f32 without TF32;
 # against serial application (the same products) within tol
@@ -270,6 +295,20 @@ MOTIF_GNN = dict(graph=dict(n_accounts=300, m=4_000, time_span=150_000,
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+PHASE_SECONDS: dict = {}
+
+
+def timed(name: str, fn, *args, **kw):
+    """``fn(*args, **kw)``, its wall time added to
+    ``PHASE_SECONDS[name]``."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kw)
+    finally:
+        PHASE_SECONDS[name] = (PHASE_SECONDS.get(name, 0.0)
+                               + time.perf_counter() - t0)
 
 
 def require(cond, msg: str) -> None:
@@ -380,13 +419,14 @@ def device_profile(fn, kinds=None, top: int = 5) -> dict:
     device sync), the device-busy time summed over the device-side
     kernel entries, the idle share, and the top kernels by device time.
     ``kinds`` maps a label to a predicate on the kernel name; the busy
-    time is also split by the first label whose predicate holds."""
+    time is also split by the first label whose predicate holds.  Only
+    the device's activity is recorded: host op events (which nothing
+    here reads) took ~100 s to gather after a step of ~100 k launches."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -460,12 +500,32 @@ def phase_card() -> str:
     return out
 
 
-def phase_build() -> None:
+def ptxas_label(entry: str) -> str:
+    """A CUDA-core kernel instantiation's name from its mangled one."""
+    import re
+    m = re.search(r"flash_attention_kernelI(f|13__nv_bfloat16)Li(\d+)E",
+                  entry)
+    if m:
+        return f"{'f32' if m.group(1) == 'f' else 'bf16'} D {m.group(2)}"
+    m = re.search(r"sm_f32_kernelILb([01])E", entry)
+    if m:
+        return f"f32, {'16-byte' if m.group(1) == '1' else 'scalar'} loads"
+    return "bf16 mma.sync" if "sm_bf16_kernel" in entry else entry
+
+
+def phase_build() -> dict:
+    """Build every kernel; return the registers and spills ptxas reports
+    for each instantiation of the two CUDA-core kernels."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     built = _build.build()
+    usage = {name: {ptxas_label(e): u for e, u in
+                    _build.ptxas_usage(_build.REPORTS.get(name, "")).items()}
+             for name in ("flash_attention", "segment_matmul")}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "built": built, "dir": str(_build.BUILD_DIR.relative_to(ROOT))})
+          "built": built, "dir": str(_build.BUILD_DIR.relative_to(ROOT)),
+          "ptxas": usage})
+    return usage
 
 
 def dep_sum_bytes(dev, d, use_c2: bool) -> int:
@@ -1990,7 +2050,7 @@ def sfu_bound_ms(pairs: int, softcap: float) -> float:
     return pairs * (3 if softcap else 1) / SFU_OPS_PER_S * 1e3
 
 
-def sdpa_ms(q, k, v) -> tuple[float, bool]:
+def sdpa_ms(q, k, v, reps: int = 5) -> tuple[float, bool]:
     """The yardstick: ``scaled_dot_product_attention`` on the same causal
     GQA work (no softcap, no window), in its ``[B, H, S, D]`` layout;
     returns its time and whether it took the GQA heads as they are."""
@@ -2006,7 +2066,7 @@ def sdpa_ms(q, k, v) -> tuple[float, bool]:
         except TypeError:              # a torch without enable_gqa
             kt, vt = (x.repeat_interleave(G, dim=1) for x in (kt, vt))
     ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, **kw), reps=5)
+        qt, kt, vt, is_causal=True, **kw), reps=reps)
     return ms, G == 1 or bool(kw)
 
 
@@ -2025,7 +2085,8 @@ def phase_flash_attention() -> tuple[dict, dict]:
     one global layer with q x 8 so that the scores reach the softcap, and
     the kernel beside ``scaled_dot_product_attention`` without softcap;
     then the MoE prefill's shapes (``flash_moe_case``) and the CUDA-core
-    kernel at the f32 check's shapes (``flash_simt_case``).
+    kernel at the f32 check's shapes (``flash_simt_case``) and at
+    ``FLASH_SIMT_SHAPES`` (``flash_simt_shapes``).
 
     Each case also reads how far a known fault would move the output,
     computed with the plain version, and fails unless that is ten times
@@ -2124,6 +2185,7 @@ def phase_flash_attention() -> tuple[dict, dict]:
           "sdpa_gqa": lib_gqa, "sfu_bound_ms": sfu_bound_ms(pairs, 0.0)})
     del q, k, v
     simt = flash_simt_case()
+    simt.update(flash_simt_shapes())
     n = len(timed)
     sm90 = dict(
         name="flash_attention_sm90", route="cuda",
@@ -2264,11 +2326,11 @@ def flash_simt_case() -> dict:
     flops = 4 * D * pairs * B * H
     nbytes = 4 * 4 * q.numel()                        # q, k, v in, o out
     ops_s = flops / F32_FLOPS_PER_S
-    lib_ms, _ = sdpa_ms(q, k, v)
+    lib_ms, _ = sdpa_ms(q, k, v, reps=50)
     rec.update(
         B=B, S=S, Hq=H, Hkv=H, D=D, dtype="float32", pairs=pairs,
         flops=flops, bytes=nbytes,
-        ms=cuda_ms(lambda: flash_attention(q, k, v, **kw), reps=10),
+        ms=cuda_ms(lambda: flash_attention(q, k, v, **kw), reps=50),
         plain_ms=cuda_ms(lambda: flash_attention_ref(q, k, v, **kw),
                          reps=3),
         bound_ms=max(ops_s, nbytes / HBM_BYTES_PER_S) * 1e3,
@@ -2285,6 +2347,95 @@ def flash_simt_case() -> dict:
         **{key: rec[key] for key in ("max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by",
                                      "library_ms")})
+
+
+def flash_simt_shapes() -> dict:
+    """The CUDA-core flash kernel at ``FLASH_SIMT_SHAPES``: each call
+    must launch it (``launches_simt`` rises by one) and match its plain
+    version under ``KERNEL_TOL``; one line a case, the worst readings
+    returned."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         kernel_for)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    worst = dict(max_abs_err=0.0, rel_l2=0.0)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for dt, B, Sq, Skv, Hq, Hkv, D, causal, window, cap in FLASH_SIMT_SHAPES:
+        dtype = getattr(torch, dt)
+        require(kernel_for(dtype, D) == "flash_attention",
+                f"flash {dt} D {D}: dispatched to {kernel_for(dtype, D)}")
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+                   for shape in ((B, Sq, Hq, D), (B, Skv, Hkv, D),
+                                 (B, Skv, Hkv, D)))
+        q, k, v = ((q * (8 if cap else 1)).to(dtype), k.to(dtype),
+                   v.to(dtype))
+        kw = dict(causal=causal, window=window, attn_softcap=cap)
+        what = (f"flash_attention {dt} D {D}, Sq {Sq} / Skv {Skv}, "
+                f"{Hq} / {Hkv} heads, {kw}")
+        n = flash_attention.launches_simt
+        got = flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        require(flash_attention.launches_simt == n + 1,
+                f"{what}: not through the CUDA-core kernel")
+        rec = check_close(what, got, flash_attention_ref(q, k, v, **kw), dt)
+        for key in worst:
+            worst[key] = max(worst[key], rec[key])
+        emit({"phase": "flash_attention", "kernel": "flash_attention",
+              "kind": "shape check", "dtype": dt, "B": B, "Sq": Sq,
+              "Skv": Skv, "Hq": Hq, "Hkv": Hkv, "D": D, **kw, **rec})
+    return dict(shapes_checked=len(FLASH_SIMT_SHAPES),
+                shapes_max_abs_err=worst["max_abs_err"],
+                shapes_max_rel_l2=worst["rel_l2"])
+
+
+def segment_matmul_f32_shapes() -> dict:
+    """The f32 grouped-GEMM kernel at ``SM_F32_SHAPES`` (identity group
+    ids), each call through it and held to its plain version under
+    ``KERNEL_TOL["float32"]``; then the last case with block 3's id out
+    of range: that block must be NaN and every other equal to the plain
+    version.  One line a case, the worst readings returned."""
+    import torch
+    from repro_torch.kernels.segment_matmul.ops import (kernel_for,
+                                                        segment_matmul)
+    from repro_torch.kernels.segment_matmul.ref import segment_matmul_ref
+    worst = dict(max_abs_err=0.0, rel_l2=0.0)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for case, E, C, K, N in SM_F32_SHAPES:
+        require(kernel_for(torch.float32, K, N) == "segment_matmul",
+                f"segment_matmul f32 {case}: dispatched elsewhere")
+        x = torch.randn((E * C, K), generator=gen, device="cuda")
+        w = torch.randn((E, K, N), generator=gen, device="cuda") * K ** -0.5
+        groups = torch.arange(E, dtype=torch.int32, device="cuda")
+        what = f"segment_matmul f32 {case} ({E} x {C} rows, K {K}, N {N})"
+        n = segment_matmul.launches_simt
+        got = segment_matmul(x, w, groups)
+        torch.cuda.synchronize()
+        require(segment_matmul.launches_simt == n + 1,
+                f"{what}: not through the f32 kernel")
+        want = segment_matmul_ref(x, w, groups)
+        rec = check_close(what, got, want, "float32")
+        for key in worst:
+            worst[key] = max(worst[key], rec[key])
+        emit({"phase": "segment_matmul", "kind": "shape check",
+              "case": case, "E": E, "C": C, "K": K, "N": N, **rec})
+    bad = groups.clone()
+    bad[3] = E
+    got = segment_matmul(x, w, bad)
+    torch.cuda.synchronize()
+    block = slice(3 * C, 4 * C)
+    rest = torch.ones(E * C, dtype=torch.bool, device="cuda")
+    rest[block] = False
+    require(bool(torch.isnan(got[block]).all())
+            and bool(torch.equal(got[rest], segment_matmul(x, w,
+                                                           groups)[rest])),
+            f"segment_matmul f32: group id {E} of {E} not marked NaN "
+            "alone")
+    emit({"phase": "segment_matmul", "kind": "invalid group id",
+          "case": SM_F32_SHAPES[-1][0], "block": 3, "id": E,
+          "block_nan": True, "other_blocks_equal": True})
+    return dict(shapes_checked=len(SM_F32_SHAPES) + 1,
+                shapes_max_abs_err=worst["max_abs_err"],
+                shapes_max_rel_l2=worst["rel_l2"])
 
 
 def phase_lm_small() -> None:
@@ -2437,10 +2588,11 @@ def phase_segment_matmul() -> tuple[dict, dict]:
     on the prefill's gate/up (C = 1368 rows per expert, K = 2048,
     N = 1408) and down (K = 1408, N = 2048) products and a decode step's
     (C = 8) gate/up and down, in bf16; the mma.sync / f32 kernel on the
-    f32 check run's gate/up (C = 2072).  Each case asserts which kernel
-    ran.  Two faults are read with the plain version: a block that uses
-    the next group's weights, and a segment whose ragged last rows are
-    dropped.  The mma.sync kernel is also held to the plain version on
+    f32 check run's gate/up and down (C = 2072), then at
+    ``SM_F32_SHAPES`` (``segment_matmul_f32_shapes``).  Each case asserts
+    which kernel ran.  Two faults are read with the plain version: a
+    block that uses the next group's weights, and a segment whose ragged
+    last rows are dropped.  The mma.sync kernel is also held to the plain version on
     each bf16 case (``_segment_matmul_simt``).  The bf16 cases are timed
     through the sm90 kernel, through the mma.sync kernel on the same
     work, as ``torch.bmm`` on the same layout, and as the plain
@@ -2464,7 +2616,8 @@ def phase_segment_matmul() -> tuple[dict, dict]:
              ("prefill down", c_prefill, ffe, d, bf16),
              ("decode gate/up", c_decode, d, ffe, bf16),
              ("decode down", c_decode, ffe, d, bf16),
-             ("f32 check gate/up", c_check, d, ffe, torch.float32))
+             ("f32 check gate/up", c_check, d, ffe, torch.float32),
+             ("f32 check down", c_check, ffe, d, torch.float32))
     groups = torch.arange(E, dtype=torch.int32, device="cuda")
     recs = {}
     for case, C, K, N, dtype in cases:
@@ -2558,9 +2711,13 @@ def phase_segment_matmul() -> tuple[dict, dict]:
         case=f32["case"],
         **{k: f32[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                "bound_by", "library_ms")},
+        # the f32 check's down product (K 1408, N 2048)
+        **{f"down_{k}": recs["f32 check down"][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")},
         # the same kernel on the four bf16 cases
         bf16_max_abs_err=max(r["simt_max_abs_err"] for r in recs.values()
-                             if r["dtype"] == "bfloat16"))
+                             if r["dtype"] == "bfloat16"),
+        **segment_matmul_f32_shapes())
     return sm90, simt
 
 
@@ -3719,13 +3876,15 @@ def markov_batch(cfg, B: int, S: int, step: int, attempt: int = 0) -> dict:
 def phase_lm_train_learn() -> dict:
     """``examples/train_lm.py`` on the card: lm100m from
     ``init_lm_params`` seed 0 (f32, bf16 compute, remat), AdamW at lr
-    6e-4 with warmup 20 over 200 steps, batch 8 x 128 in two
-    microbatches, ``run_resumable`` with a checkpoint every 100 steps;
-    the loss must fall (mean of the last 20 below the first 20, and the
-    last below the first, as the example asserts).  Then a run that lost
-    everything after the step-100 checkpoint (that checkpoint alone,
-    resumed) must end within ``LEARN_RESUME_TOL`` of the straight run.
-    Returns the kernel launches of the straight run."""
+    6e-4 with warmup 20 over ``LEARN["steps"]`` steps (the example's 200
+    cut to 100 for the run's time, printed as ``reduced``), batch 8 x 128
+    in two microbatches, ``run_resumable`` with a checkpoint every
+    ``LEARN["resume_at"]`` steps; the loss must fall (mean of the last 20
+    below the first 20, and the last below the first, as the example
+    asserts).  Then a run that lost everything after that checkpoint
+    (the checkpoint alone, resumed) must end within ``LEARN_RESUME_TOL``
+    of the straight run.  Returns the kernel launches of the straight
+    run."""
     import shutil
     import statistics
     from functools import partial
@@ -3809,6 +3968,9 @@ def phase_lm_train_learn() -> dict:
     emit({"phase": "lm_train_learn", "arch": cfg.name, "params": n_params,
           **{key: st[key] for key in ("batch", "seq", "accum", "lr",
                                       "warmup", "steps")},
+          "reduced": {"steps": [st["steps"], 200, "the run's time limit"],
+                      "resume_at": [st["resume_at"], 100,
+                                    "the run's time limit"]},
           "loss_first": losses[0], "loss_last": losses[-1],
           "loss_mean_first_20": first, "loss_mean_last_20": last,
           "losses_every_20": losses[::20], "wall_s": wall,
@@ -3986,7 +4148,8 @@ def phase_lm_train_full() -> dict:
        gradient norm (f64) within ``TRAIN_FULL_TOL``, through the
        CUDA-core kernels of both.
     3. ``FULL_TRAIN["steps"]`` steps at the chosen depth: step ms
-       (median of steps 2-5, synced), the forward / backward / optimizer
+       (median of the steps after the first, synced), the forward /
+       backward / optimizer
        split (``StepSplit``), tokens/s, peak memory, MFU (``6 *
        active_param_count * tokens / step_s`` over 989 TFLOP/s bf16, the
        reference's ``model_flops``), launches per step, which must be
@@ -4132,13 +4295,14 @@ def phase_lm_train_full() -> dict:
                                 "at 2 and 4 layers)"],
                    "batch": [f"{accum} x {seq} tokens a step", "train_4k: "
                              "256 x 4096", "the run's time limit"]},
+          "reduced": {"steps": [steps, 5, "the run's time limit"]},
           "probe_peak_bytes": probes, "per_layer_bytes": per_layer,
           "base_bytes": base, "budget_bytes": budget, "total_bytes": total,
           "probe_s": probe_s, "steps_s": steps_s, "profile_s": profile_s,
           "kernels_s": kernels_s, "oom_at": oom_at, "init_s": init_s,
           "params": n_params, "active_params": active, "steps": steps,
           "step_ms": [1e3 * t for t in times],
-          "step_ms_median_2_5": 1e3 * step_s, "split_ms": split_ms,
+          "step_ms_after_first": 1e3 * step_s, "split_ms": split_ms,
           "tokens_per_s": tokens / step_s, "peak_mem_bytes": peak,
           "mfu": 6 * active * tokens / step_s / BF16_FLOPS_PER_S,
           "losses": losses, "launches_per_step": {
@@ -4309,13 +4473,11 @@ def dist_rank_mesh(rank: int, world_size: int, init_method: str, data: int,
 
 def dist_train_rank(rank: int, world_size: int, init_method: str,
                     backend: str) -> dict:
-    """One rank of phase ``lm_train_dist``: the depth probes, the
-    training steps and the f32 check (``phase_lm_train_dist``)."""
+    """One rank of phase ``lm_train_dist``: the training steps and the
+    f32 check (``phase_lm_train_dist``)."""
     import statistics
 
     import torch
-    import torch.distributed as dist
-    from repro_torch.dist.collectives import all_gather_dim
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.segment_matmul.ops import segment_matmul
     from repro_torch.launch.train import build, state_specs, synthetic_batch
@@ -4327,36 +4489,11 @@ def dist_train_rank(rank: int, world_size: int, init_method: str,
     data, model = dt["dims"]
     mesh = dist_rank_mesh(rank, world_size, init_method, data, model,
                           backend=backend)
-    world = dist.group.WORLD
     clock = CollectiveClock()
-    seq, accum, steps = dt["seq"], dt["accum"], dt["steps"]
+    seq, accum, steps, depth = (dt["seq"], dt["accum"], dt["steps"],
+                                dt["depth"])
     B = accum * data
     total = torch.cuda.get_device_properties(mesh.device).total_memory
-    batch = synthetic_batch(dist_cut(2, mesh), B, seq, 0, mesh.device)
-    t0 = time.perf_counter()
-    probes = {}
-    for L in dt["probe_layers"]:
-        progress(rank, f"probe at {L} layers")
-        state, do_step = build(dist_cut(L, mesh), 3e-4, 2, accum=accum,
-                               mesh=mesh, zero=True)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        new, _ = do_step(state, batch, 0)
-        torch.cuda.synchronize()
-        peak = torch.tensor([torch.cuda.max_memory_allocated()],
-                            device=mesh.device)
-        probes[L] = all_gather_dim(peak, 0, world).tolist()
-        del new, state, do_step
-        free_card()
-    lo, hi = dt["probe_layers"]
-    per_layer = (sum(probes[hi]) - sum(probes[lo])) / (hi - lo)
-    base = sum(probes[lo]) - lo * per_layer
-    budget = (total * (1 - DIST_TRAIN_MARGIN)
-              - world_size * DIST_CONTEXT_BYTES)
-    depth = max(L for L in range(2, get_full_depth() + 1, 2)
-                if L == 2 or base + per_layer * L <= budget)
-    probe_s = time.perf_counter() - t0
-    progress(rank, f"probes {probes}: depth {depth} ({probe_s:.1f} s)")
 
     # step 1 of the same cut, batch and weights in one process (rank 0's
     # card), its routes recorded for the mesh's step 1
@@ -4427,10 +4564,9 @@ def dist_train_rank(rank: int, world_size: int, init_method: str,
     check_s = time.perf_counter() - t0
     step_s = statistics.median(times[1:])
     return dict(
-        rank=rank, coords=mesh.coords, depth=depth, probes=probes,
+        rank=rank, coords=mesh.coords, depth=depth,
         one_process=dict(one, seconds=one_s), route_flips=pinned.flips,
-        per_layer_bytes=per_layer, base_bytes=base, budget_bytes=budget,
-        total_bytes=total, probe_s=probe_s, init_s=init_s,
+        total_bytes=total, init_s=init_s,
         step_ms=[1e3 * t for t in times], step_s=step_s,
         collective_ms=[1e3 * c for c in coll_s],
         split_ms={k: statistics.median(p[k] for p in parts[1:])
@@ -4499,13 +4635,11 @@ def phase_lm_train_dist() -> dict:
     gloo (``launch.mesh.run_on_mesh``, spawned), sequence parallel and
     ZeRO, f32 state and bf16 compute, ``launch.train.build``'s step on
     ``synthetic_batch`` traffic of train_4k sequences, one per data rank
-    per microbatch, accumulation 4, 3 steps.
+    per microbatch, accumulation 4, ``DIST_TRAIN["steps"]`` steps at
+    ``DIST_TRAIN["depth"]`` layers (cuts for the run's time, printed as
+    ``reduced``).
 
-    1. Depth (a cut for memory): one step each at 2 and 4 layers; the
-       four ranks' peaks summed give the intercept and the slope per
-       layer; the depth is the deepest even one that fits the card's
-       memory less ``DIST_TRAIN_MARGIN`` and a context per rank.
-    2. The steps: step time (median of steps 2-3), the forward /
+    1. The steps: step time (the steps after the first), the forward /
        backward / optimizer split (``StepSplit``, each rank's), the host
        time inside the collectives (``CollectiveClock``), tokens/s, MFU
        (the reference's ``model_flops``: 6 x active params x tokens over
@@ -4513,18 +4647,17 @@ def phase_lm_train_dist() -> dict:
        launch the sm90 flash kernel 2 times a layer-microbatch and the
        sm90 grouped GEMM 9 times, at its own shapes (12 / 4 heads, 24
        of the 48 experts).
-    3. Step 1's loss and each leaf's f64 gradient norm against the same
+    2. Step 1's loss and each leaf's f64 gradient norm against the same
        cut, batch and weights in one process (rank 0, before the mesh
        builds its state), the mesh's step 1 routed as the one process
        routed (``MeshRoutes``: a near tie may choose otherwise under
        the ranks' summation order), within ``TRAIN_FULL_TOL`` (the norm
        weights within ``DIST_NORM_GRAD_TOL``).
-    4. The 2-layer cut in f32, four ranks against one process, routes
-       pinned as in 3 (``DIST_F32_TOL`` per leaf); ``(1, 1)`` over NCCL
-       against one
-       process; ``(2, 2)`` over NCCL one rank per card where the machine
-       has four cards, else printed as skipped.
-    5. Both kernels at one rank's shapes (``lm_train_kernel_cases``).
+    3. The 2-layer cut in f32, four ranks against one process, routes
+       pinned as in 2 (``DIST_F32_TOL`` per leaf); ``(1, 1)`` over NCCL
+       against one process; ``(2, 2)`` over NCCL one rank per card where
+       the machine has four cards, else printed as skipped.
+    4. Both kernels at one rank's shapes (``lm_train_kernel_cases``).
     A rank that fails fails the phase.  Returns the launches summed over
     the ranks and the kernel readings."""
     import torch
@@ -4603,20 +4736,19 @@ def phase_lm_train_dist() -> dict:
           "mesh": {"data": data, "model": model}, "backend": "gloo",
           "ranks_on": f"cuda:0 x {world} (one card)",
           "sp": True, "zero": True,
-          "cuts": {"n_layers": [depth, get_full_depth(),
-                                "memory: the deepest even depth whose "
-                                "summed four-rank step peak fits one card "
-                                "(probed at 2 and 4 layers)"],
-                   "batch": [f"{accum} x {data} x {seq} tokens a step",
-                             "train_4k: 256 x 4096",
-                             "the run's time limit"]},
-          "probe_peak_bytes": r0["probes"],
-          "per_layer_bytes": r0["per_layer_bytes"],
-          "base_bytes": r0["base_bytes"], "budget_bytes": r0["budget_bytes"],
-          "total_bytes": r0["total_bytes"], "probe_s": r0["probe_s"],
+          "reduced": {"n_layers": [depth, get_full_depth(),
+                                   "the run's time limit: a fixed depth "
+                                   "(10 before, the deepest the four "
+                                   "ranks' summed peak let fit, probed at "
+                                   "2 and 4 layers)"],
+                      "batch": [f"{accum} x {data} x {seq} tokens a step",
+                                "train_4k: 256 x 4096",
+                                "the run's time limit"],
+                      "steps": [dt["steps"], 3, "the run's time limit"]},
+          "total_bytes": r0["total_bytes"],
           "init_s": r0["init_s"], "mesh_run_s": mesh_s,
           "step_ms": {r["rank"]: r["step_ms"] for r in ranks},
-          "step_ms_median_2_3": 1e3 * step_s,
+          "step_ms_after_first": 1e3 * step_s,
           "collective_ms": {r["rank"]: r["collective_ms"] for r in ranks},
           "split_ms": {r["rank"]: r["split_ms"] for r in ranks},
           "tokens_per_s": tokens / step_s,
@@ -4747,7 +4879,7 @@ def gnn_dist_rank(rank: int, world_size: int, init_method: str) -> dict:
         out[arch] = dict(
             first=first, first_s=first_s, local_edges=edges,
             step_ms=[1e3 * t for t in times],
-            step_ms_median_2_3=1e3 * statistics.median(times[1:]),
+            step_ms_after_first=1e3 * statistics.median(times[1:]),
             collective_ms=[1e3 * c for c in coll],
             collective_calls_per_step=calls, losses=losses,
             optimizer_grad_norm_f32=float(m["grad_norm"]),
@@ -4865,8 +4997,10 @@ def phase_gnn_train_dist() -> None:
               "local_edges": {r["rank"]: r["cells"][arch]["local_edges"]
                               for r in ranks},
               "steps": GNN_DIST["steps"],
-              "step_ms_median_2_3": max(c["step_ms_median_2_3"]
-                                        for c in cells),
+              "reduced": {"steps": [GNN_DIST["steps"], 3,
+                                    "the run's time limit"]},
+              "step_ms_after_first": max(c["step_ms_after_first"]
+                                         for c in cells),
               "step_ms": {r["rank"]: r["cells"][arch]["step_ms"]
                           for r in ranks},
               "collective_ms": {r["rank"]: r["cells"][arch]["collective_ms"]
@@ -5185,7 +5319,8 @@ def phase_recsys_train_dist() -> tuple[int, dict]:
           "zero": rd["zero"], "local_rows": r0["local_rows"],
           "batch": RECSYS_SHAPES["train_batch"]["batch"],
           "steps": rd["steps"], "mesh_run_s": mesh_s,
-          "step_ms_median_2_3": 1e3 * max(r["step_s"] for r in ranks),
+          "reduced": {"steps": [rd["steps"], 3, "the run's time limit"]},
+          "step_ms_after_first": 1e3 * max(r["step_s"] for r in ranks),
           "step_ms": {r["rank"]: r["step_ms"] for r in ranks},
           "collective_ms": {r["rank"]: r["collective_ms"] for r in ranks},
           "losses": r0["losses"],
@@ -5329,11 +5464,11 @@ def main() -> None:
     from repro_torch.core.weights import preprocess
     from repro_torch.launch.estimate import parse_graph
 
-    phase_card()
-    phase_build()
+    timed("card", phase_card)
+    ptxas = timed("build", phase_build)
 
     t0 = time.perf_counter()
-    g = parse_graph(args.graph)
+    g = timed("graph", parse_graph, args.graph)
     emit({"phase": "graph", "spec": args.graph, "n": g.n, "m": g.m,
           "time_span": g.time_span, "seconds": time.perf_counter() - t0})
 
@@ -5341,18 +5476,20 @@ def main() -> None:
     tree = candidate_trees(get_motif(args.motif), n_candidates=3,
                            roots_per_tree=2)[0]
     dev = g.device_arrays("cuda")
-    wts = preprocess(g, tree, args.delta, dev=dev)
-    recs = [phase_interval_weight(dev, wts, tree),
-            phase_tree_sampler(g, dev, wts, tree, args.chunk)]
+    wts = timed("preprocess", preprocess, g, tree, args.delta, dev=dev)
+    recs = [timed("interval_weight", phase_interval_weight, dev, wts, tree),
+            timed("tree_sampler", phase_tree_sampler, g, dev, wts, tree,
+                  args.chunk)]
     del dev, wts
     torch.cuda.empty_cache()
 
-    phase_small()
-    launches, full = phase_full(g, args.motif, args.delta, args.k,
-                                args.chunk)
-    phase_breakdown(g, args.motif, args.delta, args.chunk)
-    service, cohort = phase_service(g, args.delta, args.k, args.chunk,
-                                    full)
+    timed("small", phase_small)
+    launches, full = timed("full", phase_full, g, args.motif, args.delta,
+                           args.k, args.chunk)
+    timed("breakdown", phase_breakdown, g, args.motif, args.delta,
+          args.chunk)
+    service, cohort = timed("service", phase_service, g, args.delta, args.k,
+                            args.chunk, full)
     for rec in recs:
         rec["launches"] = launches[rec["name"]]
         rec["launches_service"] = service[rec["name"]]
@@ -5361,62 +5498,66 @@ def main() -> None:
                    / -(-args.k // args.chunk))
     gc.collect()
     torch.cuda.empty_cache()
-    phase_oracle(args.chunk, args.k)
-    phase_stream_small()
-    stream, padded_err = phase_stream(g, args.chunk, args.k)
+    timed("oracle", phase_oracle, args.chunk, args.k)
+    timed("stream_small", phase_stream_small)
+    stream, padded_err = timed("stream", phase_stream, g, args.chunk, args.k)
     for rec in recs:
         rec["launches_stream"] = stream[rec["name"]]
         rec["max_abs_err_padded"] = padded_err[rec["name"]]
-    gateway = phase_gateway(g, args.graph, args.delta, args.k, args.chunk,
-                            full)
+    gateway = timed("gateway", phase_gateway, g, args.graph, args.delta,
+                    args.k, args.chunk, full)
     for rec in recs:
         rec["launches_gateway"] = gateway[rec["name"]]
-    mesh = phase_mesh(g, args.motif, args.delta, args.k, args.chunk, full,
-                      cohort)
+    mesh = timed("mesh", phase_mesh, g, args.motif, args.delta, args.k,
+                 args.chunk, full, cohort)
     for rec in recs:
         rec["launches_mesh"] = mesh[rec["name"]]
     del g, full, cohort
     gc.collect()
     torch.cuda.empty_cache()
 
-    fa, fa_simt = phase_flash_attention()
+    fa, fa_simt = timed("flash_attention", phase_flash_attention)
+    fa_simt["ptxas"] = ptxas["flash_attention"]
     torch.cuda.empty_cache()
-    sm, sm_simt = phase_segment_matmul()
-    eb = phase_embedding_bag()
+    sm, sm_simt = timed("segment_matmul", phase_segment_matmul)
+    sm_simt["ptxas"] = ptxas["segment_matmul"]
+    eb = timed("embedding_bag", phase_embedding_bag)
     torch.cuda.empty_cache()
-    phase_lm_small()
-    fa["launches"] = phase_lm_full()["sm90"]
+    timed("lm_small", phase_lm_small)
+    fa["launches"] = timed("lm_full", phase_lm_full)["sm90"]
     gc.collect()
     torch.cuda.empty_cache()
-    phase_moe_small()
-    moe = phase_moe_full()
+    timed("moe_small", phase_moe_small)
+    moe = timed("moe_full", phase_moe_full)
     fa["launches_moe_prefill"] = moe["prefill_flash_launches_by_kernel"][
         "sm90"]
     sm["launches"] = moe["segment_matmul_launches_by_kernel"]["sm90"]
-    check = phase_moe_check()
+    check = timed("moe_check", phase_moe_check)
     fa_simt["launches"] = check["flash"]["simt"]
     sm_simt["launches"] = check["segment_matmul"]["simt"]
-    phase_recsys_small()
-    eb["launches"] = phase_recsys_full()
+    timed("recsys_small", phase_recsys_small)
+    eb["launches"] = timed("recsys_full", phase_recsys_full)
     gc.collect()
     torch.cuda.empty_cache()
-    phase_train_small()
-    phase_gnn_train()
-    eb["launches_train"], eb["backward"] = phase_recsys_train()
-    motif = phase_motif_gnn()
+    timed("train_small", phase_train_small)
+    timed("gnn_train", phase_gnn_train)
+    eb["launches_train"], eb["backward"] = timed("recsys_train",
+                                                 phase_recsys_train)
+    motif = timed("motif_gnn", phase_motif_gnn)
     for rec in recs:
         rec["launches_motif_gnn"] = motif[rec["name"]]
     free_card()
-    small = phase_lm_train_small()
-    learn = phase_lm_train_learn()
-    full = phase_lm_train_full()
+    small = timed("lm_train_small", phase_lm_train_small)
+    learn = timed("lm_train_learn", phase_lm_train_learn)
+    full = timed("lm_train_full", phase_lm_train_full)
     free_card()
-    on_mesh = phase_lm_train_dist()
+    on_mesh = timed("lm_train_dist", phase_lm_train_dist)
     free_card()
-    phase_gnn_train_dist()
-    eb["launches_train_dist"], eb_dist = phase_recsys_train_dist()
+    timed("gnn_train_dist", phase_gnn_train_dist)
+    eb["launches_train_dist"], eb_dist = timed("recsys_train_dist",
+                                               phase_recsys_train_dist)
     eb.update({f"train_dist_{k}": v for k, v in eb_dist.items()})
-    phase_pipeline()
+    timed("pipeline", phase_pipeline)
     # each kernel's launches on each LM-training path it serves: the sm90
     # flash kernel at full width and in lm100m, the sm90 grouped GEMM at
     # full width and in the bf16 MoE smoke configs, the CUDA-core kernels
@@ -5462,6 +5603,7 @@ def main() -> None:
                 and r.get("launches_lm_train_check", 1) > 0 for r in recs),
             "a kernel was launched no time on its path")
     emit({"phase": "total", "seconds": time.perf_counter() - T_START})
+    emit({"phase_seconds": PHASE_SECONDS})
     emit({"kernels": recs})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -5469,4 +5611,10 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    except BaseException:
+        # where the time went up to the failure
+        print(json.dumps({"phase_seconds": PHASE_SECONDS}), file=sys.stderr,
+              flush=True)
+        raise

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -46,7 +47,11 @@ SOURCES = {
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: kernel name -> the compiler's output of its last build in this process
+#: (``-Xptxas -v``: each entry's registers, shared memory and spills)
+REPORTS: dict[str, str] = {}
 
 
 def nvcc() -> str:
@@ -98,6 +103,7 @@ def build(names=None) -> list[str]:
     errors = []
     for name, (proc, tmp) in started.items():
         out, _ = proc.communicate()
+        REPORTS[name] = out
         if proc.returncode != 0:
             errors.append(f"nvcc {name} (exit {proc.returncode}):\n{out}")
             tmp.unlink(missing_ok=True)
@@ -109,6 +115,28 @@ def build(names=None) -> list[str]:
 
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def ptxas_usage(report: str) -> dict:
+    """``{entry: {"registers": r, "spill_stores": s, "spill_loads": l}}``
+    from the ``-Xptxas -v`` lines of a build's output (mangled entry
+    names)."""
+    out, entry = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            out[entry] = dict(registers=None, spill_stores=0, spill_loads=0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and entry:
+            out[entry].update(spill_stores=int(m.group(1)),
+                              spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out[entry]["registers"] = int(m.group(1))
+    return out
 
 
 def library(name: str) -> ctypes.CDLL:

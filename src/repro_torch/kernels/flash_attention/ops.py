@@ -8,8 +8,10 @@ device, or on inputs the kernels do not take, it raises.  On the card it
 dispatches on dtype and head dim (``kernel_for``): bf16 at head dims 64
 and 128 goes to ``csrc/flash_attention_sm90.cu`` (wgmma fed by TMA; p
 rounded to bf16 before P.V, as the LM's JAX reference rounds it), every
-other input to ``csrc/flash_attention.cu`` (CUDA cores, f32 p).  A
-failed build or launch raises; neither kernel stands in for the other.
+other input to ``csrc/flash_attention.cu`` (CUDA cores, f32 p).  Both
+read 16-byte rows: a view whose rows are not 16-byte aligned is copied
+first.  A failed build or launch raises; neither kernel stands in for
+the other.
 
 ``flash_attention.launches`` counts every kernel launch,
 ``flash_attention.launches_sm90`` and ``flash_attention.launches_simt``
@@ -98,13 +100,11 @@ def _flash_attention_simt(q, k, v, *, causal=True, window=0,
 def _launch(kernel, q, k, v, causal, window, attn_softcap):
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
-    if kernel == "flash_attention_sm90":
-        q, k, v = (x if tma_ready(x)
-                   else x.clone(memory_format=torch.contiguous_format)
-                   for x in (q, k, v))
-    else:
-        q, k, v = (x if x.stride(-1) == 1 else x.contiguous()
-                   for x in (q, k, v))
+    # both kernels read rows of 16 bytes: a view whose rows are not
+    # 16-byte aligned is copied first
+    q, k, v = (x if tma_ready(x)
+               else x.clone(memory_format=torch.contiguous_format)
+               for x in (q, k, v))
     out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out

@@ -505,6 +505,122 @@ def test_segment_matmul_kernel_marks_bad_group_ids(cuda_device):
     assert bool((y[:8] == 32).all()) and bool(torch.isnan(y[8:]).all())
 
 
+def _assert_kernel_close(got, want, dtype: str) -> None:
+    """``got`` against ``want`` under ``chip_smoke.KERNEL_TOL[dtype]``:
+    per element ``atol_rel * rms(want) + rtol * |want|``, relative L2
+    ``rel_l2_max``."""
+    tol = _kernel_tol(dtype)
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    rms = float(want.pow(2).mean().sqrt())
+    assert bool(torch.isfinite(got).all())
+    assert bool((err <= tol["atol_rel"] * rms
+                 + tol["rtol"] * want.abs()).all()), float(err.max())
+    assert float((got - want).norm() / want.norm()) <= tol["rel_l2_max"]
+
+
+# the CUDA-core flash kernel at chip_smoke.FLASH_SIMT_SHAPES: (dtype, B,
+# Sq, Skv, Hq, Hkv, D, causal, window, softcap); q x 8 where there is a
+# softcap, so the scores reach it
+FA_SIMT_SHAPES = [
+    ("float32", 1, 1000, 1003, 8, 4, 16, True, 0, 0.0),
+    ("float32", 1, 1000, 1003, 8, 4, 32, True, 256, 0.0),
+    ("float32", 1, 1000, 1003, 8, 4, 64, True, 0, 30.0),
+    ("float32", 1, 1000, 1003, 8, 4, 128, False, 0, 0.0),
+    ("float32", 1, 1000, 1003, 8, 4, 256, True, 0, 0.0),
+    ("bfloat16", 1, 1000, 1003, 8, 4, 16, True, 0, 0.0),
+    ("bfloat16", 1, 1000, 1003, 8, 4, 32, False, 0, 0.0),
+    ("bfloat16", 1, 1000, 1003, 8, 4, 256, True, 256, 50.0),
+    # the f32 check of the MoE architecture: 2 x 1032, 16 / 16 heads
+    ("float32", 2, 1032, 1032, 16, 16, 128, True, 0, 0.0),
+]
+
+
+@pytest.mark.parametrize("case", FA_SIMT_SHAPES)
+def test_simt_flash_kernel_at_ragged_shapes(cuda_device, case):
+    """Every head dim in f32, the bf16 head dims the sm90 kernel leaves
+    to it, Sq 1000 against Skv 1003, GQA 2:1, a window and a softcap:
+    one CUDA-core launch each, held to the plain version under the
+    smoke run's limits."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    dt, B, Sq, Skv, Hq, Hkv, D, causal, window, cap = case
+    g = torch.Generator(device=cuda_device).manual_seed(Sq + D)
+    q, k, v = (torch.randn(s, generator=g, device=cuda_device)
+               for s in ((B, Sq, Hq, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D)))
+    dtype = getattr(torch, dt)
+    q, k, v = (q * (8 if cap else 1)).to(dtype), k.to(dtype), v.to(dtype)
+    kw = dict(causal=causal, window=window, attn_softcap=cap)
+    n = flash_attention.launches_simt
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_simt == n + 1
+    _assert_kernel_close(got, flash_attention_ref(q, k, v, **kw), dt)
+
+
+def test_simt_flash_kernel_reads_unaligned_views(cuda_device):
+    """f32 views whose rows are not 16-byte aligned (a base one float
+    off, a head stride of D + 1) are copied before the CUDA-core kernel
+    reads them with 16-byte loads."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    B, S, H, D = 1, 200, 4, 64
+    base = torch.randn(3 * B * S * H * (D + 1) + 1, generator=g,
+                       device=cuda_device)
+    q, k, v = (base[1 + i * B * S * H * (D + 1):][:B * S * H * (D + 1)]
+               .view(B, S, H, D + 1)[..., :D] for i in range(3))
+    n = flash_attention.launches_simt
+    got = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_simt == n + 1
+    _assert_kernel_close(got, flash_attention_ref(q, k, v, causal=True),
+                         "float32")
+
+
+# the f32 grouped GEMM at the f32 check's products and
+# chip_smoke.SM_F32_SHAPES: (E, C, K, N)
+SM_F32_SHAPES = [(64, 2072, 2048, 1408), (64, 2072, 1408, 2048),
+                 (64, 8, 2048, 1408), (8, 136, 1000, 1003)]
+
+
+@pytest.mark.parametrize("case", SM_F32_SHAPES)
+def test_f32_segment_matmul_kernel_at_path_shapes(cuda_device, case):
+    """The f32 kernel (one launch) against the plain version under the
+    smoke run's f32 limits: gate/up and down at C = 2072, C = 8, and
+    K = 1000, N = 1003, where no load is 16 bytes."""
+    from repro_torch.kernels.segment_matmul.ops import segment_matmul
+    from repro_torch.kernels.segment_matmul.ref import segment_matmul_ref
+    E, C, K, N = case
+    g = torch.Generator(device=cuda_device).manual_seed(C + K)
+    x = torch.randn((E * C, K), generator=g, device=cuda_device)
+    w = torch.randn((E, K, N), generator=g, device=cuda_device) * K ** -0.5
+    groups = torch.arange(E, dtype=torch.int32, device=cuda_device)
+    n = segment_matmul.launches_simt
+    got = segment_matmul(x, w, groups)
+    torch.cuda.synchronize()
+    assert segment_matmul.launches_simt == n + 1
+    _assert_kernel_close(got, segment_matmul_ref(x, w, groups), "float32")
+
+
+def test_f32_segment_matmul_marks_one_bad_block(cuda_device):
+    """An id out of range on the card turns its block (136 rows, K 1000,
+    N 1003) to NaN and leaves every other block as the valid ids give."""
+    from repro_torch.kernels.segment_matmul.ops import segment_matmul
+    E, C, K, N = 8, 136, 1000, 1003
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn((E * C, K), generator=g, device=cuda_device)
+    w = torch.randn((E, K, N), generator=g, device=cuda_device)
+    groups = torch.arange(E, dtype=torch.int32, device=cuda_device)
+    bad = groups.clone()
+    bad[3] = E
+    good, got = segment_matmul(x, w, groups), segment_matmul(x, w, bad)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(got[3 * C:4 * C]).all())
+    assert torch.equal(got[:3 * C], good[:3 * C])
+    assert torch.equal(got[4 * C:], good[4 * C:])
+
+
 def _sm_inputs(device, sizes, K, N, bm, seed):
     """Padded bf16 rows and weights of one case, made from a numpy seed."""
     import numpy as np
