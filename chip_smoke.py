@@ -59,8 +59,8 @@ port's two paths:
 * LM training: card against CPU for the five LM smoke configs (first
   loss, every gradient leaf, three AdamW steps, f32 and bf16) and a
   killed-and-resumed run equal to the straight one;
-  ``examples/train_lm.py``'s ~100 M model for 100 steps (the loss falls,
-  a run resumed from step 50 matches); granite-moe-3b-a800m at full
+  ``examples/train_lm.py``'s ~100 M model for 60 steps (the loss falls,
+  a run resumed from step 30 matches); granite-moe-3b-a800m at full
   width on one card (f32 state, bf16 compute, remat), cut in depth to
   what the measured peak allows, train_4k sequences with accumulation
   4: each step launches the sm90 flash kernel (forward and recompute)
@@ -87,6 +87,17 @@ port's two paths:
   meshless one on the table gradient, the kernel at a rank's shapes
   (phase ``recsys_train_dist``); GPipe on ``(pod=4, data=1, model=1)``
   at width 4096 against serial application (phase ``pipeline``).
+* the roofline (phase ``roofline``, on the host, no card work): the dry
+  run of ``repro_torch.launch.dryrun`` -- rank 0's step counted on meta
+  tensors (``roofline.cost``) on a ``(1, 1)`` layout -- for the cells
+  this run drives uncut on the card (DCN-v2 train_batch, serve_p99,
+  serve_bulk, retrieval_cand; the four ``GNN_CELLS``), each cell's H100
+  roofline terms beside the step or call time phases ``recsys_full``,
+  ``recsys_train`` and ``gnn_train`` measured, and their ratio.
+
+The GNN cells' configs (fanouts, remat groups), widths and batch layouts
+come from ``repro_torch.launch.specs.build_cell``; the smoke generates
+only their numpy data and requires it to match the cell's layout.
 
 Each phase prints one JSON line; then a ``{"phase_seconds": ...}`` line
 (the wall time of each phase call in ``main``), the ``kernels`` record
@@ -216,6 +227,9 @@ TRAIN_FULL_TOL = 1e-3
 # rtol (KERNEL_TOL), its values rounding at 2^-8 through six layers
 BF16_GRAD_TOL = 1e-2
 TRAIN_STEPS = 5
+# the DCN-v2 cells phase roofline counts beside their card times
+ROOFLINE_RECSYS = ("train_batch", "serve_p99", "serve_bulk",
+                   "retrieval_cand")
 # the GNN cells trained at full width (configs/shapes.py GNN_SHAPES;
 # ogb_products waits for the distribution slice: unsharded, its edge
 # activations pass the card's 80 GB)
@@ -228,21 +242,23 @@ LM_IDS = ("granite-8b", "gemma2-27b", "deepseek-7b", "qwen2-moe-a2.7b",
           "granite-moe-3b-a800m")
 LM_TRAIN_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 # examples/train_lm.py's ~100 M model (its lm100m() and its settings: batch
-# 8, seq 128, accumulation 2, lr 6e-4, warmup 20) for 100 steps, resumed
-# from step 50 (200 and 100 before: a cut for the run's time; the loss
-# must still fall); the resumed run is held to the straight one within
+# 8, seq 128, accumulation 2, lr 6e-4, warmup 20) for 60 steps, resumed
+# from step 30 (200 and 100, then 100 and 50, before: cuts for the run's
+# time; the loss must still fall); the resumed run is held to the straight
+# one within
 # LEARN_RESUME_TOL (relative: each loss, each parameter leaf in L2), as
 # the card's scatter-adds may sum in another order from run to run
-LEARN = dict(batch=8, seq=128, accum=2, lr=6e-4, warmup=20, steps=100,
-             resume_at=50)
+LEARN = dict(batch=8, seq=128, accum=2, lr=6e-4, warmup=20, steps=60,
+             resume_at=30)
 LEARN_RESUME_TOL = 1e-3
 # granite-moe-3b-a800m trained at full width on one card: train_4k's
 # sequence of 4096 tokens, one sequence per microbatch, accumulation 4
-# (the reference's launch/specs.py PERF entry for this cell), 3 steps (5
-# before: a cut for the run's time); the depth is the deepest even one
+# (the reference's launch/specs.py PERF entry for this cell), 2 steps (5,
+# then 3, before: cuts for the run's time); the depth is the deepest even
+# one
 # whose predicted step peak stays FULL_TRAIN_MARGIN below the card's
 # memory
-FULL_TRAIN = dict(arch="granite-moe-3b-a800m", seq=4096, accum=4, steps=3,
+FULL_TRAIN = dict(arch="granite-moe-3b-a800m", seq=4096, accum=4, steps=2,
                   check_layers=2)
 FULL_TRAIN_MARGIN = 0.06
 # the same model on make_host_mesh(data=2, model=2): four ranks over gloo
@@ -274,8 +290,7 @@ DIST_F32_TOL = 1e-4
 # graphcast) trained edge-parallel on make_host_mesh(data=4, model=1),
 # four gloo ranks sharing the card, 2 f32 AdamW steps (3 before: a cut for
 # the run's time); step 1 held to one process within TRAIN_FULL_TOL
-GNN_DIST = dict(data=4, steps=2, cells=("gatedgcn", "graphcast", "gat-cora"),
-                remat_group={"gatedgcn": 4, "graphcast": 4})
+GNN_DIST = dict(data=4, steps=2, cells=("gatedgcn", "graphcast", "gat-cora"))
 # DCN-v2 at full size on make_host_mesh(data=2, model=2): the reference's
 # _recsys_cell layout (no ZeRO: the four ranks' summed peak was predicted
 # to fit the card), 2 steps (3 before: a cut for the run's time); the
@@ -298,6 +313,9 @@ def emit(obj) -> None:
 
 
 PHASE_SECONDS: dict = {}
+# (arch, shape) -> seconds a call or step took on the card, filled by
+# phases recsys_full, recsys_train and gnn_train for phase roofline
+CARD_S: dict = {}
 
 
 def timed(name: str, fn, *args, **kw):
@@ -2027,17 +2045,6 @@ def phase_breakdown(g, motif_name: str, delta: int, chunk: int,
           **prof})
 
 
-def attended_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
-    """(query, key) pairs the mask lets through: the work of one head."""
-    import torch
-    qpos = torch.arange(Sq, dtype=torch.int64)
-    hi = torch.minimum(qpos + 1, torch.tensor(Skv)) if causal else (
-        torch.full_like(qpos, Skv))
-    lo = (qpos - window + 1).clamp(min=0) if window > 0 else (
-        torch.zeros_like(qpos))
-    return int((hi - lo).clamp(min=0).sum())
-
-
 def rel_l2(got, want) -> float:
     got, want = got.float(), want.float()
     return float((got - want).norm() / want.norm())
@@ -2096,7 +2103,7 @@ def phase_flash_attention() -> tuple[dict, dict]:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention.ops import (
-        _flash_attention_simt, flash_attention)
+        _flash_attention_simt, attended_pairs, flash_attention)
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.testing import p_rounding_allowance
     cfg = get_config(LM_ARCH)
@@ -2245,7 +2252,7 @@ def flash_moe_case() -> dict:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention.ops import (
-        _flash_attention_simt, flash_attention)
+        _flash_attention_simt, attended_pairs, flash_attention)
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.testing import p_rounding_allowance
     cfg = get_config(MOE_ARCH)
@@ -2300,7 +2307,8 @@ def flash_simt_case() -> dict:
     fault; timed beside ``scaled_dot_product_attention`` in f32."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ops import (attended_pairs,
+                                                         flash_attention)
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     cfg = get_config(MOE_ARCH)
     B, S, H, D = LM_BATCH, MOE_CHECK_PROMPT + MOE_CHECK_AT, cfg.n_heads, \
@@ -3181,6 +3189,7 @@ def phase_recsys_full() -> int:
                 f"recsys {name}: output {tuple(out.shape)} not finite")
         total += launches["embedding_bag"]
         results[name] = out
+        CARD_S["dcn-v2", name] = ms / 1e3
         emit({"phase": "recsys_full", "call": name, "rows": rows,
               "ms_per_call": ms, "rows_per_s": rows / ms * 1e3,
               "launches": launches})
@@ -3265,26 +3274,39 @@ def phase_train_small() -> None:
           "equal": True, "leaves": len(a)})
 
 
-def gnn_cell(arch: str, shape: str, r) -> tuple:
-    """``(cfg, d_in, d_out, numpy batch, readings)`` of one GNN cell at
-    the reference's ``launch/specs.py`` layout, inputs from ``r``: a full
-    graph with its edges padded to a multiple of 512 (GraphCast: its
-    mesh and its three edge sets), sampled GraphSAGE blocks over a random
-    graph of the shape's n and m (the shape's fanout), or molecules."""
-    import dataclasses
+def layout_of(cell, batch) -> dict:
+    """Require a numpy batch to hold the keys, shapes and dtypes of the
+    cell's batch argument (``launch.specs``); return its layout."""
+    from repro_torch.train import pytree
+    want = [(p, tuple(x.shape), str(x.dtype).removeprefix("torch."))
+            for p, x in pytree.flatten_with_paths(cell.args[2])]
+    got = [(p, tuple(x.shape), str(x.dtype))
+           for p, x in pytree.flatten_with_paths(batch)]
+    require(got == want, f"{cell.arch} x {cell.shape}: generated batch "
+            f"{got} is not the cell's layout {want}")
+    return {p: list(shape) for p, shape, _ in want}
 
+
+def gnn_cell(arch: str, shape: str, r) -> tuple:
+    """``(cfg, d_in, d_out, numpy batch, readings)`` of one GNN cell: the
+    config (the shape's fanout, the cell's remat group), widths and
+    batch layout of ``repro_torch.launch.specs.build_cell``, inputs from
+    ``r``: a full graph with its edges padded to a multiple of 512
+    (GraphCast: its mesh and its three edge sets), sampled GraphSAGE
+    blocks over a random graph of the shape's n and m (the shape's
+    fanout), or molecules; the batch held to the cell's layout."""
     import numpy as np
-    from repro_torch.configs import get_config
     from repro_torch.configs.shapes import GNN_SHAPES
     from repro_torch.graphs import NeighborSampler
+    from repro_torch.launch.mesh import layout_mesh
+    from repro_torch.launch.specs import build_cell
     from repro_torch.testing import (gnn_block_batch, gnn_full_batch,
                                      gnn_molecule_batch)
-    sh, cfg = GNN_SHAPES[shape], get_config(arch)
-    d_in = sh["d_feat"]
-    d_out = cfg.n_vars if cfg.kind == "graphcast" else sh["n_classes"]
+    cell = build_cell(arch, shape, layout_mesh((1, 1)))
+    sh, cfg = GNN_SHAPES[shape], cell.cfg
+    d_in, d_out = cell.d_in, cell.d_out
     info = {}
     if shape == "minibatch_lg":
-        cfg = dataclasses.replace(cfg, sample_sizes=tuple(sh["fanout"]))
         n, m = sh["n_nodes"], sh["n_edges"]
         t0 = time.perf_counter()
         snd, rcv = r.integers(0, n, m), r.integers(0, n, m)
@@ -3306,11 +3328,11 @@ def gnn_cell(arch: str, shape: str, r) -> tuple:
     elif shape == "molecule":
         batch = gnn_molecule_batch(r, sh["batch"], sh["n_nodes"],
                                    sh["n_edges"], d_in, sh["n_classes"])
-        d_out = sh["n_classes"]
     else:
         batch = gnn_full_batch(cfg, r, sh["n_nodes"], sh["n_edges"], d_in,
                                sh["n_classes"])
         info = {k: len(v) for k, v in batch.items() if k.endswith("senders")}
+    info["layout"] = layout_of(cell, batch)
     return cfg, d_in, d_out, batch, info
 
 
@@ -3419,6 +3441,7 @@ def phase_gnn_train() -> None:
             if opt_norm is None:
                 opt_norm = float(m["grad_norm"])
         peak = torch.cuda.max_memory_allocated()
+        CARD_S[arch, shape] = statistics.median(times[1:])
         rel = hold_first_step(f"gnn_train {arch} x {shape}", card_first,
                               cpu_first, TRAIN_FULL_TOL, losses)
         prof = device_profile(lambda: step(p, opt, b))
@@ -3593,6 +3616,7 @@ def phase_recsys_train() -> tuple[int, dict]:
         launches.append(embedding_bag.launches)
         losses.append(m["loss"])
     peak = torch.cuda.max_memory_allocated()
+    CARD_S["dcn-v2", "train_batch"] = statistics.median(times[1:])
     require(launches == [1] * TRAIN_STEPS,
             f"recsys_train: embedding_bag launches per step {launches}")
     # f32 is the same arithmetic on both devices: loss and every leaf's
@@ -3666,6 +3690,59 @@ def phase_recsys_train() -> tuple[int, dict]:
     gc.collect()
     torch.cuda.empty_cache()
     return sum(launches), bwd
+
+
+def phase_roofline() -> dict:
+    """The dry run (``repro_torch.launch.dryrun``'s count, on the host:
+    rank 0's step on meta tensors under ``roofline.cost``) of the cells
+    this run drives uncut on one card, on a ``(1, 1)`` layout: DCN-v2's
+    ``ROOFLINE_RECSYS`` calls and step and the four ``GNN_CELLS``.  Each
+    cell's roofline terms on the H100 (``roofline.analysis``) beside the
+    call or step time phases ``recsys_full``, ``recsys_train`` and
+    ``gnn_train`` measured on the card, and the time over the roofline's
+    step (how many times the bound).  The serve cells are counted on
+    bf16 weights, as ``recsys_full`` serves them (the cells' arguments
+    are the reference's f32).  No card work.  Returns the phase's
+    readings by cell."""
+    import dataclasses
+
+    import torch
+    from repro_torch.launch.mesh import layout_mesh
+    from repro_torch.launch.specs import build_cell
+    from repro_torch.roofline.analysis import analyze
+    from repro_torch.roofline.breakdown import breakdown
+    from repro_torch.train import pytree
+    mesh = layout_mesh((1, 1))
+    out = {}
+    for arch, shape in [("dcn-v2", s) for s in ROOFLINE_RECSYS] + list(
+            GNN_CELLS):
+        card_s = CARD_S.get((arch, shape))
+        require(card_s is not None, f"roofline: no card time for {arch} x "
+                f"{shape}")
+        cell = build_cell(arch, shape, mesh)
+        if cell.kind != "train":
+            params = pytree.tree_map(lambda x: x.to(torch.bfloat16),
+                                     cell.args[0])
+            cell = dataclasses.replace(cell, args=(params,) + cell.args[1:])
+        t0 = time.perf_counter()
+        rl, coll, memd, cost = analyze(cell, mesh)
+        trace_s = time.perf_counter() - t0
+        rec = dict(
+            arch=arch, shape=shape, kind=cell.kind, card_s=card_s,
+            compute_s=rl.compute_s, memory_s=rl.memory_s,
+            collective_s=rl.collective_s, roofline_step_s=rl.step_s,
+            bottleneck=rl.bottleneck, card_over_roofline=card_s / rl.step_s,
+            flops=rl.flops, flops_by_dtype=cost.flops_by_dtype,
+            bytes=rl.bytes_hbm, model_flops=rl.model_flops,
+            useful_ratio=rl.useful_ratio, ops=cost.ops, trace_s=trace_s,
+            memory=memd, top_ops=[dict(name=n, bytes=b, flops=f, count=c)
+                                  for b, f, c, n in breakdown(cost, 3)[0]])
+        require(rl.step_s > 0 and all(v >= 0 for v in (
+            rl.compute_s, rl.memory_s, rl.collective_s)),
+            f"roofline {arch} x {shape}: terms {rl}")
+        emit({"phase": "roofline", **rec})
+        out[arch, shape] = rec
+    return out
 
 
 def phase_motif_gnn() -> dict:
@@ -3877,7 +3954,7 @@ def phase_lm_train_learn() -> dict:
     """``examples/train_lm.py`` on the card: lm100m from
     ``init_lm_params`` seed 0 (f32, bf16 compute, remat), AdamW at lr
     6e-4 with warmup 20 over ``LEARN["steps"]`` steps (the example's 200
-    cut to 100 for the run's time, printed as ``reduced``), batch 8 x 128
+    cut to 60 for the run's time, printed as ``reduced``), batch 8 x 128
     in two microbatches, ``run_resumable`` with a checkpoint every
     ``LEARN["resume_at"]`` steps; the loss must fall (mean of the last 20
     below the first 20, and the last below the first, as the example
@@ -4019,7 +4096,8 @@ def lm_train_kernel_cases(cfg, heads=None, experts=None,
     kernel, dW ``bmm`` + ``index_add_``), timed at the same shapes, for
     the step's breakdown."""
     import torch
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ops import (attended_pairs,
+                                                         flash_attention)
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.segment_matmul.ops import segment_matmul
     from repro_torch.kernels.segment_matmul.ref import segment_matmul_ref
@@ -4789,34 +4867,38 @@ def on_rank0(mesh, fn):
 
 def gnn_dist_cell(arch: str) -> tuple:
     """``(cfg, d_in, d_out, numpy batch)`` of the reference's sharded
-    minibatch_lg cell of ``arch`` (``launch/specs.py`` ``_gnn_cell`` with
-    its ``PERF`` entry): the sampled subgraph consumed as one padded
-    graph, ``n = 1024 (1 + 15)(1 + 10)`` = 180,224 nodes and ``16,384 x
-    10 + 1024 x 15`` = 179,200 edges (a multiple of 512: no pad), random
-    from numpy seed 0; GraphCast with its 7,208 mesh nodes, 360,448 g2m
-    and m2g edges (every grid node twice) and 57,856 mesh edges (57,664
-    padded), and the grid mask of the sharded cell."""
-    import dataclasses
-
+    minibatch_lg cell of ``arch`` on ``(data=4, model=1)``: the config
+    (the cell's remat group), widths and batch layout of
+    ``repro_torch.launch.specs.build_cell`` (its ``PERF`` entry: the
+    sampled subgraph consumed as one padded graph, ``n = 1024 (1 + 15)(1
+    + 10)`` = 180,224 nodes and ``16,384 x 10 + 1024 x 15`` = 179,200
+    edges, a multiple of 512: no pad; GraphCast with its 7,208 mesh
+    nodes, 360,448 g2m and m2g edges (every grid node twice), 57,856
+    mesh edges (57,664 padded), the sharded cell's grid mask and the
+    plain edge arrays the cell keeps but GraphCast does not read), random
+    from numpy seed 0 and held to the cell's layout."""
     import numpy as np
-    from repro_torch.configs import get_config
     from repro_torch.configs.shapes import GNN_SHAPES
+    from repro_torch.launch.mesh import layout_mesh
+    from repro_torch.launch.specs import build_cell
     from repro_torch.testing import gnn_full_batch
-    sh = GNN_SHAPES["minibatch_lg"]
+    cell = build_cell(arch, "minibatch_lg", layout_mesh((GNN_DIST["data"],
+                                                          1)))
+    require(not cell.runs_whole, f"{arch} x minibatch_lg: not a sharded "
+            "cell")
+    sh, cfg = GNN_SHAPES["minibatch_lg"], cell.cfg
     f1, f2 = sh["fanout"]
-    n1 = sh["batch_nodes"] * (1 + f1)
-    n, e = n1 * (1 + f2), n1 * f2 + sh["batch_nodes"] * f1
-    cfg = get_config(arch)
-    cfg = dataclasses.replace(
-        cfg, sample_sizes=(f1, f2),
-        remat_group=GNN_DIST["remat_group"].get(arch, cfg.remat_group))
-    d_in = sh["d_feat"]
-    d_out = cfg.n_vars if cfg.kind == "graphcast" else sh["n_classes"]
-    batch = gnn_full_batch(cfg, np.random.default_rng(0), n, e, d_in,
-                           sh["n_classes"])
+    n = cell.args[2]["feats"].shape[0]
+    e = sh["batch_nodes"] * ((1 + f1) * f2 + f1)
+    r = np.random.default_rng(0)
+    batch = gnn_full_batch(cfg, r, n, e, cell.d_in, sh["n_classes"])
     if cfg.kind == "graphcast":
         batch["grid_mask"] = np.ones(n, np.float32)
-    return cfg, d_in, d_out, batch
+        # the cell's plain edge arrays, which GraphCast does not read
+        for k in ("senders", "receivers"):
+            batch[k] = r.integers(0, n, e).astype(np.int32)
+    layout_of(cell, batch)
+    return cfg, cell.d_in, cell.d_out, batch
 
 
 def gnn_dist_rank(rank: int, world_size: int, init_method: str) -> dict:
@@ -4879,7 +4961,8 @@ def gnn_dist_rank(rank: int, world_size: int, init_method: str) -> dict:
         out[arch] = dict(
             first=first, first_s=first_s, local_edges=edges,
             step_ms=[1e3 * t for t in times],
-            step_ms_after_first=1e3 * statistics.median(times[1:]),
+            step_ms_after_first=(1e3 * statistics.median(times[1:])
+                                 if len(times) > 1 else None),
             collective_ms=[1e3 * c for c in coll],
             collective_calls_per_step=calls, losses=losses,
             optimizer_grad_norm_f32=float(m["grad_norm"]),
@@ -4908,20 +4991,19 @@ def ogb_products_cards() -> dict:
     e = -(-sh["n_edges"] // 512) * 512
     card = torch.cuda.get_device_properties(0).total_memory
     usable = card * (1 - DIST_TRAIN_MARGIN)
+    from repro_torch.launch.specs import PERF
     gat, ggcn, gc = (get_config(a) for a in ("gat-cora", "gatedgcn",
                                               "graphcast"))
+    group = PERF[("gatedgcn", "ogb_products")]["remat_group"]
     d, dg = ggcn.d_hidden, gc.d_hidden
     g2 = 2 * n                                    # g2m = m2g edges
     cells = {
         "gat-cora": (2 * e * gat.n_heads * sh["n_classes"] * 4,
                      "the last layer's z[senders] and its message, "
                      f"[E, {gat.n_heads}, {sh['n_classes']}] f32 each"),
-        "gatedgcn": ((5 * GNN_DIST["remat_group"]["gatedgcn"]
-                      + ggcn.n_layers // GNN_DIST["remat_group"]["gatedgcn"])
-                     * e * d * 4,
-                     f"a remat group's {GNN_DIST['remat_group']['gatedgcn']}"
-                     f" layers x 5 [E, {d}] f32 tensors, and the edge "
-                     "state at each group boundary"),
+        "gatedgcn": ((5 * group + ggcn.n_layers // group) * e * d * 4,
+                     f"a remat group's {group} layers x 5 [E, {d}] f32 "
+                     "tensors, and the edge state at each group boundary"),
         "graphcast": (2 * g2 * (3 * dg + 3 * dg) * 4,
                       f"g2m and m2g: [2n, {3 * dg}] edge inputs and three "
                       f"[2n, {dg}] MLP tensors each"),
@@ -4956,10 +5038,11 @@ def phase_gnn_train_dist() -> None:
     from repro_torch.models.convert import numpy_gnn_params, tree_from_numpy
     from repro_torch.testing import to_torch
     torch.backends.cuda.matmul.allow_tf32 = False       # f32, as the ranks
-    one = {}
+    one, dims = {}, {}
     for arch in GNN_DIST["cells"]:
         free_card()
         cfg, d_in, d_out, batch = gnn_dist_cell(arch)
+        dims[arch] = cfg, d_in, d_out
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         one[arch] = first_step(
@@ -4986,7 +5069,7 @@ def phase_gnn_train_dist() -> None:
         rel = hold_first_step(f"gnn_train_dist {arch} step 1 against one "
                               "process", r0["first"], mine, TRAIN_FULL_TOL,
                               r0["losses"])
-        cfg, d_in, d_out, _ = gnn_dist_cell(arch)
+        cfg, d_in, d_out = dims[arch]
         emit({"phase": "gnn_train_dist", "arch": arch,
               "shape": "minibatch_lg", "mesh": {"data": GNN_DIST["data"],
                                                 "model": 1},
@@ -5543,6 +5626,7 @@ def main() -> None:
     timed("gnn_train", phase_gnn_train)
     eb["launches_train"], eb["backward"] = timed("recsys_train",
                                                  phase_recsys_train)
+    timed("roofline", phase_roofline)
     motif = timed("motif_gnn", phase_motif_gnn)
     for rec in recs:
         rec["launches_motif_gnn"] = motif[rec["name"]]

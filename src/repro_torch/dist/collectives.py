@@ -19,6 +19,7 @@
   ``gather_from``         all-gather along ``dim``    reduce-scatter
   ``reduce_scatter_to``   reduce-scatter along dim    all-gather
   ``split_to``            this rank's chunk of dim    all-gather
+  ``gather_whole``        all-gather along ``dim``    this rank's chunk
   ``first_rank_grad``     identity                    rank 0 keeps the
                                                       gradient, others 0
   ``first_rank_value``    rank 0 keeps the value,     identity
@@ -51,6 +52,17 @@ copies CUDA tensors through the host), so the code does not branch on
 the backend, but for ``ppermute``: gloo takes no send / recv of CUDA
 tensors, so there the shift is an all-gather that keeps the
 predecessor's slice; NCCL (one rank per card) sends and receives.
+
+**Layout groups.**  A ``LayoutGroup`` (the groups of
+``launch.mesh.layout_mesh``) stands for a group of ``size`` ranks that
+no process joined, seen from its rank 0.  Every collective takes it with
+``meta`` tensors only (a real tensor raises) and returns a meta tensor
+of the shape the real collective returns, moving nothing; it hands
+``(kind, operand bytes, result bytes)`` to each sink in ``LAYOUT_SINKS``
+(the roofline's counter, ``roofline.cost.counting``), the kind named as
+the reference's HLO names it (``all-gather``, ``all-reduce``,
+``reduce-scatter``, ``collective-permute``).  A group of one moves
+nothing and records nothing, as a real one.
 """
 from __future__ import annotations
 
@@ -83,8 +95,51 @@ def combine(parts) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # plain collectives (no gradient)
 # ---------------------------------------------------------------------------
+class LayoutGroup:
+    """A group of ``size`` ranks of a layout mesh, seen from its rank 0:
+    no process joined it, and it takes meta tensors only."""
+
+    __slots__ = ("size",)
+
+    def __init__(self, size: int):
+        self.size = int(size)
+
+    def __repr__(self) -> str:
+        return f"LayoutGroup({self.size})"
+
+
+# callables ``sink(kind, operand_bytes, result_bytes)`` told of every
+# collective on a layout group (``roofline.cost.counting`` adds one)
+LAYOUT_SINKS: list = []
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+def _layout(group, x: torch.Tensor, kind: str, shape) -> torch.Tensor:
+    """The layout path of a collective: a meta tensor of ``shape``, the
+    call handed to ``LAYOUT_SINKS`` (nothing for a group of one)."""
+    if not x.is_meta:
+        raise ValueError(f"{kind} over {group}: a layout group takes meta "
+                         f"tensors, got one on {x.device}")
+    if group.size == 1:
+        return x
+    out = x.new_empty(shape)
+    for sink in LAYOUT_SINKS:
+        sink(kind, _nbytes(x), _nbytes(out))
+    return out
+
+
 def _size(group) -> int:
+    if isinstance(group, LayoutGroup):
+        return group.size
     return dist.get_world_size(group)
+
+
+def _rank(group) -> int:
+    """This process's rank in ``group`` (0 in a layout group)."""
+    return 0 if isinstance(group, LayoutGroup) else dist.get_rank(group)
 
 
 # torch 2.13 names the tensor-in, tensor-out collectives ``*_single`` and
@@ -98,6 +153,10 @@ _REDUCE_SCATTER = (getattr(dist, "reduce_scatter_single", None)
 def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """The group's ``x`` concatenated along ``dim`` in group-rank order."""
     n = _size(group)
+    if isinstance(group, LayoutGroup):
+        shape = list(x.shape)
+        shape[dim] *= n
+        return _layout(group, x, "all-gather", shape)
     if n == 1:
         return x
     y = x.movedim(dim, 0).contiguous()
@@ -110,12 +169,16 @@ def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
 def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """This rank's chunk along ``dim`` of the sum of the group's ``x``."""
     n = _size(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce-scatter: dimension {x.shape[dim]} does not "
+                         f"divide over {n} ranks")
+    if isinstance(group, LayoutGroup):
+        shape = list(x.shape)
+        shape[dim] //= n
+        return _layout(group, x, "reduce-scatter", shape)
     if n == 1:
         return x
     y = x.movedim(dim, 0).contiguous()
-    if y.shape[0] % n:
-        raise ValueError(f"reduce-scatter: dimension {y.shape[0]} does not "
-                         f"divide over {n} ranks")
     out = torch.empty((y.shape[0] // n,) + tuple(y.shape[1:]),
                       dtype=y.dtype, device=y.device)
     _REDUCE_SCATTER(out, y, group=group)
@@ -124,6 +187,8 @@ def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
 
 def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     """The group's reduction of ``x`` into a new tensor (``x`` kept)."""
+    if isinstance(group, LayoutGroup):
+        return _layout(group, x, "all-reduce", x.shape)
     if _size(group) == 1:
         return x
     out = x.clone()
@@ -137,7 +202,7 @@ def _chunk(x: torch.Tensor, dim: int, group) -> torch.Tensor:
         raise ValueError(f"split: dimension {x.shape[dim]} does not divide "
                          f"over {n} ranks")
     size = x.shape[dim] // n
-    return x.narrow(dim, dist.get_rank(group) * size, size).contiguous()
+    return x.narrow(dim, _rank(group) * size, size).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -197,10 +262,21 @@ class _SplitTo(torch.autograd.Function):
         return all_gather_dim(g, ctx.dim, ctx.group), None, None
 
 
+class _GatherWhole(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _chunk(g, ctx.dim, ctx.group), None, None
+
+
 class _FirstRankGrad(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
-        ctx.keep = dist.get_rank(group) == 0
+        ctx.keep = _rank(group) == 0
         return x.view_as(x)
 
     @staticmethod
@@ -211,7 +287,7 @@ class _FirstRankGrad(torch.autograd.Function):
 class _FirstRankValue(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
-        return x.clone() if dist.get_rank(group) == 0 else torch.zeros_like(x)
+        return x.clone() if _rank(group) == 0 else torch.zeros_like(x)
 
     @staticmethod
     def backward(ctx, g):
@@ -245,6 +321,13 @@ def reduce_scatter_to(x, dim: int, group):
 def split_to(x, dim: int, group):
     """This rank's chunk of ``dim`` forward, all-gather backward."""
     return x if _single(group) else _SplitTo.apply(x, dim, group)
+
+
+def gather_whole(x, dim: int, group):
+    """All-gather along ``dim`` forward; backward keeps this rank's
+    chunk of the gradient: a sharded weight made whole for a computation
+    every rank of the group repeats (each holds the full gradient)."""
+    return x if _single(group) else _GatherWhole.apply(x, dim, group)
 
 
 def first_rank_grad(x, group):
@@ -283,6 +366,8 @@ class _DivideGrad(torch.autograd.Function):
 
 def _shift(x: torch.Tensor, group, shift: int) -> torch.Tensor:
     """Group rank ``i``'s ``x`` on group rank ``(i + shift) % n``."""
+    if isinstance(group, LayoutGroup):
+        return _layout(group, x, "collective-permute", x.shape)
     n = _size(group)
     me = dist.get_rank(group)
     src = (me - shift) % n

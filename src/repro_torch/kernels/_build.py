@@ -53,6 +53,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: (``-Xptxas -v``: each entry's registers, shared memory and spills)
 REPORTS: dict[str, str] = {}
 
+#: kernels compiled and libraries loaded in this process
+#: (``analysis.no_rebuild`` reads them)
+COUNTS = {"builds": 0, "loads": 0}
+
 
 def nvcc() -> str:
     """Path of ``nvcc``: on ``PATH``, else the toolkit's default place."""
@@ -100,6 +104,7 @@ def build(names=None) -> list[str]:
     """
     todo = [n for n in (SOURCES if names is None else names) if _stale(n)]
     started = {n: _start(n) for n in todo}
+    COUNTS["builds"] += len(todo)
     errors = []
     for name, (proc, tmp) in started.items():
         out, _ = proc.communicate()
@@ -145,8 +150,14 @@ def library(name: str) -> ctypes.CDLL:
     if lib is None:
         build([name])
         lib = ctypes.CDLL(str(library_path(name)))
+        COUNTS["loads"] += 1
         _LIBS[name] = lib
     return lib
+
+
+def loaded() -> list[str]:
+    """The kernels whose library this process has loaded."""
+    return list(_LIBS)
 
 
 def check(rc: int, name: str) -> None:

@@ -11,6 +11,11 @@ and weights go to it as they are.  It takes the plain
 torch version (``ref.py``) for CPU tensors and launches the CUDA kernel
 for CUDA tensors; on any other device, or on inputs the kernel does not
 take, it raises.  ``embedding_bag.launches`` counts the kernel launches.
+
+On meta tensors inside ``roofline.cost.counting()`` (the dry run) it
+launches nothing: it returns an empty output of the kernel's shape and
+dtype and reports the kernel's work (``_meta``); outside that region a
+meta tensor raises.
 """
 from __future__ import annotations
 
@@ -51,6 +56,25 @@ def _check_inputs(table, idx, weights, out_dtype):
         raise ValueError("embedding_bag: inputs on different devices")
 
 
+def _meta(table, idx, weights, out_dtype):
+    """The shape-only path: the output, empty, and the kernel's work
+    reported to ``roofline.cost``: ``B bag d`` f32 adds, the ids (and
+    weights) read, one table row per id (no values: every id counts as
+    a row), the output written."""
+    from ...roofline import cost
+    B, bag = idx.shape
+    d = table.shape[1]
+    out = torch.empty((B, d), dtype=out_dtype, device=table.device)
+    nbytes = (idx.numel() * idx.element_size()
+              + B * bag * d * table.element_size()
+              + out.numel() * out.element_size())
+    if weights is not None:
+        nbytes += weights.numel() * 4
+    cost.kernel("embedding_bag", flops=B * bag * d, dtype=torch.float32,
+                nbytes=nbytes)
+    return out
+
+
 def embedding_bag(table, idx, weights=None, out_dtype=None):
     """EmbeddingBag(sum) with ``-1`` padding (see the kernel source);
     the output in ``out_dtype`` (the table's or float32; default the
@@ -60,6 +84,10 @@ def embedding_bag(table, idx, weights=None, out_dtype=None):
     device = table.device
     if device.type == "cpu":
         return embedding_bag_ref(table, idx, weights, out_dtype)
+    if device.type == "meta":
+        from ...roofline import cost
+        if cost.active() is not None:
+            return _meta(table, idx, weights, out_dtype)
     if device.type != "cuda":
         raise ValueError(f"embedding_bag: no kernel for device {device}")
     V, d = table.shape

@@ -16,6 +16,11 @@ the other.
 ``flash_attention.launches`` counts every kernel launch,
 ``flash_attention.launches_sm90`` and ``flash_attention.launches_simt``
 each kernel's own.
+
+On meta tensors inside ``roofline.cost.counting()`` (the dry run) it
+launches nothing: it returns an empty output of the kernel's shape and
+dtype and reports the kernel's work (``_meta``).  Outside that region a
+meta tensor raises, as any device without a kernel.
 """
 from __future__ import annotations
 
@@ -72,6 +77,66 @@ def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
     return "flash_attention"
 
 
+def attended_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask lets through: one head's work.  Query
+    ``i`` sees keys ``[lo, hi)``, the rows of ``ref.visible``, summed in
+    closed form (no ``[Sq, Skv]`` mask)."""
+    qpos = torch.arange(Sq, dtype=torch.int64)
+    hi = (qpos + 1).clamp(max=Skv) if causal else torch.full_like(qpos, Skv)
+    lo = ((qpos - window + 1).clamp(min=0) if window > 0
+          else torch.zeros_like(qpos))
+    return int((hi - lo).clamp(min=0).sum())
+
+
+def _meta(q, k, v, causal, window, attn_softcap):
+    """The shape-only path: the kernel's output, empty, and its work
+    reported to ``roofline.cost``: ``4 D`` flops per attended pair and
+    head (QK^T and PV), one ex2 a pair for the softmax plus an ex2 and a
+    reciprocal for the softcap's tanh, q, k, v and the output moved
+    once."""
+    from ...roofline import cost
+    B, Sq, Hq, D = q.shape
+    pairs = attended_pairs(Sq, k.shape[1], bool(causal), int(window)) * B * Hq
+    out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
+    cost.kernel(kernel_for(q.dtype, D), flops=4 * D * pairs, dtype=q.dtype,
+                nbytes=sum(x.numel() * x.element_size()
+                           for x in (q, k, v, out)),
+                sfu=pairs * (3 if attn_softcap else 1))
+    return out
+
+
+def flash_attention_grads_meta(q, k, v, *, causal, window, attn_softcap):
+    """The shape-only path of the flash backward (``models.attention.
+    FlashAttentionFn``), inside ``roofline.cost.counting()`` only: dq,
+    dk, dv empty, and the work reported by formula, as the kernels'
+    meta paths report theirs: the backward recomputes the forward
+    (QK^T, PV: ``4 D`` flops an attended pair and head, its ex2 and the
+    softcap's) and differentiates it (dV, dP, dQ, dK: ``8 D``), reading
+    q, k, v and the output's gradient once and writing dq, dk, dv once.
+    Its plain blockwise ops on the card do more (every pair of a block,
+    masked or not); the count is the work, not those ops."""
+    if not _counting(q):
+        raise ValueError("flash_attention: no kernel for device "
+                         f"{q.device}")
+    from ...roofline import cost
+    B, Sq, Hq, D = q.shape
+    pairs = attended_pairs(Sq, k.shape[1], bool(causal), int(window)) * B * Hq
+    grads = tuple(torch.empty_like(x) for x in (q, k, v))
+    cost.kernel("flash_attention backward", flops=12 * D * pairs,
+                dtype=q.dtype, nbytes=sum(n * x.numel() * x.element_size()
+                                          for n, x in ((3, q), (2, k), (2, v))),
+                sfu=pairs * (3 if attn_softcap else 1))
+    return grads
+
+
+def _counting(x) -> bool:
+    """A meta tensor inside the roofline's counter."""
+    if x.device.type != "meta":
+        return False
+    from ...roofline import cost
+    return cost.active() is not None
+
+
 def flash_attention(q, k, v, *, causal=True, window=0, attn_softcap=0.0):
     """GQA attention with online softmax (see the kernel sources)."""
     _check_inputs(q, k, v, window)
@@ -79,6 +144,8 @@ def flash_attention(q, k, v, *, causal=True, window=0, attn_softcap=0.0):
     if device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    attn_softcap=attn_softcap)
+    if _counting(q):
+        return _meta(q, k, v, causal, window, attn_softcap)
     if device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {device}")
     return _launch(kernel_for(q.dtype, q.shape[-1]), q, k, v, causal,

@@ -22,6 +22,11 @@ them when ``block_groups`` lies on the host (it is then copied to the
 card); ids already on the card are not read back (that would make the
 host wait), and a block whose id is out of range writes NaN instead of
 reading outside ``w``.
+
+On meta tensors inside ``roofline.cost.counting()`` (the dry run) it
+launches nothing: it returns an empty output of the kernel's shape and
+dtype and reports the kernel's work (``_meta``); outside that region a
+meta tensor raises.
 """
 from __future__ import annotations
 
@@ -103,6 +108,20 @@ def kernel_for(dtype: torch.dtype, K: int, N: int) -> str:
     return "segment_matmul"
 
 
+def _meta(x, w, block_groups):
+    """The shape-only path: the output, empty, and the kernel's work
+    reported to ``roofline.cost``: ``2 M K N`` flops, x, w and y moved
+    once."""
+    from ...roofline import cost
+    M, K = x.shape
+    N = w.shape[2]
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    cost.kernel(kernel_for(x.dtype, K, N), flops=2 * M * K * N,
+                dtype=x.dtype,
+                nbytes=(x.numel() + w.numel() + y.numel()) * x.element_size())
+    return y
+
+
 def segment_matmul(x, w, block_groups):
     """Grouped GEMM on pre-padded rows (see the kernel sources)."""
     if isinstance(block_groups, np.ndarray):
@@ -111,6 +130,10 @@ def segment_matmul(x, w, block_groups):
     device = x.device
     if device.type == "cpu":
         return segment_matmul_ref(x, w, block_groups)
+    if device.type == "meta":
+        from ...roofline import cost
+        if cost.active() is not None:
+            return _meta(x, w, block_groups)
     if device.type != "cuda":
         raise ValueError(f"segment_matmul: no kernel for device {device}")
     return _launch(kernel_for(x.dtype, x.shape[1], w.shape[2]), x, w,

@@ -27,6 +27,15 @@ every rank shares ``cuda:0``, which NCCL refuses, so such a mesh runs
 over gloo (which copies CUDA tensors through the host).
 ``run_on_mesh`` starts the processes of a mesh from one parent
 (spawned, not forked) and collects what each returns.
+
+A *layout* mesh (``layout_mesh``, ``make_production_layout``) is a
+``ModelMesh`` that no process joined: rank 0's view of any shape, the
+reference's ``(16, 16)`` and ``(2, 16, 16)`` production meshes included,
+on ``device="meta"``.  Its groups are ``dist.collectives.LayoutGroup``s,
+which take meta tensors and move nothing, so a rank's step runs on it
+for its shapes alone (``launch.dryrun``, ``roofline.cost``), and the
+sharding builders, which read only ``axis_names`` and ``shape``, work on
+it unchanged.
 """
 from __future__ import annotations
 
@@ -42,6 +51,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from ..core.estimator import require_device
+from ..dist.collectives import LayoutGroup
 from ..dist.sharding import data_axes
 
 
@@ -92,7 +102,9 @@ class ModelMesh:
     axis (the ranks that differ only along it), plus one over the data
     axes together when there are two (``("pod", "data")``).  A group
     orders its ranks row-major by their coordinates, so this rank's
-    place in ``group(axes)`` is ``coord(axes)``."""
+    place in ``group(axes)`` is ``coord(axes)``.  All the axes together
+    are the world group (the flash-decoding layout's sequence over the
+    data and model axes)."""
 
     def __init__(self, axis_names: tuple, dims: tuple, rank: int,
                  device: torch.device, backend: str, groups: dict):
@@ -188,6 +200,8 @@ def _model_mesh(axis_names, dims, *, rank: int, world_size: int,
             g = dist.new_group(row)           # collective: every rank
             if rank in row:
                 groups[axes] = g
+    # all the axes: the world itself, its ranks already row-major
+    groups[names] = dist.group.WORLD
     return mesh
 
 
@@ -220,6 +234,40 @@ def make_production_mesh(multi_pod: bool = False, *, rank: int,
     return make_host_mesh(16, 16, 2 if multi_pod else 0, rank=rank,
                           world_size=world_size, init_method=init_method,
                           backend=backend, device=device)
+
+
+class _LayoutGroups(dict):
+    """A layout mesh's groups, one ``LayoutGroup`` per tuple of axes,
+    made when first asked for."""
+
+    def __init__(self, shape: dict):
+        super().__init__()
+        self.shape = shape
+
+    def __missing__(self, axes):
+        group = self[axes] = LayoutGroup(math.prod(self.shape[a]
+                                                   for a in axes))
+        return group
+
+
+def layout_mesh(dims, axis_names=None) -> ModelMesh:
+    """Rank 0's view of a mesh of ``dims`` that no process joins, on
+    ``device="meta"``: ``axis_names`` default to ``("data", "model")``,
+    or ``("pod", "data", "model")`` for three axes."""
+    dims = tuple(int(d) for d in dims)
+    if axis_names is None:
+        axis_names = (("data", "model") if len(dims) == 2
+                      else ("pod", "data", "model"))
+    if len(axis_names) != len(dims):
+        raise ValueError(f"axes {axis_names} for dims {dims}")
+    return ModelMesh(axis_names, dims, 0, torch.device("meta"), "layout",
+                     _LayoutGroups(dict(zip(axis_names, dims))))
+
+
+def make_production_layout(multi_pod: bool = False) -> ModelMesh:
+    """The reference's production meshes as layouts: ``(data=16,
+    model=16)``, or ``(pod=2, data=16, model=16)``."""
+    return layout_mesh((2, 16, 16) if multi_pod else (16, 16))
 
 
 def _worker(fn, rank: int, world_size: int, init_method: str, args,

@@ -18,7 +18,9 @@ function the reference's training differentiates), one query block at a
 time, as the reference's ``jax.checkpoint`` of each query block does.
 
 ``attention_decode`` (one query against the cache) stays plain torch
-ops, as the reference computes it outside any Pallas kernel.
+ops, as the reference computes it outside any Pallas kernel;
+``attention_decode_sharded`` is its flash-decoding form on a mesh (the
+cache's sequence sharded over ranks).
 
 Shapes: q ``[B, Sq, Hq, D]``, k/v ``[B, Skv, Hkv, D]``; Hq % Hkv == 0.
 """
@@ -27,7 +29,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..kernels.flash_attention.ops import HEAD_DIMS, flash_attention
+from ..dist import collectives as coll
+from ..kernels.flash_attention.ops import (HEAD_DIMS, flash_attention,
+                                           flash_attention_grads_meta)
 from ..kernels.flash_attention.ref import NEG_INF, visible
 
 
@@ -125,7 +129,9 @@ class FlashAttentionFn(torch.autograd.Function):
     queries at a time and differentiates it, summing dK and dV over the
     query blocks in f32: only one query block's scores are held at once
     (about 50 MB per kv block at S 4096 and 24 heads), as the
-    reference's checkpointed ``per_q_block`` recomputes them."""
+    reference's checkpointed ``per_q_block`` recomputes them.  On meta
+    tensors (the roofline's count) the backward runs nothing and reports
+    its work by formula (``flash_attention_grads_meta``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, attn_softcap):
@@ -137,6 +143,9 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out):
         q, k, v = ctx.saved_tensors
+        if q.is_meta:        # the roofline's count: the work by its formula
+            return flash_attention_grads_meta(q, k, v, **ctx.kw) + (
+                None, None, None)
         dq = torch.empty_like(q)
         dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
         dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
@@ -209,6 +218,40 @@ def attention_decode(q, k_cache, v_cache, *, kv_len, window=0,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgs,bshd->bhgd", p.to(v_cache.dtype).float(),
                      v_cache.float())
+    return o.reshape(B, 1, Hq, D).to(q.dtype)
+
+
+def attention_decode_sharded(q, k_cache, v_cache, *, kv_len, offset: int,
+                             group, window=0, attn_softcap=0.0):
+    """Flash-decoding: q ``[B, 1, Hq, D]`` (every head) against this
+    rank's slice ``[B, S_loc, Hkv, D]`` of the cache, which holds
+    positions ``offset .. offset + S_loc - 1``; the query sits at
+    ``kv_len - 1``.  Each rank takes its slots' max, its sum of
+    ``exp(s - M)`` and its ``exp(s - M) @ v`` under the group's max
+    ``M``; the sums and outputs are added over ``group`` and divided
+    (the reference's psum of the softmax statistics and the output).
+    As ``attention_decode``: f32 products, the probabilities rounded to
+    the cache dtype before ``@ v`` (here unnormalised, so in bf16 the
+    result differs from one process's by that rounding)."""
+    B, _, Hq, D = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    G = Hq // Hkv
+    kpos = offset + torch.arange(S, device=q.device)
+    qg = q.reshape(B, Hkv, G, D).to(k_cache.dtype)
+    s = torch.einsum("bhgd,bshd->bhgs", qg.float(),
+                     k_cache.float()) * D ** -0.5
+    if attn_softcap:
+        s = attn_softcap * torch.tanh(s / attn_softcap)
+    ok = kpos <= kv_len - 1
+    if window > 0:
+        ok &= kv_len - 1 - kpos < window
+    s = torch.where(ok[None, None, None, :], s, NEG_INF)
+    m = coll.pmax(s.amax(dim=-1), group)                     # [B, Hkv, G]
+    p = torch.exp(s - m[..., None])
+    l = coll.all_reduce(p.sum(dim=-1), group)
+    o = torch.einsum("bhgs,bshd->bhgd", p.to(v_cache.dtype).float(),
+                     v_cache.float())
+    o = coll.all_reduce(o, group) / l[..., None]
     return o.reshape(B, 1, Hq, D).to(q.dtype)
 
 

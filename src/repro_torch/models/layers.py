@@ -194,10 +194,18 @@ class TensorParallel:
     block input ``h`` takes partial ones, its gather's backward being a
     reduce-scatter.  ``into(h, sharded)`` hands ``h`` to a sharded or a
     repeated computation, ``out(o, sharded)`` a block output to the sum
-    over ``"model"`` (``combine``)."""
+    over ``"model"`` (``combine``).
 
-    def __init__(self, mesh=None, specs=None, sp: bool = False):
-        self.mesh, self.specs, self.sp = mesh, specs, sp
+    ``whole`` (query heads that do not divide over the model ranks) runs
+    the attention block whole on every model rank, a repeated
+    computation on its weights gathered (``gathered``).  With
+    ``rows_split=False`` every data rank holds the whole batch (the
+    flash-decoding layout's sequence over the data axes): the data axes
+    are a replica, so there is no data group and ``n_data`` is 1."""
+
+    def __init__(self, mesh=None, specs=None, sp: bool = False,
+                 whole: bool = False, rows_split: bool = True):
+        self.mesh, self.specs, self.sp, self.whole = mesh, specs, sp, whole
         self.sharded, self.vocab_embed, self.vocab_logits = {}, False, False
         self.model = self.data = None
         self.n = self.n_data = 1
@@ -211,12 +219,23 @@ class TensorParallel:
                              else specs["unembed"][1] is not None)
         self.model, self.n = mesh.group("model"), n_model(mesh)
         self.model_rank = mesh.coord("model")
-        self.data = mesh.group(data_axes(mesh))
-        self.n_data, self.data_rank = n_data(mesh), mesh.coord(data_axes(mesh))
+        if rows_split:
+            self.data = mesh.group(data_axes(mesh))
+            self.n_data = n_data(mesh)
+            self.data_rank = mesh.coord(data_axes(mesh))
 
     def shards(self, name: str) -> bool:
         """Whether the specs shard layer leaf ``name``."""
         return self.sharded.get(name, False)
+
+    def gathered(self, w, name: str, dim: int):
+        """Layer leaf ``name`` whole on every model rank (all-gathered
+        along ``dim`` where the specs shard it), for a computation every
+        rank repeats: each rank's piece takes its chunk of the
+        gradient."""
+        if not self.shards(name):
+            return w
+        return coll.gather_whole(w, dim, self.model)
 
     def col(self, h):
         """``h`` for a computation sharded over ``"model"``."""

@@ -186,9 +186,10 @@ def moe_mlp(cfg, h: torch.Tensor, p: dict, tp: TensorParallel = LOCAL):
     rank's tokens fill slots ``[prefix, prefix + count)`` of each
     expert, so its table holds that window alone, as wide as its fullest
     expert's (a host sync): the grouped GEMM runs on the rank's tokens,
-    not on the other ranks' empty slots.  The experts are sharded over
-    ``"model"`` (EP): the rank runs the grouped GEMM over its ``E_pad /
-    n_model`` experts only.
+    not on the other ranks' empty slots (on meta tensors, which hold no
+    counts, the table is the reference's static ``C`` wide).  The experts
+    are sharded over ``"model"`` (EP): the rank runs the grouped GEMM over
+    its ``E_pad / n_model`` experts only.
 
     On a mesh the out is the rank's part of the sum over ``"model"`` (f32
     where there are several model ranks) and the aux its part of the sum
@@ -204,7 +205,14 @@ def moe_mlp(cfg, h: torch.Tensor, p: dict, tp: TensorParallel = LOCAL):
     lo = tp.model_rank * El if sharded else 0
     C = capacity(cfg, T * tp.n_data)
     prefix = width = None
-    if tp.n_data > 1:
+    if tp.n_data > 1 and experts.is_meta:
+        # no values to read: the reference's static width, the capacity
+        every = all_gather_dim(experts.new_empty((1, cfg.e_pad)), 0, tp.data)
+        prefix, width = every[0], C
+        f = every.sum(0)[:cfg.n_experts].float()
+        aux = cfg.n_experts * (f * router_probs(h2r, p["router"]).sum(0)
+                               ).sum()
+    elif tp.n_data > 1:
         counts = torch.bincount(experts.reshape(-1), minlength=cfg.e_pad)
         every = all_gather_dim(counts[None], 0, tp.data)    # [n_data, E]
         prefix = every[:tp.data_rank].sum(0)

@@ -128,9 +128,13 @@ def embedding_bag_grad(grad_out: torch.Tensor, idx: torch.Tensor,
     if weights is not None:
         g = g * weights.float()[..., None]
     g = g.expand(idx.shape[0], idx.shape[1], d)
-    valid = idx >= 0
+    if idx.is_meta:          # no values (the dry run): every slot a row
+        ids, rows = idx.reshape(-1), g.reshape(-1, d)
+    else:
+        valid = idx >= 0
+        ids, rows = idx[valid], g[valid]
     acc = torch.zeros((V, d), dtype=torch.float32, device=grad_out.device)
-    acc.index_add_(0, idx[valid].long().clamp(max=V - 1), g[valid])
+    acc.index_add_(0, ids.long().clamp(max=V - 1), rows)
     return acc.to(table_dtype)
 
 

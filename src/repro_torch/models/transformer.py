@@ -70,6 +70,18 @@ the identity:
   row-parallel output reduce-scattered instead of all-reduced.  The
   reference's ``_qkv_constraints`` are layout hints to GSPMD that
   change no value and have no counterpart.
+* Query heads that do not divide over the model ranks (granite-moe's 24
+  over 16) run the attention block whole on every model rank: q / k / v
+  / ``wo`` gathered over ``"model"`` (``coll.gather_whole``: each rank's
+  piece takes its chunk of the gradient), rank 0's output joining the
+  sum over ``"model"``.
+* Serving on a mesh (``prefill`` / ``decode_step`` with ``mesh=``, the
+  reference's prefill and decode cells): prefill runs the same layer
+  code and returns the rows' logits over the whole vocabulary and the
+  rank's piece of the cache; decode takes the flash-decoding layout
+  (the cache's sequence over ``"model"``, or over the data and model
+  axes for a batch too small to split), each layer combining the ranks'
+  softmax statistics (``attention.attention_decode_sharded``).
 * The loss is the global one (``layers.softmax_xent`` with ``mesh``;
   the MoE aux from global statistics), and each rank's gradient is its
   part of the global gradient: summed over the data axes
@@ -86,7 +98,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..dist import collectives as coll
-from ..dist.sharding import lm_param_shardings, n_model
+from ..dist.sharding import data_axes, lm_param_shardings, n_model
 from .attention import attention_decode, attention_flash, attention_naive
 from .layers import (LOCAL, TensorParallel, apply_rope, cast_for_compute,
                      rms_norm, softcap, softmax_xent)
@@ -227,19 +239,20 @@ def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
 
 
 # -- the pieces of a layer: functions of (cfg, x, weights, layout) -----------
-def layout(cfg: LMConfig, mesh) -> TensorParallel:
+def layout(cfg: LMConfig, mesh, rows_split: bool = True) -> TensorParallel:
     """How a rank of ``mesh`` runs the layer pieces (``LOCAL`` without
     a mesh): the placements of ``lm_param_shardings``, sequence parallel
-    where ``cfg.residual_spec`` is set."""
+    where ``cfg.residual_spec`` is set.  Query heads that do not divide
+    over the model ranks (granite-moe's 24 over 16) run the attention
+    block whole on every model rank (``TensorParallel.whole``).
+    ``rows_split=False``: every data rank holds the whole batch."""
     if mesh is None:
         return LOCAL
-    if cfg.n_heads % n_model(mesh):
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.n_heads} heads over {n_model(mesh)} model "
-            "ranks: the attention runs on whole local heads")
     return TensorParallel(mesh, lm_param_shardings(cfg, abstract_params(cfg),
                                                    mesh),
-                          sp=cfg.residual_spec is not None)
+                          sp=cfg.residual_spec is not None,
+                          whole=cfg.n_heads % n_model(mesh) != 0,
+                          rows_split=rows_split)
 
 
 def _embed(cfg, embed, tokens, dtype, tp=LOCAL):
@@ -255,12 +268,17 @@ def _embed(cfg, embed, tokens, dtype, tp=LOCAL):
 
 def _kv(cfg, tp, h, w, name):
     """The keys or values ``[B, S, kv heads, hd]`` of this rank's query
-    heads."""
+    heads, and, where those are not the rank's piece of the cache (the
+    reference's cache specs: kv heads over ``"model"`` where they
+    divide, else every kv head), every kv head (else None)."""
     B, S, _ = h.shape
     hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     sharded = tp.shards(name)
+    if tp.whole:
+        return (tp.rep(h) @ tp.gathered(w, name, -1)).reshape(B, S, Hkv,
+                                                              hd), None
     if tp.n == 1 or (sharded and Hkv % tp.n == 0):   # whole kv heads
-        return (tp.into(h, sharded) @ w).reshape(B, S, -1, hd)
+        return (tp.into(h, sharded) @ w).reshape(B, S, -1, hd), None
     if sharded:                      # columns split inside a kv head
         full = coll.gather_from(tp.col(h) @ w, -1, tp.model)
     else:
@@ -269,29 +287,43 @@ def _kv(cfg, tp, h, w, name):
     G, hq = Hq // Hkv, Hq // tp.n
     first = tp.model_rank * hq
     if hq % G == 0:
-        return full[:, :, first // G:(first + hq) // G].contiguous()
+        return full[:, :, first // G:(first + hq) // G].contiguous(), full
     if G % hq == 0:
-        return full[:, :, first // G:first // G + 1].contiguous()
+        return full[:, :, first // G:first // G + 1].contiguous(), full
     heads = torch.arange(first, first + hq, device=h.device) // G
-    return full.index_select(2, heads)
+    return full.index_select(2, heads), full
 
 
-def _qkv(cfg, x, p, positions, tp=LOCAL):
+def _qkv(cfg, x, p, positions, tp=LOCAL, cache: bool = False):
+    """q, k and v of this rank's query heads; with ``cache`` also this
+    rank's piece of the cache's k and v (``_kv``)."""
     hd = cfg.hd
     h = tp.enter(rms_norm(x, tp.norm(p["attn_norm"])))
     B, S, _ = h.shape
-    q = (tp.col(h) @ p["wq"]).reshape(B, S, cfg.n_heads // tp.n, hd)
-    kk = _kv(cfg, tp, h, p["wk"], "wk")
-    vv = _kv(cfg, tp, h, p["wv"], "wv")
+    if tp.whole:
+        q = (tp.rep(h) @ tp.gathered(p["wq"], "wq", -1)).reshape(
+            B, S, cfg.n_heads, hd)
+    else:
+        q = (tp.col(h) @ p["wq"]).reshape(B, S, cfg.n_heads // tp.n, hd)
+    kk, k_all = _kv(cfg, tp, h, p["wk"], "wk")
+    vv, v_all = _kv(cfg, tp, h, p["wv"], "wv")
     q = apply_rope(q, positions, cfg.rope_theta)
     kk = apply_rope(kk, positions, cfg.rope_theta)
     if cfg.query_scale:                  # fold the custom scale into q
         q = q * _scalar(cfg.query_scale * hd ** 0.5, q)
-    return q, kk, vv
+    if not cache:
+        return q, kk, vv
+    k_all = kk if k_all is None else apply_rope(k_all, positions,
+                                                cfg.rope_theta)
+    return q, kk, vv, (k_all, vv if v_all is None else v_all)
 
 
 def _attn_out(cfg, x, o, p, tp=LOCAL):
-    o = tp.rows(o.reshape(*o.shape[:2], -1), p["wo"])
+    o = o.reshape(*o.shape[:2], -1)
+    if tp.whole:                    # repeated: rank 0's joins the sum
+        o = tp.out(o @ tp.gathered(p["wo"], "wo", 0), False)
+    else:
+        o = tp.rows(o, p["wo"])
     o = tp.combine(o).to(x.dtype)
     if cfg.post_norms:
         o = rms_norm(o, tp.norm(p["post_attn_norm"]))
@@ -315,10 +347,14 @@ def _mlp(cfg, x, p, tp=LOCAL):
     return x + o, aux
 
 
-def _layer(cfg, x, p, window, positions, tp=LOCAL):
+def _layer(cfg, x, p, window, positions, tp=LOCAL, cache: bool = False):
     """One prefill/forward layer on weights ``p`` in the compute dtype;
-    returns the new x, its k, v and the layer's aux loss."""
-    q, kk, vv = _qkv(cfg, x, p, positions, tp)
+    returns the new x, with ``cache`` this rank's piece of the cache's k
+    and v (else None), and the layer's aux loss."""
+    if cache:
+        q, kk, vv, kv = _qkv(cfg, x, p, positions, tp, cache=True)
+    else:
+        (q, kk, vv), kv = _qkv(cfg, x, p, positions, tp), None
     if cfg.attn_impl == "flash":
         o = attention_flash(q, kk, vv, causal=True, window=window,
                             attn_softcap=cfg.attn_softcap)
@@ -327,7 +363,7 @@ def _layer(cfg, x, p, window, positions, tp=LOCAL):
                             attn_softcap=cfg.attn_softcap,
                             q_positions=positions, kv_positions=positions)
     x, aux = _mlp(cfg, _attn_out(cfg, x, o, p, tp), p, tp)
-    return x, kk, vv, aux
+    return x, kv, aux
 
 
 def _logits(cfg, x, p, tp=LOCAL):
@@ -349,8 +385,8 @@ def _layer_group(cfg, tp, windows, positions, dtype, x, group):
     storage dtype: ``(x, the group's aux)``."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, window in zip(group, windows):
-        x, _, _, a = _layer(cfg, x, cast_for_compute(p, dtype), window,
-                            positions, tp)
+        x, _, a = _layer(cfg, x, cast_for_compute(p, dtype), window,
+                         positions, tp)
         aux = aux + a
     return x, aux
 
@@ -421,6 +457,153 @@ def train_loss(cfg: LMConfig, params: dict, batch: dict,
     return loss + cfg.router_aux_coef * aux / max(cfg.n_layers, 1)
 
 
+def _serving_layout(cfg, mesh, rows_split: bool = True) -> TensorParallel:
+    if cfg.residual_spec is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: residual sharding is not ported to serving "
+            "(forward / train_loss take it with mesh=)")
+    return layout(cfg, mesh, rows_split)
+
+
+def _full_vocab(logits, tp):
+    """This rank's logits over the whole vocabulary."""
+    if tp.vocab_logits:
+        return coll.all_gather_dim(logits, -1, tp.model)
+    return logits
+
+
+def _prefill(cfg, top, layers, tokens, cache_len, dtype, tp=LOCAL):
+    B, S = tokens.shape
+    if cache_len < S:
+        raise ValueError(f"cache_len {cache_len} < prompt length {S}")
+    x = _embed(cfg, top["embed"], tokens, dtype, tp)
+    positions = torch.arange(S, device=x.device)
+    k_cache = v_cache = None
+    for i, (p, w) in enumerate(zip(layers, layer_windows(cfg))):
+        x, (kk, vv), _ = _layer(cfg, x, cast_for_compute(p, dtype), w,
+                                positions, tp, cache=True)
+        if k_cache is None:
+            shape = (cfg.n_layers, B, cache_len) + tuple(kk.shape[2:])
+            k_cache = torch.zeros(shape, dtype=dtype, device=x.device)
+            v_cache = torch.zeros(shape, dtype=dtype, device=x.device)
+        k_cache[i, :, :S] = kk
+        v_cache[i, :, :S] = vv
+    logits = _full_vocab(_logits(cfg, x[:, -1:], top, tp), tp)
+    return logits, dict(k=k_cache, v=v_cache, kv_len=S)
+
+
+def _position(kv_len, S: int) -> int:
+    """The decode position: ``kv_len`` as an int; a meta tensor has no
+    value, so the step is taken at a full cache (``S - 1``), as the
+    reference's static shapes compute every slot."""
+    if isinstance(kv_len, torch.Tensor) and kv_len.is_meta:
+        return S - 1
+    return int(kv_len)
+
+
+def _decode(cfg, top, layers, cache, tokens, dtype):
+    """One process's decode step (``TransformerLM.decode_step``)."""
+    k_cache, v_cache = cache["k"], cache["v"]
+    pos = _position(cache["kv_len"], k_cache.shape[2])
+    if pos >= k_cache.shape[2]:
+        raise ValueError(f"cache full: kv_len {pos} == cache_len")
+    x = _embed(cfg, top["embed"], tokens, dtype)
+    positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    for i, (p, w) in enumerate(zip(layers, layer_windows(cfg))):
+        p = cast_for_compute(p, dtype)
+        q, kk, vv = _qkv(cfg, x, p, positions)
+        k_cache[i, :, pos] = kk[:, 0]
+        v_cache[i, :, pos] = vv[:, 0]
+        lo = max(0, pos + 1 - w) if w > 0 else 0
+        o = attention_decode(q, k_cache[i, :, lo:pos + 1],
+                             v_cache[i, :, lo:pos + 1],
+                             kv_len=pos + 1 - lo, window=w,
+                             attn_softcap=cfg.attn_softcap)
+        x, _ = _mlp(cfg, _attn_out(cfg, x, o, p), p)
+    logits = _logits(cfg, x, top)
+    return logits, dict(k=k_cache, v=v_cache, kv_len=pos + 1)
+
+
+def _decode_sharded(cfg, top, layers, cache, tokens, dtype, mesh,
+                    seq_axes):
+    """The flash-decoding layout: this rank's cache holds positions
+    ``[r S_loc, (r + 1) S_loc)`` of every kv head (``r`` its coordinate
+    over ``seq_axes``).  Each layer gathers the token's q and k / v over
+    ``"model"`` (every head), the rank owning the position writes it,
+    and ``attention_decode_sharded`` combines the ranks' softmax
+    statistics and outputs; this rank's query heads then go through the
+    row-parallel ``wo`` (all of them where the attention runs whole)."""
+    from .attention import attention_decode_sharded
+    seq_axes = tuple(seq_axes)
+    tp = _serving_layout(cfg, mesh,
+                         rows_split=not set(seq_axes) & set(data_axes(mesh)))
+    group, r = mesh.group(seq_axes), mesh.coord(seq_axes)
+    k_cache, v_cache = cache["k"], cache["v"]
+    S_loc = k_cache.shape[2]
+    S = S_loc * mesh.extent(seq_axes)
+    pos = _position(cache["kv_len"], S)
+    if pos >= S:
+        raise ValueError(f"cache full: kv_len {pos} == cache_len")
+    owner, slot = divmod(pos, S_loc)
+    hq = cfg.n_heads if tp.whole else cfg.n_heads // tp.n
+    first = 0 if tp.whole else tp.model_rank * hq
+    x = _embed(cfg, top["embed"], tokens, dtype, tp)
+    positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    for i, (p, w) in enumerate(zip(layers, layer_windows(cfg))):
+        p = cast_for_compute(p, dtype)
+        q, _, _, (kk, vv) = _qkv(cfg, x, p, positions, tp, cache=True)
+        q = _all_heads(q, cfg.n_heads, tp)
+        kk, vv = (_all_heads(t, cfg.n_kv_heads, tp) for t in (kk, vv))
+        if r == owner:
+            k_cache[i, :, slot] = kk[:, 0]
+            v_cache[i, :, slot] = vv[:, 0]
+        o = attention_decode_sharded(q, k_cache[i], v_cache[i],
+                                     kv_len=pos + 1, offset=r * S_loc,
+                                     group=group, window=w,
+                                     attn_softcap=cfg.attn_softcap)
+        o = o[:, :, first:first + hq]
+        x, _ = _mlp(cfg, _attn_out(cfg, x, o, p, tp), p, tp)
+    logits = _full_vocab(_logits(cfg, x, top, tp), tp)
+    return logits, dict(k=k_cache, v=v_cache, kv_len=pos + 1)
+
+
+def _all_heads(t, heads: int, tp):
+    """``t`` ``[B, 1, h, hd]`` of this rank's heads -> every head."""
+    if t.shape[2] == heads:
+        return t
+    return coll.all_gather_dim(t, 2, tp.model)
+
+
+@torch.no_grad()
+def prefill(cfg: LMConfig, params: dict, tokens: torch.Tensor,
+            cache_len: int, compute_dtype=torch.bfloat16, mesh=None):
+    """``TransformerLM.prefill`` over the parameter tree (``forward``'s
+    layout).  With ``mesh`` (one rank of a ``launch.mesh.ModelMesh``)
+    ``params`` holds this rank's pieces (``lm_param_shardings``) and
+    ``tokens`` its rows; the layers run as ``forward``'s, and it returns
+    the rows' logits over the whole vocabulary and this rank's piece of
+    the cache: every position, and the kv heads over ``"model"`` where
+    they divide, else all of them (the reference's cache specs)."""
+    return _prefill(cfg, params, _unstack(cfg, params), tokens, cache_len,
+                    compute_dtype, _serving_layout(cfg, mesh))
+
+
+@torch.no_grad()
+def decode_step(cfg: LMConfig, params: dict, cache: dict,
+                tokens: torch.Tensor, compute_dtype=torch.bfloat16,
+                mesh=None, seq_axes=("model",)):
+    """``TransformerLM.decode_step`` over the parameter tree.  With
+    ``mesh``: the flash-decoding layout (``_decode_sharded``), the
+    cache's sequence sharded over ``seq_axes`` (``("model",)``, or the
+    data and model axes together when the batch is too small to split
+    over the data ranks: then every data rank holds every row)."""
+    if mesh is None:
+        return _decode(cfg, params, _unstack(cfg, params), cache, tokens,
+                       compute_dtype)
+    return _decode_sharded(cfg, params, _unstack(cfg, params), cache,
+                           tokens, compute_dtype, mesh, seq_axes)
+
+
 class Block(nn.Module):
     """One layer's weights, named as in the reference's ``layers`` dict."""
 
@@ -429,9 +612,6 @@ class Block(nn.Module):
         for name, w in weights.items():
             self.register_parameter(name, nn.Parameter(w,
                                                        requires_grad=False))
-
-    def weights(self, dtype) -> dict[str, torch.Tensor]:
-        return cast_for_compute(dict(self.named_parameters()), dtype)
 
 
 class TransformerLM(nn.Module):
@@ -485,40 +665,31 @@ class TransformerLM(nn.Module):
     def forward(self, tokens: torch.Tensor, compute_dtype=torch.bfloat16):
         """tokens ``[B, S]`` -> (logits ``[B, S, V]``, aux loss: the sum
         over layers, f32, 0 for a dense LM)."""
-        layers = [dict(blk.named_parameters()) for blk in self.layers]
-        return _forward(self.cfg, self._top(), layers, tokens,
-                        compute_dtype)
+        return _forward(self.cfg, self._top(), self._layer_weights(),
+                        tokens, compute_dtype)
+
+    def _layer_weights(self) -> list:
+        return [dict(blk.named_parameters()) for blk in self.layers]
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, cache_len: int,
-                compute_dtype=torch.bfloat16):
+                compute_dtype=torch.bfloat16, mesh=None):
         """Run the prompt; return (last-position logits ``[B, 1, V]``,
         cache).
 
         Cache layout (the reference's): ``k``/``v`` ``[L, B, cache_len,
         Hkv, hd]`` in the compute dtype, zero past the prompt, and
-        ``kv_len`` = S positions written (an int).
+        ``kv_len`` = S positions written (an int).  With ``mesh`` the
+        model holds one rank's pieces: the module-level ``prefill``.
         """
-        cfg = self.cfg
-        B, S = tokens.shape
-        if cache_len < S:
-            raise ValueError(f"cache_len {cache_len} < prompt length {S}")
-        x = _embed(cfg, self.embed, tokens, compute_dtype)
-        positions = torch.arange(S, device=x.device)
-        shape = (cfg.n_layers, B, cache_len, cfg.n_kv_heads, cfg.hd)
-        k_cache = torch.zeros(shape, dtype=compute_dtype, device=x.device)
-        v_cache = torch.zeros(shape, dtype=compute_dtype, device=x.device)
-        for i, (blk, w) in enumerate(zip(self.layers, self.windows)):
-            x, kk, vv, _ = _layer(cfg, x, blk.weights(compute_dtype), w,
-                                  positions)
-            k_cache[i, :, :S] = kk
-            v_cache[i, :, :S] = vv
-        logits = _logits(cfg, x[:, -1:], self._top())
-        return logits, dict(k=k_cache, v=v_cache, kv_len=S)
+        return _prefill(self.cfg, self._top(), self._layer_weights(),
+                        tokens, cache_len, compute_dtype,
+                        layout(self.cfg, mesh))
 
     @torch.no_grad()
     def decode_step(self, cache: dict, tokens: torch.Tensor,
-                    compute_dtype=torch.bfloat16):
+                    compute_dtype=torch.bfloat16, mesh=None,
+                    seq_axes=("model",)):
         """One decode step: tokens ``[B, 1]`` at position ``kv_len``.
 
         Writes the new keys and values into slot ``kv_len`` of
@@ -527,26 +698,12 @@ class TransformerLM(nn.Module):
         cache dict over the same tensors with ``kv_len + 1``).  Each layer
         attends only to the slots its mask can see,
         ``[max(0, kv_len + 1 - window), kv_len]``: the other slots get
-        weight ``exp(-2^30 - m) = 0`` in the reference.
+        weight ``exp(-2^30 - m) = 0`` in the reference.  With ``mesh``
+        the model holds one rank's pieces: the module-level
+        ``decode_step``.
         """
-        cfg = self.cfg
-        k_cache, v_cache = cache["k"], cache["v"]
-        pos = int(cache["kv_len"])
-        if pos >= k_cache.shape[2]:
-            raise ValueError(f"cache full: kv_len {pos} == cache_len")
-        x = _embed(cfg, self.embed, tokens, compute_dtype)
-        positions = torch.full((1,), pos, dtype=torch.int32,
-                               device=x.device)
-        for i, (blk, w) in enumerate(zip(self.layers, self.windows)):
-            p = blk.weights(compute_dtype)
-            q, kk, vv = _qkv(cfg, x, p, positions)
-            k_cache[i, :, pos] = kk[:, 0]
-            v_cache[i, :, pos] = vv[:, 0]
-            lo = max(0, pos + 1 - w) if w > 0 else 0
-            o = attention_decode(q, k_cache[i, :, lo:pos + 1],
-                                 v_cache[i, :, lo:pos + 1],
-                                 kv_len=pos + 1 - lo, window=w,
-                                 attn_softcap=cfg.attn_softcap)
-            x, _ = _mlp(cfg, _attn_out(cfg, x, o, p), p)
-        logits = _logits(cfg, x, self._top())
-        return logits, dict(k=k_cache, v=v_cache, kv_len=pos + 1)
+        if mesh is None:
+            return _decode(self.cfg, self._top(), self._layer_weights(),
+                           cache, tokens, compute_dtype)
+        return _decode_sharded(self.cfg, self._top(), self._layer_weights(),
+                               cache, tokens, compute_dtype, mesh, seq_axes)

@@ -7,7 +7,10 @@ opt_state, batch, rng=None) -> (params, opt_state, metrics)``:
 * gradients come from ``torch.autograd`` (``value_and_grad``);
 * ``accum_steps > 1`` splits every batch leaf on axis 0 into that many
   microbatches and sums their losses and gradients in f32 (the
-  reference's ``lax.scan``), then divides by the count;
+  reference's ``lax.scan``), then divides by the count.  Each
+  microbatch's loss and gradient come from ``step.grads_of(params,
+  batch)`` (``value_and_grad(loss_fn, mark)``); a caller may wrap it,
+  as ``roofline.analysis`` does to count repeated microbatches once;
 * ``compress_grads`` int8-quantizes each gradient leaf with stochastic
   rounding (``compress_decompress``), leaf ``i`` drawing jax's uniform
   bits from ``split(rng, n_leaves)[i]`` (``rng`` defaults to
@@ -215,7 +218,7 @@ def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig,
 
     def step(params, opt_state, batch, rng=None):
         if accum_steps == 1:
-            loss, grads = grads_of(params, cut(batch))
+            loss, grads = step.grads_of(params, cut(batch))
         else:
             split = pytree.tree_map(
                 lambda x: x.reshape((accum_steps, x.shape[0] // accum_steps)
@@ -223,7 +226,7 @@ def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig,
             loss, grads = None, None
             for a in range(accum_steps):
                 mb = cut(pytree.tree_map(lambda x: x[a], split))
-                l, g = grads_of(params, mb)
+                l, g = step.grads_of(params, mb)
                 g = pytree.tree_map(lambda x: x.float(), g)
                 if grads is None:
                     loss, grads = l.float(), g
@@ -245,6 +248,7 @@ def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig,
         mark("end")
         return params, opt_state, dict(loss=loss, **om)
 
+    step.grads_of = grads_of
     return step
 
 

@@ -501,3 +501,92 @@ def pipeline_cases(rank, world_size, init_method, case):
     except ValueError as e:
         raised = str(e)
     return dict(out=out.numpy(), raised=raised, seen=seen)
+
+
+def _rel(got, want) -> float:
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm().clamp(min=1e-30))
+
+
+def serve_cases(rank, world_size, init_method, cases):
+    """For each case ``{arch, replace, dims, tokens, cache_len, steps,
+    seq_axes, reference}``: f32 ``transformer.prefill`` and
+    ``decode_step`` with ``mesh=`` on this rank's pieces against the
+    same calls without a mesh on the whole tree (every rank runs both),
+    and against ``reference``, the reference's global arrays of the same
+    readings (``torch_specs_common.reference_lm_runs``).  Prefill: the
+    rows' logits and this rank's piece of the cache (the reference's
+    prefill cache specs); decode, from the meshless prefill's cache cut
+    to the flash-decoding layout (sequence over ``seq_axes``): the rows'
+    logits and the cache piece after each of ``steps`` steps.  Returns
+    each reading's relative L2 error against one process (``errs``) and
+    against the reference (``ref_errs``), and this rank's coordinates."""
+    from repro_torch.dist.sharding import P, data_axes, n_data, shard
+    from repro_torch.models import transformer
+    from repro_torch.models.convert import numpy_params, shard_lm_tree
+    from repro_torch.models.convert import tree_from_numpy
+    f32 = torch.float32
+    out = []
+    for case in cases:
+        mesh = mesh_of(case["dims"], rank, world_size, init_method)
+        cfg = lm_config(case)
+        params_np = numpy_params(cfg, seed=0)
+        full = tree_from_numpy(params_np, device="cpu")
+        local = shard_lm_tree(cfg, params_np, mesh)
+        da, seq_axes = data_axes(mesh), tuple(case["seq_axes"])
+        split = not set(seq_axes) & set(da)
+        tokens = torch.as_tensor(case["tokens"])
+        B = tokens.shape[0]
+        rows = (slice(mesh.coord(da) * B // n_data(mesh),
+                      (mesh.coord(da) + 1) * B // n_data(mesh))
+                if split else slice(0, B))
+        ref = case["reference"]
+        errs, ref_errs = {}, {}
+
+        def hold(name, got, want, ref_want, spec=None):
+            ref_want = torch.as_tensor(ref_want)
+            if spec is None:
+                want, ref_want = want[rows], ref_want[rows]
+            else:
+                want = shard(want, spec, mesh)
+                ref_want = shard(ref_want, spec, mesh)
+            errs[name] = _rel(got, want)
+            ref_errs[name] = _rel(got, ref_want)
+
+        want, cache = transformer.prefill(cfg, full, tokens,
+                                          case["cache_len"], f32)
+        if split:            # a prefill's rows always split over data
+            got, piece = transformer.prefill(cfg, local, tokens[rows],
+                                             case["cache_len"], f32,
+                                             mesh=mesh)
+            hold("prefill_logits", got, want, ref["prefill"]["logits"])
+            kv_spec = P(None, da, None,
+                        "model" if cfg.n_kv_heads % mesh.shape["model"] == 0
+                        else None, None)
+            for k in ("k", "v"):
+                hold(f"prefill_cache_{k}", piece[k], cache[k],
+                     ref["prefill"][k], kv_spec)
+        dec_spec = P(None, da if split else None, seq_axes, None, None)
+        mine = dict(k=shard(cache["k"], dec_spec, mesh),
+                    v=shard(cache["v"], dec_spec, mesh),
+                    kv_len=cache["kv_len"])
+        for step, tok in enumerate(case["steps"]):
+            tok = torch.as_tensor(tok)
+            want, cache = transformer.decode_step(cfg, full, cache, tok, f32)
+            got, mine = transformer.decode_step(cfg, local, mine, tok[rows],
+                                                f32, mesh=mesh,
+                                                seq_axes=seq_axes)
+            r = ref["decode"][step]
+            hold(f"decode_{step}_logits", got, want, r["logits"])
+            for k in ("k", "v"):
+                hold(f"decode_{step}_cache_{k}", mine[k], cache[k], r[k],
+                     dec_spec)
+        out.append(dict(errs=errs, ref_errs=ref_errs,
+                        coords=dict(mesh.coords)))
+    return out
+
+
+def specs_mesh_cases(rank, world_size, init_method, serve, grads):
+    """``serve_cases`` then ``lm_grads`` in one spawn."""
+    return dict(serve=serve_cases(rank, world_size, init_method, serve),
+                grads=lm_grads(rank, world_size, init_method, grads))
