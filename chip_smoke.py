@@ -349,6 +349,45 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def kernel_device_ms(fn, name: str, reps: int = 20) -> float:
+    """Mean device duration of the kernels whose name holds ``name`` over
+    ``reps`` calls of ``fn``, from a device-only ``torch.profiler`` pass
+    (the kernel's own time, without the host's gaps between calls)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):    # CUPTI now and then records none of a pass
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages() if name in e.key]
+        us = sum(getattr(e, "self_device_time_total", None)
+                 or getattr(e, "self_cuda_time_total", 0) or 0
+                 for e in hits)
+        count = sum(e.count for e in hits)
+        if count:
+            return us / count / 1e3
+    require(False, f"profiler: no '{name}' kernel in 3 passes of {reps} "
+            "calls")
+
+
+def host_us_per_call(fn, reps: int = 200) -> float:
+    """Host time a call of ``fn`` takes to return, launches queued
+    without a sync between calls (a wrapper slower than its kernel would
+    set ``cuda_ms``)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e6
+
+
 def host_synced_s(fn, reps: int) -> float:
     """Mean host wall time of ``fn()`` with the device synced before and
     after each call (for work that launches many kernels and reads back
@@ -528,18 +567,28 @@ def ptxas_label(entry: str) -> str:
     m = re.search(r"sm_f32_kernelILb([01])E", entry)
     if m:
         return f"f32, {'16-byte' if m.group(1) == '1' else 'scalar'} loads"
+    m = re.search(r"embedding_bag_(scalar_)?kernelI(f|13__nv_bfloat16)"
+                  r"(f|S1_)([il])(?:Li(\d+)E)?", entry)
+    if m:
+        table = "f32" if m.group(2) == "f" else "bf16"
+        out = "f32" if m.group(3) == "f" else table
+        ids = f"int{32 if m.group(4) == 'i' else 64} ids"
+        how = "one element a load" if m.group(1) else f"bpt {m.group(5)}"
+        return f"{table} -> {out}, {ids}, {how}"
     return "bf16 mma.sync" if "sm_bf16_kernel" in entry else entry
 
 
 def phase_build() -> dict:
     """Build every kernel; return the registers and spills ptxas reports
-    for each instantiation of the two CUDA-core kernels."""
+    for each instantiation of the two CUDA-core kernels and of the
+    EmbeddingBag kernel."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     built = _build.build()
     usage = {name: {ptxas_label(e): u for e, u in
                     _build.ptxas_usage(_build.REPORTS.get(name, "")).items()}
-             for name in ("flash_attention", "segment_matmul")}
+             for name in ("flash_attention", "segment_matmul",
+                          "embedding_bag")}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "built": built, "dir": str(_build.BUILD_DIR.relative_to(ROOT)),
           "ptxas": usage})
@@ -2732,10 +2781,15 @@ def phase_segment_matmul() -> tuple[dict, dict]:
 def phase_embedding_bag() -> dict:
     """The EmbeddingBag kernel against its plain version: DCN-v2's
     serve_bulk lookup (the full 62,988,288 x 16 bf16 table, 262,144 x 26
-    bags of one id, int64 ids as the path makes them) bit for bit, beside
-    ``F.embedding_bag``; then multi-hot bags (8 slots, f32 weights, 30%
-    ``-1`` pads, d 16 and 128) to ``KERNEL_TOL``, reading two faults with
-    the plain version: weights ignored, pads not masked."""
+    bags of one id, int64 ids as the path makes them) bit for bit in both
+    output modes, and equal to ``torch.index_select`` on the same ids (the
+    library yardstick: one call, the same function on bags of one),
+    beside ``F.embedding_bag``; then multi-hot bags (8 slots, f32 weights,
+    30% ``-1`` pads, d 16 and 128) to ``KERNEL_TOL``, reading two faults
+    with the plain version (weights ignored, pads not masked), each timed
+    beside its bound (this run's ids, the weights and rows of its
+    non-pad slots, the output) and ``F.embedding_bag`` (pads as zero
+    weights)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -2744,6 +2798,7 @@ def phase_embedding_bag() -> dict:
     from repro_torch.kernels.embedding_bag.ops import embedding_bag
     from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
     from repro_torch.models.recsys import table_offsets
+    t0 = time.perf_counter()
     cfg = get_config("dcn-v2")
     gen = torch.Generator(device="cuda").manual_seed(0)
     table = (torch.randn((cfg.v_total, cfg.embed_dim), generator=gen,
@@ -2756,6 +2811,9 @@ def phase_embedding_bag() -> dict:
     torch.cuda.synchronize()
     require(torch.equal(got, want),
             "embedding_bag serve_bulk: kernel != plain version bit for bit")
+    flat = gid.view(-1)
+    require(torch.equal(torch.index_select(table, 0, flat), got),
+            "embedding_bag serve_bulk: kernel != torch.index_select")
     # the f32-output mode (a row-sharded table's partial bags): the f32
     # sums, equal to the plain version's and, rounded, to the bf16 output
     got32 = embedding_bag(table, gid, out_dtype=torch.float32)
@@ -2768,11 +2826,12 @@ def phase_embedding_bag() -> dict:
     n = gid.shape[0]
     nbytes = n * 8 + 2 * n * cfg.embed_dim * table.element_size()
     ones = torch.ones((n, 1), dtype=table.dtype, device="cuda")
-    try:                  # the yardstick: one PyTorch call, same function
+    try:                  # one PyTorch call of the EmbeddingBag itself
         F.embedding_bag(gid, table, mode="sum", per_sample_weights=ones)
         lib_kw = dict(per_sample_weights=ones)
     except RuntimeError:  # a torch without bf16 per-sample weights
         lib_kw = {}
+    gather_ms = cuda_ms(lambda: torch.index_select(table, 0, flat), reps=20)
     rec = dict(name="embedding_bag", route="cuda",
                source="src/repro_torch/kernels/embedding_bag/csrc/"
                       "embedding_bag.cu",
@@ -2782,15 +2841,19 @@ def phase_embedding_bag() -> dict:
                ms=cuda_ms(lambda: embedding_bag(table, gid), reps=20),
                plain_ms=cuda_ms(lambda: embedding_bag_ref(table, gid),
                                 reps=3),
-               library_ms=cuda_ms(lambda: F.embedding_bag(
+               library_ms=gather_ms, library="torch.index_select",
+               gather_ms=gather_ms,
+               f_embedding_bag_ms=cuda_ms(lambda: F.embedding_bag(
                    gid, table, mode="sum", **lib_kw), reps=20),
-               library_weighted=bool(lib_kw),
+               f_embedding_bag_weighted=bool(lib_kw),
                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
                max_abs_err=0.0)
     emit({"phase": "embedding_bag", "equal": True, "equal_f32_output": True,
+          "equal_index_select": True,
           **{k: v for k, v in rec.items()
              if k not in ("name", "route", "source", "replaces")}})
-    del ones
+    del ones, flat
+    rec["multi_hot"] = {}
     for d in (16, 128):
         V, Bm, bag = 1_000_000, 65_536, 8
         tab = torch.randn((V, d), generator=gen, device="cuda").to(
@@ -2810,10 +2873,25 @@ def phase_embedding_bag() -> dict:
             what, "pads not masked",
             embedding_bag_ref(tab, idx.clamp(min=0), w), want, "bfloat16")
         rec["max_abs_err"] = max(rec["max_abs_err"], r["max_abs_err"])
-        emit({"phase": "embedding_bag", "case": f"bag {bag}, 30% pads, "
-              f"f32 weights, d {d}, bf16", "V": V, "B": Bm, **r})
-        del tab, idx, w, got, want
+        valid = int((idx >= 0).sum())
+        mbytes = idx.numel() * 8 + valid * (4 + d * 2) + Bm * d * 2
+        safe = idx.clamp(min=0)
+        zw = torch.where(idx >= 0, w, 0.0).to(tab.dtype)
+        try:              # bf16 per-sample weights, where torch takes them
+            lib_ms = cuda_ms(lambda: F.embedding_bag(
+                safe, tab, mode="sum", per_sample_weights=zw), reps=20)
+        except RuntimeError:
+            lib_ms = None
+        r.update(bytes=mbytes, bound_ms=mbytes / HBM_BYTES_PER_S * 1e3,
+                 bound_by="bytes", library_ms=lib_ms,
+                 ms=cuda_ms(lambda: embedding_bag(tab, idx, w), reps=20))
+        case = f"bag {bag}, 30% pads, f32 weights, d {d}, bf16"
+        rec["multi_hot"][f"d {d}"] = {k: r[k] for k in (
+            "ms", "bound_ms", "max_abs_err")}
+        emit({"phase": "embedding_bag", "case": case, "V": V, "B": Bm, **r})
+        del tab, idx, w, got, want, safe, zw
     del table, gid
+    emit({"phase": "embedding_bag", "seconds": time.perf_counter() - t0})
     return rec
 
 
@@ -5292,7 +5370,9 @@ def eb_rank_case(cfg) -> dict:
     31,494,144 local rows of the bf16 table, foreign ids ``-1``, the f32
     output mode; held to its plain version bit for bit, timed beside its
     bound (the bytes of this run's ids: every id read, the rows of the
-    local ids read, the f32 output written) and ``F.embedding_bag``."""
+    local ids read, the f32 output written) and ``F.embedding_bag``; also
+    the kernel's own duration (a device-only profile of 20 calls) and the
+    wrapper's host time a call."""
     import torch
     import torch.nn.functional as F
     from repro_torch.configs.shapes import RECSYS_SHAPES
@@ -5318,13 +5398,17 @@ def eb_rank_case(cfg) -> dict:
     nbytes = n * 8 + valid * cfg.embed_dim * 2 + n * cfg.embed_dim * 4
     w = (lid >= 0).to(table.dtype)
     safe = lid.clamp(min=0)
+
+    def call():
+        return embedding_bag(table, lid, out_dtype=torch.float32)
     return dict(
         case=f"a rank of (data={rd['data']}, model={rd['model']}): "
              f"{B // rd['data']} x {cfg.n_sparse} bags of one id into "
              f"{rows} local rows, {valid} of {n} ids local, bf16 table, "
              "f32 output", bags=n, local_ids=valid, bytes=nbytes,
-        ms=cuda_ms(lambda: embedding_bag(table, lid,
-                                         out_dtype=torch.float32), reps=20),
+        ms=cuda_ms(call, reps=20),
+        profiler_ms=kernel_device_ms(call, "embedding_bag_kernel", 20),
+        host_us=host_us_per_call(call),
         plain_ms=cuda_ms(lambda: embedding_bag_ref(
             table, lid, out_dtype=torch.float32), reps=3),
         library_ms=cuda_ms(lambda: F.embedding_bag(
@@ -5605,6 +5689,7 @@ def main() -> None:
     sm, sm_simt = timed("segment_matmul", phase_segment_matmul)
     sm_simt["ptxas"] = ptxas["segment_matmul"]
     eb = timed("embedding_bag", phase_embedding_bag)
+    eb["ptxas"] = ptxas["embedding_bag"]
     torch.cuda.empty_cache()
     timed("lm_small", phase_lm_small)
     fa["launches"] = timed("lm_full", phase_lm_full)["sm90"]

@@ -12,6 +12,11 @@ torch version (``ref.py``) for CPU tensors and launches the CUDA kernel
 for CUDA tensors; on any other device, or on inputs the kernel does not
 take, it raises.  ``embedding_bag.launches`` counts the kernel launches.
 
+The launch geometry (threads a bag, bags a thread, blocks) is chosen
+here, by ``launch_geometry``, and handed to the kernel; the per-call
+host work is kept small (the entry point typed once, the geometry kept,
+the raw stream handle), since a small lookup's kernel takes ~30 us.
+
 On meta tensors inside ``roofline.cost.counting()`` (the dry run) it
 launches nothing: it returns an empty output of the kernel's shape and
 dtype and reports the kernel's work (``_meta``); outside that region a
@@ -20,13 +25,59 @@ meta tensor raises.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from .. import _build
 from .ref import embedding_bag_ref
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 5 + [ctypes.c_void_p]
+_LAUNCH_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 8
+                + [ctypes.c_void_p])
+
+#: threads of a block, row chunks a thread sends in one stage and bags a
+#: thread takes at most (the kernel's ``kThreads``, ``kInFlight`` and its
+#: largest ``BPT``)
+THREADS = 128
+IN_FLIGHT = 8
+MAX_BPT = 4
+
+
+class Geometry(NamedTuple):
+    """A launch: ``tpr`` threads a bag, ``bpt`` bags a thread, ``grid``
+    blocks of ``THREADS``."""
+    tpr: int
+    bpt: int
+    grid: int
+
+
+@functools.lru_cache(maxsize=256)      # a serving loop repeats its shapes
+def launch_geometry(B: int, d: int, bag: int, elem_size: int,
+                    vec: bool) -> Geometry:
+    """The kernel's launch for ``B`` bags of ``bag`` slots over rows of
+    ``d`` elements of ``elem_size`` bytes, read 16 bytes a copy when
+    ``vec`` (else one element a load).
+
+    The kernel's mapping: a thread group of ``tpr`` threads takes a bag,
+    lane ``l`` of it the chunks ``l, l + tpr, ...`` of the row (a chunk is
+    16 bytes, or one element without ``vec``), so a block takes ``THREADS
+    // tpr`` consecutive bags a round and ``bpt`` consecutive rounds a
+    batch, a thread one bag of each round and ``IN_FLIGHT // bpt`` slots
+    of each bag at once; block ``x`` takes batches ``x, x + grid, ...``.
+    ``tpr`` is the least power of two that covers a row's chunks, at most
+    32; ``bpt`` fills ``IN_FLIGHT`` with whole bags of one or a few slots,
+    at most ``MAX_BPT`` (1 without ``vec``); one block a batch (faster
+    on an H100 than a grid sized to the card:
+    ``scripts/embedding_bag_variants.py``).
+    """
+    per = 16 // elem_size if vec else 1
+    chunks = -(-d // per)
+    tpr = min(32, 1 << max(0, chunks - 1).bit_length())
+    fit = IN_FLIGHT // max(bag, 1)
+    bpt = min(MAX_BPT, 1 << (fit.bit_length() - 1)) if vec and fit else 1
+    rounds = -(-B // (THREADS // tpr))
+    return Geometry(tpr, bpt, max(1, min(-(-rounds // bpt), 2**31 - 1)))
 
 
 def _check_inputs(table, idx, weights, out_dtype):
@@ -90,6 +141,10 @@ def embedding_bag(table, idx, weights=None, out_dtype=None):
             return _meta(table, idx, weights, out_dtype)
     if device.type != "cuda":
         raise ValueError(f"embedding_bag: no kernel for device {device}")
+    here = torch.cuda.current_device()
+    if device.index not in (None, here):
+        with torch.cuda.device(device):     # launch where the tensors are
+            return embedding_bag(table, idx, weights, out_dtype)
     V, d = table.shape
     B, bag = idx.shape
     table, idx = table.contiguous(), idx.contiguous()
@@ -103,15 +158,15 @@ def embedding_bag(table, idx, weights=None, out_dtype=None):
     flags = (int(table.dtype == torch.bfloat16)
              | int(idx.dtype == torch.int64) << 1 | vec << 2
              | int(out_dtype != table.dtype) << 3)
-    lib = _build.library("embedding_bag")
-    fn = lib.embedding_bag_launch
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(table.data_ptr(), idx.data_ptr(),
-                None if weights is None else weights.data_ptr(),
-                out.data_ptr(), V, d, B, bag, flags, stream)
+    g = launch_geometry(B, d, bag, table.element_size(), vec)
+    fn = _build.library("embedding_bag").embedding_bag_launch  # a lookup
+    if fn.argtypes is None:                     # typed once per process
+        fn.argtypes, fn.restype = _LAUNCH_ARGS, ctypes.c_int
+    rc = fn(
+        table.data_ptr(), idx.data_ptr(),
+        None if weights is None else weights.data_ptr(), out.data_ptr(), V,
+        d, B, bag, flags, g.tpr, g.bpt, g.grid,
+        torch._C._cuda_getCurrentRawStream(here))   # current_stream(): 7 us
     _build.check(rc, "embedding_bag")
     embedding_bag.launches += 1
     return out

@@ -759,6 +759,13 @@ EB_CUDA_CASES = [
     (5000, 16, 3000, 1, False, 0.1),
     (100, 13, 50, 5, True, 0.3),
     (300, 520, 20, 3, True, 0.0),
+    # one bag; one bag past a multiple of a block's batch (128 / tpr bags
+    # a round, 4 rounds a batch for bags of one: 256 bags in bf16, 128 in
+    # f32); long bags, half pads (slots in groups of 8); every bag all pads
+    (64, 16, 1, 1, False, 0.0),
+    (5000, 16, 2049, 1, False, 0.1),
+    (1000, 16, 300, 100, True, 0.5),
+    (64, 16, 40, 3, True, 1.0),
 ]
 
 
@@ -787,6 +794,60 @@ def test_embedding_bag_kernel_equals_plain_version(cuda_device, case, dtype,
         assert torch.equal(got, want)
     else:
         torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("bag", [1, 4])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 3e-2)])
+def test_embedding_bag_kernel_on_a_misaligned_table_view(cuda_device, dtype,
+                                                         tol, bag):
+    """A table view one element into its buffer: rows of 16 elements, but
+    no 16-byte loads (the one-element path), against the plain version."""
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    V, d, B = 700, 16, 900
+    g = torch.Generator(device=cuda_device).manual_seed(17)
+    flat = torch.randn(V * d + 1, generator=g, device=cuda_device).to(dtype)
+    table = flat[1:].view(V, d)
+    assert table.data_ptr() % 16 != 0
+    idx = torch.randint(-1, V, (B, bag), generator=g, device=cuda_device)
+    w = torch.randn((B, bag), generator=g, device=cuda_device)
+    n = embedding_bag.launches
+    got = embedding_bag(table, idx, None if bag == 1 else w)
+    torch.cuda.synchronize()
+    assert embedding_bag.launches == n + 1
+    want = embedding_bag_ref(table, idx, None if bag == 1 else w)
+    if bag == 1:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("bag", [1, 4])
+def test_embedding_bag_f32_output_with_int32_ids(cuda_device, bag):
+    """The f32-output mode (a row-sharded table's partial bags) with
+    int32 ids and ``-1`` pads: the f32 sums against the plain version's
+    (bit for bit for bags of one), and rounded, the bf16 output."""
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    V, d, B = 4000, 16, 5000
+    g = torch.Generator(device=cuda_device).manual_seed(19)
+    table = torch.randn((V, d), generator=g,
+                        device=cuda_device).to(torch.bfloat16)
+    idx = torch.randint(-1, V, (B, bag), generator=g,
+                        device=cuda_device).to(torch.int32)
+    w = None if bag == 1 else torch.randn((B, bag), generator=g,
+                                          device=cuda_device)
+    n = embedding_bag.launches
+    got = embedding_bag(table, idx, w, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert embedding_bag.launches == n + 1 and got.dtype == torch.float32
+    want = embedding_bag_ref(table, idx, w, out_dtype=torch.float32)
+    if bag == 1:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    assert torch.equal(got.to(torch.bfloat16), embedding_bag(table, idx, w))
 
 
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "granite-moe-3b-a800m"])

@@ -17,7 +17,9 @@ import torch
 
 from repro.kernels.embedding_bag.ops import embedding_bag as pallas_eb
 from repro.kernels.embedding_bag.ref import embedding_bag_ref
-from repro_torch.kernels.embedding_bag.ops import embedding_bag
+from repro_torch.kernels.embedding_bag.ops import (IN_FLIGHT, THREADS,
+                                                  embedding_bag,
+                                                  launch_geometry)
 from test_kernels import EB_CASES
 
 DTYPES = {"float32": (torch.float32, jnp.float32, 1e-5),
@@ -116,3 +118,54 @@ def test_out_dtype_rules(dtype):
     np.testing.assert_allclose(f32.numpy(), want, rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError, match="out_dtype"):
         embedding_bag(tt, ti, tw, out_dtype=torch.float16)
+
+
+def _visits(g, B, d, bag, per):
+    """How often the kernel's loops, under launch ``g``, visit each bag,
+    each slot of a bag and each element of a row (a chunk is ``per``
+    elements); and the largest element index a chunk reaches."""
+    groups = THREADS // g.tpr
+    rounds = -(-B // groups)
+    batches = -(-rounds // g.bpt)               # of bpt rounds each
+    r0 = (np.arange(g.grid)[:, None]            # r0 += grid
+          + np.arange(-(-batches // g.grid) + 1)[None, :] * g.grid)
+    r0 = r0[r0 < batches]
+    r = (r0[:, None] * g.bpt + np.arange(g.bpt)[None, :]).ravel()
+    b = (r[:, None] * groups + np.arange(groups)[None, :]).ravel()
+    bags = np.bincount(b[b < B], minlength=B)
+    spg = IN_FLIGHT // g.bpt
+    slots = np.zeros(bag, np.int64)
+    for j0 in range(0, bag, spg):
+        for s in range(spg):
+            if j0 + s < bag:
+                slots[j0 + s] += 1
+    elems, last = np.zeros(d, np.int64), -1
+    for lane in range(g.tpr):
+        for c0 in range(lane * per, d, g.tpr * per):
+            elems[c0:c0 + per] += 1
+            last = max(last, c0 + per - 1)
+    return bags, slots, elems, last
+
+
+@pytest.mark.parametrize("bag", [1, 8, 100])
+@pytest.mark.parametrize("B", [1, 2, 3000, 851_968, 6_815_744])
+@pytest.mark.parametrize("elem_size", [2, 4], ids=["bf16", "f32"])
+@pytest.mark.parametrize("d", [8, 13, 16, 128, 520])
+def test_launch_geometry_covers_every_bag_and_chunk_once(d, elem_size, B,
+                                                         bag):
+    """``launch_geometry`` under the kernel's index arithmetic: every bag
+    once, every slot of a bag once, every element of a row once, never a
+    bag past B nor an element past d; one block a batch, the threads a
+    bag a power of two, the bags a thread's slots fit in one stage."""
+    vec = d * elem_size % 16 == 0          # the wrapper's rule (aligned)
+    g = launch_geometry(B, d, bag, elem_size, vec)
+    assert g.tpr in (1, 2, 4, 8, 16, 32) and g.bpt in (1, 2, 4)
+    assert g.bpt == 1 or (vec and g.bpt * bag <= IN_FLIGHT)
+    rounds = -(-B // (THREADS // g.tpr))
+    assert g.grid == -(-rounds // g.bpt)
+    per = 16 // elem_size if vec else 1
+    bags, slots, elems, last = _visits(g, B, d, bag, per)
+    assert (bags == 1).all() and (slots == 1).all() and (elems == 1).all()
+    assert last == d - 1
+    if vec:                                # one 16-byte chunk a thread
+        assert g.tpr * per >= d or g.tpr == 32
