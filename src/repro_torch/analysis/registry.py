@@ -25,7 +25,7 @@ RESILIENCE_SCOPES = ("repro_torch/api/", "repro_torch/stream/",
 # (rule obs-span-discipline; repro_torch/obs/ itself is the seam and is
 # exempted inside the rule)
 OBS_SCOPES = ("repro_torch/obs/", "repro_torch/gateway/",
-              "repro_torch/core/engine.py")
+              "repro_torch/core/engine.py", "repro_torch/core/batch.py")
 EVERYWHERE = ("",)
 
 # pseudo-rule for malformed suppression comments; never suppressible

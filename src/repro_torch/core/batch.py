@@ -17,6 +17,12 @@ Each job's result is bit-identical to ``estimate(g, motif, delta, k,
 seed=seed)``: the same candidate ranking picks the same tree, and chunk
 ``j`` draws from ``fold_in(PRNGKey(seed), j)`` whichever cohort runs it.
 
+Telemetry: every candidate the planner resolves opens the ``obs`` span
+``planner.weights`` (attrs ``signature``, ``delta``, ``hit``; on a miss
+also ``W``, ``dep_sums``, the dep-sum kernel launches its weight DP
+made, and ``bytes``, the Weights' size); a miss's ``elapsed_s`` is what
+``preprocess_s`` sums.  The planner reads no clock of its own.
+
 The reference also caches a compiled preprocess program per process
 (``weights.cached_preprocess_fn``); torch compiles nothing, so the port
 has no counterpart.  The device is fixed per planner, so the cache key
@@ -24,10 +30,11 @@ carries no backend.
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import Iterable, Sequence
 
+from .. import obs
+from ..kernels.interval_weight.ops import dep_sum
 from . import rng
 from .estimator import EstimateResult, require_device
 from .graph import TemporalGraph
@@ -94,18 +101,24 @@ class BatchPlanner:
         # signature fields, so trees of different motifs sharing one
         # resolve to one Weights object, the identity the engine's
         # cohorts key on
-        key = (tree_signature(tree), int(delta), self._wd(delta),
-               self.use_c2)
-        if key in self._weights:
-            self.preprocess_hits += 1
-        else:
-            self.preprocess_calls += 1
-            t0 = time.perf_counter()
-            self._weights[key] = preprocess(
-                self.g, tree, delta, dev=self.dev, use_c2=self.use_c2,
-                use_c3=self.use_c3)
-            int(self._weights[key].W_total)          # device synced
-            self.preprocess_s += time.perf_counter() - t0
+        sig = tree_signature(tree)
+        key = (sig, int(delta), self._wd(delta), self.use_c2)
+        hit = key in self._weights
+        with obs.span("planner.weights", signature=str(sig),
+                      delta=int(delta), hit=hit) as sp:
+            if hit:
+                self.preprocess_hits += 1
+            else:
+                self.preprocess_calls += 1
+                launches = dep_sum.launches
+                w = self._weights[key] = preprocess(
+                    self.g, tree, delta, dev=self.dev, use_c2=self.use_c2,
+                    use_c3=self.use_c3)
+                sp.set(W=int(w.W_total),                 # device synced
+                       dep_sums=dep_sum.launches - launches,
+                       bytes=w.nbytes)
+        if not hit:
+            self.preprocess_s += sp.elapsed_s
         return self._weights[key]
 
     def plan(self, motif: TemporalMotif, delta: int

@@ -46,10 +46,20 @@ hidden fallback.  A witness window retries the same way.
 
 Telemetry (``repro_torch.obs``): spans ``engine.dispatch`` (per cohort
 window) with ``engine.device`` (per attempt) inside it, and
-``engine.witness``; the profile seam starts and stops around cohort
-windows; the ``repro_sampler_samples_per_s`` gauge (every shard's
-samples); ``STATS`` is a registry ``CounterBlock``.  All timing goes
-through ``obs``.
+``engine.witness``.  At level ``trace`` each chunk of an attempt adds
+stage spans under ``engine.device``, each with attr ``chunk``:
+``sampler.draw`` and one ``validate.lane`` per count lane (1 + M spans
+for M lanes).  On a card each carries ``device_ms`` from a pair of CUDA
+timing events on the current stream, read once the attempt's host copy
+has returned, so no sync is added (``obs.device_stages``); a failed
+attempt's stage records carry its error and no device time.  Below
+``trace`` an attempt reads the level once and opens no stage span and
+no event.  Every record made at ``trace`` carries ``ts_ns``, its start
+on the profiler's clock.  The profile seam starts and stops around
+cohort windows;
+``STATS.samples_drawn`` (``repro_engine_samples_drawn_total``) counts
+every shard's samples at every level; ``STATS`` is a registry
+``CounterBlock``.  All timing goes through ``obs``.
 
 The data mesh (``mesh=``, ``launch.mesh.EstimatorMesh``): one process,
 one shard per entry of ``mesh.devices``, as the reference's
@@ -134,6 +144,8 @@ def make_engine_window_fn(trees, chunk: int, Lmax: int, device, mesh=None):
     call, then every lane's counts.  Shards interleave chunk by chunk
     and an offset past ``n`` is never launched.  The sums stay on the
     devices (the caller reads them once, at the end of the window).
+    Each chunk points the attempt's stage spans, if any, at its index
+    (``obs.stages_at``).
     """
     devices = shard_devices(mesh, device)
     D = len(devices)
@@ -143,10 +155,10 @@ def make_engine_window_fn(trees, chunk: int, Lmax: int, device, mesh=None):
 
     def window(shards, base_keys, j0, n):
         J = base_keys.shape[0]
-        keys, sums = [], []
+        keys, sums, firsts = [], [], []
         for d, on in enumerate(devices):
-            offs = torch.arange(n)[folded_axis_index(mesh, ("data",),
-                                                     {"data": d})::D]
+            firsts.append(folded_axis_index(mesh, ("data",), {"data": d}))
+            offs = torch.arange(n)[firsts[d]::D]
             keys.append(rng.fold_in(base_keys[:, None, :], j0 + offs)
                         .transpose(0, 1).contiguous().to(on))  # [slots, J, 2]
             sums.append(torch.zeros((len(ACC_KEYS), J, len(trees)),
@@ -158,6 +170,7 @@ def make_engine_window_fn(trees, chunk: int, Lmax: int, device, mesh=None):
                 if i == 0:
                     fire("engine.shard", tag=f"{on.type}:{d}")
                 dev, wts = shards[d]
+                obs.stages_at(on, j0 + firsts[d] + i * D)   # chunk index
                 out = cc_fn(dev, wts, bs_fns[on](dev, wts, keys[d][i]))
                 sums[d] += torch.stack([out[kk] for kk in ACC_KEYS])
         return sums
@@ -330,9 +343,6 @@ class ExecutionPlan:
         return group.shards
 
 
-_SAMPLES_PER_S = obs.REGISTRY.gauge(
-    "repro_sampler_samples_per_s",
-    "sampler throughput over the most recent cohort window dispatch")
 _WITNESS_SECONDS = obs.REGISTRY.counter(
     "repro_engine_witness_seconds_total",
     "wall seconds in witness windows, device synced")
@@ -350,6 +360,9 @@ class EngineStats(obs.CounterBlock):
     ``tree_cohorts``        cohort windows dispatched
     ``cohort_motif_lanes``  distinct motif lanes over those windows
     ``samples_shared``      samples consumed without being redrawn
+    ``samples_drawn``       samples drawn by count windows, one per
+                            stream row and chunk (the port's own; its
+                            rate is the sampler's samples/s)
     ``witness_dispatches``  witness windows run
     ``witness_chunks``      chunks re-drawn by witness windows (the
                             port's own: on the card one sampler launch
@@ -362,7 +375,7 @@ class EngineStats(obs.CounterBlock):
     _PREFIX = "repro_engine"
     _FIELDS = ("dispatches", "fused_dispatches", "job_windows",
                "tree_cohorts", "cohort_motif_lanes", "samples_shared",
-               "witness_dispatches", "witness_chunks")
+               "samples_drawn", "witness_dispatches", "witness_chunks")
     _DOCS = {
         "dispatches": "window dispatches launched",
         "fused_dispatches": "cohort windows carrying more than one job",
@@ -370,6 +383,7 @@ class EngineStats(obs.CounterBlock):
         "tree_cohorts": "cohort windows dispatched",
         "cohort_motif_lanes": "distinct motif lanes over cohort windows",
         "samples_shared": "samples consumed without being redrawn",
+        "samples_drawn": "samples drawn by count windows (every shard)",
         "witness_dispatches": "witness reservoir windows run",
         "witness_chunks": "chunks re-drawn by witness windows",
     }
@@ -551,10 +565,12 @@ def _attempt_dispatch(window_fn, shards, base_keys, j0, n, backend):
     window's sums as a host int64 tensor ``[6, J, M]``.  Every shard's
     sums are copied to the host and combined inside the loop: a fault of
     an asynchronous launch on any shard surfaces at its copy, so it
-    fails the whole window and meets the retries and the ladder."""
+    fails the whole window and meets the retries and the ladder.  At
+    level ``trace`` the attempt's stage spans are read and recorded
+    after that copy (``obs.device_stages``)."""
     def attempt():
         with obs.span("engine.device", stage="device", backend=backend,
-                      j0=int(j0), n=int(n)):
+                      j0=int(j0), n=int(n)), obs.device_stages():
             return combine(window_fn(shards, base_keys, j0, n))
 
     return _retrying("engine.dispatch", backend, j0, attempt)
@@ -704,8 +720,6 @@ def run_plan(plan: ExecutionPlan, on_window=None) -> list[EstimateResult]:
                 if profiling:
                     obs.profile_window_end()
                 dt = sp.elapsed_s
-                if obs.enabled() and dt > 0:
-                    _SAMPLES_PER_S.set(plan.chunk * n * len(keys) / dt)
                 sums = dict(zip(ACC_KEYS, sums.tolist()))
                 plan.dispatches += n_disp
                 STATS.dispatches += n_disp
@@ -716,6 +730,7 @@ def run_plan(plan: ExecutionPlan, on_window=None) -> list[EstimateResult]:
                 STATS.cohort_motif_lanes += len({j.lane for j in cjobs})
                 STATS.samples_shared += (plan.chunk * n
                                          * (len(cjobs) - len(keys)))
+                STATS.samples_drawn += plan.chunk * n * len(keys)
                 for job in cjobs:
                     wsums = {kk: int(sums[kk][row_of[job.seed]][job.lane])
                              for kk in ACC_KEYS}

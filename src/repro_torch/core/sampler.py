@@ -21,6 +21,13 @@ the chunk keys of J streams at once (one kernel launch for all of
 them), and ``make_cohort_count_fn`` runs each lane motif's own count fn
 over the same ``[J, K]`` samples.
 
+Telemetry: inside an engine window attempt at ``obs`` level ``trace``
+each chunk opens the stage spans (``obs.stage``) ``sampler.draw`` (the
+tree-sampler launch) and one ``validate.lane`` a count lane (attrs
+``lane``, ``motif``), each with its CUDA-event ``device_ms`` on a card.
+Below ``trace``, and for every other caller, ``obs.stage`` opens
+nothing.
+
 Witness capture (``make_witness_fn``) re-draws a counted chunk with the
 counting path's key (on the card a second launch of the sampler kernel)
 and keeps its accepted samples of least ``witness_priority``, a
@@ -31,6 +38,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import obs
 from ..kernels.tree_sampler.ops import build_schedule, tree_sampler_keyed
 from .estimator import ACC_KEYS
 from .rng import _join64
@@ -67,9 +75,10 @@ def make_sample_fn(tree: SpanningTree, K: int, device):
         if on.type != device.type or device.index not in (None, on.index):
             raise ValueError(f"sampler built for {device}, graph on "
                              f"{dev['t'].device}")
-        edges, window = tree_sampler_keyed(schedule, tree.root,
-                                           tree.num_edges, dev, wts,
-                                           key.to(device), K)
+        with obs.stage("sampler.draw"):
+            edges, window = tree_sampler_keyed(schedule, tree.root,
+                                               tree.num_edges, dev, wts,
+                                               key.to(device), K)
         flat = edges.reshape(-1, tree.num_edges)
         phi_v = vertex_map(tree, dev, flat).reshape(*edges.shape[:-1], -1)
         return dict(edges=edges, window=window, phi_v=phi_v)
@@ -103,19 +112,26 @@ def make_cohort_count_fn(lane_trees, K: int, Lmax: int = 16,
     the chunk axis on the device.  The lanes share the samples and never
     a key: no lane index reaches the sampling keys (the reference's lint
     rule ``det-cohort-key``), so cell ``[i, l]`` is bit-identical to a
-    solo run of lane ``l``'s motif on stream ``i``.
+    solo run of lane ``l``'s motif on stream ``i``.  Each lane's count
+    and sums run in the stage span ``validate.lane`` (attrs ``lane``,
+    ``motif``).
     """
     count_fns = tuple(make_count_fn(t, K, Lmax=Lmax) for t in lane_trees)
+    motifs = tuple(t.motif.name for t in lane_trees)
 
     def fn(dev, wts, samples):
         J = samples["edges"].shape[0]
         flat = {name: v.reshape(J * v.shape[1], *v.shape[2:])
                 for name, v in samples.items()}
-        outs = [cf(dev, wts, flat) for cf in count_fns]
-        return {k: torch.stack([o[k].reshape(J, -1).sum(dim=1,
-                                                         dtype=torch.int64)
-                                for o in outs], dim=1)
-                for k in keys}
+        lanes = []
+        for lane, cf in enumerate(count_fns):
+            with obs.stage("validate.lane", lane=lane, motif=motifs[lane]):
+                o = cf(dev, wts, flat)
+                lanes.append([o[k].reshape(J, -1).sum(dim=1,
+                                                      dtype=torch.int64)
+                              for k in keys])
+        return {k: torch.stack([sums[i] for sums in lanes], dim=1)
+                for i, k in enumerate(keys)}
 
     return fn
 

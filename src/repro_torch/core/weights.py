@@ -63,6 +63,12 @@ class Weights:
         """Window-array length (>= q; == q on unpadded graphs)."""
         return int(self.ps_win.shape[0]) - 1
 
+    @property
+    def nbytes(self) -> int:
+        """Bytes held by the arrays (``ARRAY_FIELDS``)."""
+        arrays = (getattr(self, k) for k in ARRAY_FIELDS)
+        return sum(x.nelement() * x.element_size() for x in arrays)
+
     def to(self, device) -> "Weights":
         """An exact copy on ``device`` (the arrays are int64)."""
         return dataclasses.replace(self, **{

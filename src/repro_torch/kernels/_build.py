@@ -7,6 +7,10 @@ compiled for Hopper (``-gencode arch=compute_90a,code=sm_90a``) into
 ``.gitignore`` lists; a library older than any of its sources is
 rebuilt.  Only the repository's own sources are read.
 
+Each batch of ``nvcc`` processes runs inside the ``obs`` span
+``kernels.build`` (attr ``names``), so a request slowed by a first
+build, or a kernel built again, shows by name in a trace.
+
 Calling convention of every entry point: pointers and the stream are
 ``c_void_p``, sizes ``c_int64``; the launch runs on the caller's stream
 (``torch.cuda.current_stream()``) and the function returns
@@ -22,6 +26,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from .. import obs
 from ..resilience.errors import CudaLaunchError
 
 _KERNELS = Path(__file__).resolve().parent
@@ -103,19 +108,23 @@ def build(names=None) -> list[str]:
     output if any build fails.
     """
     todo = [n for n in (SOURCES if names is None else names) if _stale(n)]
-    started = {n: _start(n) for n in todo}
-    COUNTS["builds"] += len(todo)
-    errors = []
-    for name, (proc, tmp) in started.items():
-        out, _ = proc.communicate()
-        REPORTS[name] = out
-        if proc.returncode != 0:
-            errors.append(f"nvcc {name} (exit {proc.returncode}):\n{out}")
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, library_path(name))
-    if errors:
-        raise RuntimeError("\n".join(errors))
+    if not todo:
+        return todo
+    with obs.span("kernels.build", names=list(todo)):
+        started = {n: _start(n) for n in todo}
+        COUNTS["builds"] += len(todo)
+        errors = []
+        for name, (proc, tmp) in started.items():
+            out, _ = proc.communicate()
+            REPORTS[name] = out
+            if proc.returncode != 0:
+                errors.append(f"nvcc {name} (exit {proc.returncode}):"
+                              f"\n{out}")
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, library_path(name))
+        if errors:
+            raise RuntimeError("\n".join(errors))
     return todo
 
 

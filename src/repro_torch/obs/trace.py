@@ -19,7 +19,20 @@ changes is recording:
   ``repro_stage_seconds`` histogram family;
 * ``trace``   — additionally every span/event lands in the bounded
   ring-buffer **flight recorder**, exported as NDJSON by the
-  ``{"cmd": "trace"}`` wire verb or ``--trace-out PATH``.
+  ``{"cmd": "trace"}`` wire verb or ``--trace-out PATH``.  Each record
+  also carries ``ts_ns``, its start on the profiler's clock
+  (:mod:`.clock`; anchored when the level becomes ``trace``).
+
+**Device stages.**  At ``trace`` level each engine window attempt
+(``engine.device``) enters a :class:`DeviceStages` (:func:`device_stages`),
+and inside it :func:`stage` opens one :class:`DeviceSpan` per stage of
+a chunk.  On a card each such span also records a pair of CUDA timing
+events on the current stream; their ``device_ms`` is read, and the
+records appended, when the owner closes after the window's one host
+copy, so no sync is added.  An attempt that fails marks its stage
+records with the error and drops their events.  Below ``trace``
+:func:`device_stages` is a no-op context, and :func:`stage` then opens
+nothing and creates no event.
 
 The level and the ring's capacity are set in-process (:func:`set_level`,
 :func:`set_ring`; the CLI's ``--obs`` and ``--obs-ring``): the port
@@ -38,13 +51,14 @@ JSON into the armed directory.  torch is imported there, lazily.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import os
 import threading
 from collections import deque
 
-from .clock import perf_counter
+from .clock import perf_counter, profiler_ns, set_anchor
 from .registry import REGISTRY
 
 OFF, METRICS, TRACE = 0, 1, 2
@@ -68,7 +82,8 @@ def enabled(min_level: int = METRICS) -> bool:
 
 def set_level(value: str | None) -> None:
     """Set the obs level in-process (tests / CLI); None restores the
-    default (``off``)."""
+    default (``off``).  Becoming ``trace`` re-anchors the profiler's
+    clock (``clock.set_anchor``)."""
     global _LEVEL
     if value is None:
         value = DEFAULT_LEVEL
@@ -76,6 +91,8 @@ def set_level(value: str | None) -> None:
         raise ValueError(f"obs level {value!r} "
                          f"(want {'|'.join(_LEVEL_NAMES)})")
     _LEVEL = _LEVEL_NAMES[value]
+    if _LEVEL == TRACE:
+        set_anchor()
 
 
 # ---------------------------------------------------------------------------
@@ -241,15 +258,19 @@ class Span:
                    "span": self.span_id, "parent": self.parent_id,
                    "t0": round(self.t0, 6),
                    "dur_s": round(self.elapsed_s, 9),
-                   "thread": threading.current_thread().name}
+                   "thread": threading.current_thread().name,
+                   "ts_ns": profiler_ns(self.t0)}
             if self.stage is not None:
                 rec["stage"] = self.stage
             if exc_type is not None:
                 rec["error"] = exc_type.__name__
             if self.attrs:
                 rec["attrs"] = self.attrs
-            RECORDER.append(rec)
+            self._emit(rec)
         return False
+
+    def _emit(self, rec: dict) -> None:
+        RECORDER.append(rec)
 
 
 def span(name: str, *, stage: str | None = None, trace: str | None = None,
@@ -266,9 +287,11 @@ def event(name: str, *, trace: str | None = None, **attrs) -> None:
         return
     if trace is None:
         trace = current_trace()
+    t = perf_counter()
     rec = {"name": name, "trace": trace, "span": next(_SPAN_SEQ),
-           "parent": 0, "t0": round(perf_counter(), 6), "dur_s": 0.0,
-           "thread": threading.current_thread().name}
+           "parent": 0, "t0": round(t, 6), "dur_s": 0.0,
+           "thread": threading.current_thread().name,
+           "ts_ns": profiler_ns(t)}
     if attrs:
         rec["attrs"] = attrs
     RECORDER.append(rec)
@@ -277,7 +300,9 @@ def event(name: str, *, trace: str | None = None, **attrs) -> None:
 def observe_stage(stage: str, dt: float, *, trace: str | None = None,
                   **attrs) -> None:
     """Record a DERIVED duration (e.g. queue-wait measured between two
-    threads) into the stage histogram + flight recorder."""
+    threads) into the stage histogram + flight recorder.  Its ``t0`` is
+    when it was recorded, the end of the interval; its ``ts_ns`` is the
+    start, ``dt`` before."""
     lvl = level()
     if lvl < METRICS:
         return
@@ -285,13 +310,137 @@ def observe_stage(stage: str, dt: float, *, trace: str | None = None,
     if lvl >= TRACE:
         if trace is None:
             trace = current_trace()
+        t = perf_counter()
         rec = {"name": f"stage.{stage}", "trace": trace,
                "span": next(_SPAN_SEQ), "parent": 0,
-               "t0": round(perf_counter(), 6), "dur_s": round(float(dt), 9),
-               "thread": threading.current_thread().name, "stage": stage}
+               "t0": round(t, 6), "dur_s": round(float(dt), 9),
+               "thread": threading.current_thread().name, "stage": stage,
+               "ts_ns": profiler_ns(t - float(dt))}
         if attrs:
             rec["attrs"] = attrs
         RECORDER.append(rec)
+
+
+#: idle pairs of CUDA timing events by device index: a stage span takes
+#: one and its window gives it back once read, so a traced window
+#: creates and destroys no event after the first ones
+_EVENT_PAIRS: dict = {}
+
+
+def _event_pair(device_index: int) -> tuple:
+    try:
+        return _EVENT_PAIRS[device_index].pop()
+    except (KeyError, IndexError):
+        import torch
+        return (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+
+
+class DeviceSpan(Span):
+    """A stage of an engine chunk (``trace`` level): a :class:`Span`
+    that, on a card, also records a CUDA timing event on its owner's
+    stream at its start and at its end.  Its record goes to its
+    :class:`DeviceStages` owner, which appends it once the events are
+    complete."""
+
+    __slots__ = ("_owner", "_events")
+
+    def __init__(self, owner: "DeviceStages", name: str, attrs: dict):
+        super().__init__(name, None, None, attrs)
+        self._owner = owner
+        self._events = None
+        if self._recording and owner.stream is not None:
+            self._events = _event_pair(owner.stream.device_index)
+
+    def __enter__(self) -> "DeviceSpan":
+        super().__enter__()
+        if self._events is not None:
+            self._events[0].record(self._owner.stream)
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        if self._events is not None:
+            self._events[1].record(self._owner.stream)
+        return super().__exit__(exc_type, exc, tb)
+
+    def _emit(self, rec: dict) -> None:
+        on = self._owner.stream
+        self._owner.pending.append(
+            (rec, self._events, None if on is None else on.device_index))
+
+
+class DeviceStages:
+    """The stage spans of one engine window attempt (``trace`` level).
+
+    Entered around the window and its host copy, it is its thread's
+    owner of stages: :func:`stages_at` points it at a chunk (on a card
+    it takes the device's current stream, where the chunk's work and
+    its events go) and :func:`stage` opens a :class:`DeviceSpan` of it
+    whose attrs carry the chunk index.  On a clean exit every span's
+    ``device_ms`` (on a card) is read from its events, which the copy
+    has completed, the events go back to the pool and the records are
+    appended to the flight recorder; on an error the records are marked
+    with it and their events dropped."""
+
+    __slots__ = ("pending", "stream", "chunk", "_prev")
+
+    def __init__(self):
+        self.pending: list = []
+        self.stream = None
+        self.chunk = 0
+        self._prev = None
+
+    def at(self, device, chunk: int) -> None:
+        self.chunk = int(chunk)
+        self.stream = None
+        if device.type == "cuda":
+            import torch
+            self.stream = torch.cuda.current_stream(device)
+
+    def __enter__(self) -> "DeviceStages":
+        self._prev = getattr(_CTX, "stages", None)
+        _CTX.stages = self
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        _CTX.stages = self._prev
+        pending, self.pending = self.pending, []
+        for rec, events, index in pending:
+            if exc_type is not None:
+                rec.setdefault("error", exc_type.__name__)
+            elif events is not None:
+                rec["device_ms"] = events[0].elapsed_time(events[1])
+                _EVENT_PAIRS.setdefault(index, []).append(events)
+            RECORDER.append(rec)
+        return False
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def device_stages():
+    """The stage owner of one engine window attempt: a
+    :class:`DeviceStages` at ``trace``, else a shared no-op context
+    (the one level read of an untraced attempt)."""
+    return DeviceStages() if level() >= TRACE else _NO_SPAN
+
+
+def stages_at(device, chunk: int) -> None:
+    """Point this thread's :class:`DeviceStages`, if one is open, at
+    chunk ``chunk`` on ``device``; without one, do nothing."""
+    owner = getattr(_CTX, "stages", None)
+    if owner is not None:
+        owner.at(device, chunk)
+
+
+def stage(name: str, **attrs):
+    """A stage span of the current chunk (:class:`DeviceSpan`), or,
+    outside a traced engine attempt, a shared no-op context that makes
+    no event and records nothing."""
+    owner = getattr(_CTX, "stages", None)
+    if owner is None:
+        return _NO_SPAN
+    return DeviceSpan(owner, name, {"chunk": owner.chunk, **attrs})
 
 
 def summary() -> dict:
@@ -338,6 +487,7 @@ def profile_window_start(cuda: bool = False) -> None:
             return
         try:
             from torch.profiler import ProfilerActivity, profile
+            set_anchor()        # fresh for the profiler's own stamps
             acts = [ProfilerActivity.CPU]
             if cuda:
                 acts.append(ProfilerActivity.CUDA)

@@ -1014,3 +1014,33 @@ def test_mesh_over_gloo_sharing_one_card_equals_meshless(cuda_device,
     both kernels at each rank's shapes."""
     _mesh_vs_meshless(cuda_device, tmp_path, "granite-moe-3b-a800m", (2, 2),
                       "gloo")
+
+
+def test_card_stage_spans_carry_device_times(cuda_device):
+    """At obs level ``trace`` a card run equals its untraced run, and
+    every stage span of its chunks carries a positive ``device_ms`` from
+    its CUDA events, read after the window's host copy (two cohorts:
+    M5-2/M5-3 of two lanes, M5-4 alone; four chunks each)."""
+    from repro_torch import estimate_many, obs
+    g = powerlaw_temporal_graph(**GRAPH)
+    jobs = [(m, 2000, 1024, 0) for m in ("M5-2", "M5-3", "M5-4")]
+    plain = estimate_many(g, jobs, chunk=256, device=cuda_device)
+    obs.set_level("trace")
+    obs.RECORDER.clear()
+    try:
+        traced = estimate_many(g, jobs, chunk=256, device=cuda_device)
+        recs = obs.RECORDER.records()
+    finally:
+        obs.set_level(None)
+        obs.RECORDER.clear()
+    for a, b in zip(plain, traced):
+        for f in FIELDS + ("fused_jobs",):
+            assert getattr(a, f) == getattr(b, f), f
+    by = {}
+    for r in recs:
+        by.setdefault(r["name"], []).append(r)
+    assert [len(by[n]) for n in ("sampler.draw", "validate.lane")] \
+        == [8, 12]
+    for name in ("sampler.draw", "validate.lane"):
+        assert all(r["device_ms"] > 0 and "error" not in r
+                   for r in by[name]), name
